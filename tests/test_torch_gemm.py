@@ -1,0 +1,195 @@
+"""The port's main path end to end on the CPU: ``ozimmu_tpu_torch.gemm``
+returns the same f64 bits as ``ozimmu_tpu.gemm``; plus chunking, the
+residual gate, the import boundary and the device rules of the wrappers."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import ozimmu_tpu as oz  # noqa: E402
+import ozimmu_tpu_torch as ozt  # noqa: E402
+from ozimmu_tpu_torch import testing  # noqa: E402
+from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+M, K, N = 33, 47, 65
+
+
+def _u64(x):
+    return np.asarray(x, dtype=np.float64).view(np.uint64)
+
+
+def _operands(dist="exp_rand-8", seed=0):
+    a = testing.generate_input(dist, (M, K), seed=seed)
+    b = testing.generate_input(dist, (K, N), seed=seed + 1)
+    c = testing.generate_input("normal01", (M, N), seed=seed + 2)
+    return a, b, c
+
+
+@pytest.mark.parametrize("ns", [3, 8, 9, 12, 18])
+def test_gemm_bits_match_reference(ns):
+    a, b, _ = _operands(seed=ns)
+    mode = f"fp64_int8_{ns}"
+    got = ozt.gemm(a, b, mode=mode, device="cpu")
+    assert isinstance(got, np.ndarray) and got.shape == (M, N)
+    np.testing.assert_array_equal(_u64(got), _u64(oz.gemm(a, b, mode=mode)))
+
+
+@pytest.mark.parametrize("ns", [3, 8, 9, 12, 18])
+def test_gemm_epilogue_bits_match_reference(ns):
+    """op T / C with alpha, beta and c."""
+    a, b, c = _operands(dist="normal01", seed=10 + ns)
+    at, bt = a.T.copy(), b.T.copy()
+    kw = dict(mode=f"fp64_int8_{ns}", op_a="T", op_b="C", alpha=-1.5, beta=0.25, c=c)
+    got = ozt.gemm(at, bt, device="cpu", **kw)
+    np.testing.assert_array_equal(_u64(got), _u64(oz.gemm(at, bt, **kw)))
+    # beta = 1 and alpha = 1 take the other epilogue branches
+    kw.update(alpha=1.0, beta=1.0)
+    got = ozt.gemm(at, bt, device="cpu", **kw)
+    np.testing.assert_array_equal(_u64(got), _u64(oz.gemm(at, bt, **kw)))
+
+
+def test_tensor_inputs_stay_tensors():
+    a, b, c = _operands(seed=4)
+    ta, tb, tc = (torch.from_numpy(x) for x in (a, b, c))
+    got = ozt.gemm(ta, tb, mode="fp64_int8_9", alpha=2.0, beta=-1.0, c=tc)
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.float64 and got.device.type == "cpu"
+    want = oz.gemm(a, b, mode="fp64_int8_9", alpha=2.0, beta=-1.0, c=c)
+    np.testing.assert_array_equal(_u64(got.numpy()), _u64(want))
+
+
+@pytest.mark.parametrize("n_chunks", [2, 3, 7])
+def test_chunked_equals_unchunked(n_chunks):
+    a, b, c = _operands(seed=20)
+    ta, tb, tc = (torch.from_numpy(x) for x in (a, b, c))
+    one = ozt.gemm_f64(ta, tb, 9, alpha=0.75, beta=-2.0, c=tc, n_chunks=1)
+    many = ozt.gemm_f64(ta, tb, 9, alpha=0.75, beta=-2.0, c=tc, n_chunks=n_chunks)
+    np.testing.assert_array_equal(_u64(many.numpy()), _u64(one.numpy()))
+    want = oz.gemm(a, b, mode="fp64_int8_9", alpha=0.75, beta=-2.0, c=c)
+    np.testing.assert_array_equal(_u64(one.numpy()), _u64(want))
+
+
+def test_auto_chunking_under_a_small_budget(monkeypatch):
+    a, b, _ = _operands(seed=21)
+    want = ozt.gemm_f64(torch.from_numpy(a), torch.from_numpy(b), 9, n_chunks=1)
+    monkeypatch.setenv("OZIMMU_HBM_BUDGET_MB", "0")  # forces the largest panel count
+    got = ozt.gemm_f64(torch.from_numpy(a), torch.from_numpy(b), 9)
+    np.testing.assert_array_equal(_u64(got.numpy()), _u64(want.numpy()))
+
+
+def test_residual_gate_ns9():
+    a = testing.generate_input("urand01", (96, 160), seed=30)
+    b = testing.generate_input("urand01", (160, 80), seed=31)
+    c = ozt.gemm(a, b, mode="fp64_int8_9", device="cpu")
+    r = testing.error_metrics(c, a, b)
+    assert r["relative_residual"] < 1e-15, r
+
+
+def test_staged_profiled_path_is_bitwise():
+    a, b, c = _operands(seed=40)
+    h = ozt.create(device="cpu")
+    want = ozt.gemm(a, b, mode="fp64_int8_9", alpha=3.0, beta=0.5, c=c, handle=h)
+    h.profiler.enable()
+    got = ozt.gemm(a, b, mode="fp64_int8_9", alpha=3.0, beta=0.5, c=c, handle=h)
+    np.testing.assert_array_equal(_u64(got), _u64(want))
+    phases = {row[0] for row in h.profiler.result_rows()}
+    assert phases == {"split_A", "split_B", "int8tc+accumulate_in_f64", "copy_result"}
+    assert ozt.destroy(h) == 0 and h.profiler.result_rows() == []
+
+
+def test_dgemm_mode_is_float64_matmul():
+    a, b, c = _operands(dist="normal01", seed=50)
+    got = ozt.gemm(a, b, mode="dgemm", alpha=2.0, beta=-1.0, c=c, device="cpu")
+    np.testing.assert_allclose(got, 2.0 * (a @ b) - c, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("p", [180, 190, 200])
+def test_epilogue_keeps_a_subnormal_sticky_bit_at_a_tie(p):
+    """beta * c alone is an exact half-ulp tie; alpha * a @ b, 180-200
+    binades below it, must break the tie downward.  The port keeps the
+    f32-subnormal tail that decides it and returns the correctly rounded
+    f64.  (ozimmu_tpu on XLA:CPU flushes that tail to zero and rounds the
+    tie to even, one ulp up: ROADMAP.md queue 3.)"""
+    from fractions import Fraction
+
+    a = np.array([[-(2.0 ** -(p // 2))]])
+    b = np.array([[2.0 ** -(p - p // 2)]])
+    c = np.array([[1.0 + 2.0**-52]])
+    got = ozt.gemm(a, b, mode="fp64_int8_9", beta=1.5, c=c, device="cpu")
+    exact = float(Fraction(1.5) * Fraction(c[0, 0]) + Fraction(a[0, 0]) * Fraction(b[0, 0]))
+    assert got[0, 0] == exact == 1.5 + 2.0**-52
+
+
+def test_unported_surfaces_raise():
+    a, b, _ = _operands(seed=60)
+    h = ozt.create(device="cpu")
+    with pytest.raises(NotImplementedError, match="step 8"):
+        ozt.gemm(a, b, handle=h)  # an unset mode resolves to fp64_int8_auto
+    with pytest.raises(NotImplementedError, match="step 10"):
+        ozt.gemm(a, b, mode="sgemm", handle=h)
+    with pytest.raises(NotImplementedError, match="step 9"):
+        ozt.gemm(a + 1j * a, b, mode="fp64_int8_9", handle=h)
+    from ozimmu_tpu_torch.core.api import gemm_batched
+
+    with pytest.raises(NotImplementedError, match="step 11"):
+        gemm_batched(a[None], b[None])
+
+
+def test_bad_operands_raise(monkeypatch):
+    a, b, c = _operands(seed=61)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ozt.gemm(a, a, mode="fp64_int8_9", device="cpu")
+    with pytest.raises(ValueError, match="c has shape"):
+        ozt.gemm(a, b, mode="fp64_int8_9", beta=1.0, c=c.T.copy(), device="cpu")
+    with pytest.raises(ValueError, match="requires c"):
+        ozt.gemm(a, b, mode="fp64_int8_9", beta=1.0, device="cpu")
+    with pytest.raises(TypeError):
+        ozt.gemm(torch.from_numpy(a).float(), torch.from_numpy(b).float(), mode="fp64_int8_9")
+    bad = a.copy()
+    bad[0, 0] = np.nan
+    monkeypatch.setenv("OZIMMU_CHECK_FINITE", "1")
+    with pytest.raises(ValueError, match="non-finite"):
+        ozt.gemm(bad, b, mode="fp64_int8_9", device="cpu")
+
+
+def test_numpy_inputs_default_to_cuda():
+    """The handle's default device is "cuda": without a GPU torch raises,
+    and nothing moves to the CPU silently."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; this checks the CPU-only behaviour")
+    a, b, _ = _operands(seed=62)
+    assert ozt.create().device == "cuda"
+    with pytest.raises((RuntimeError, AssertionError)):
+        ozt.gemm(a, b, mode="fp64_int8_9")
+
+
+def test_cuda_wrappers_raise_on_cpu_tensors():
+    before = (split_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
+    x = torch.ones((4, 8), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        split_cuda.split_digits(x, torch.zeros(4, dtype=torch.int32), 9, 7, 1)
+    d = torch.zeros((9, 4, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        recombine_cuda.recombine(d, d.transpose(1, 2).contiguous(), 9, 7, 8)
+    assert (split_cuda.LAUNCHES, recombine_cuda.LAUNCHES) == before
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import importlib, pkgutil, sys, ozimmu_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'ozimmu_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'ozimmu_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "clean" in out.stdout, out.stderr
