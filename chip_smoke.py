@@ -11,6 +11,21 @@ oracle, shows that the main path went through both kernels, and times the
 main path, its phases, each kernel against its plain version, and
 ``torch.matmul`` on float64.
 
+Then it drives the rest of the public GEMM API, each path with the launch
+counts set to 0 just before it and read just after:
+
+  * AUTO: ``gemm(a, b)`` with no mode at 8192^3, its 16 loss totals held
+    against the literal estimator, its bits against the chosen mode's;
+  * ZGEMM: complex128 8192^3 ``fp64_int8_9``, bits against the plain
+    pipeline, residual, time against ``torch.matmul`` on complex128, and an
+    op_a="C" / complex alpha, beta, c probe;
+  * sgemm at 4096^3: demoted operands, an f32 error bound, the caller's
+    TF32 setting kept out and restored; one complex probe;
+  * ``gemm_batched``: 8 x 1024^3, real and complex, bits against a loop;
+  * ``device_trace`` of one 4096^3 GEMM: kernel names and the device's
+    busy share over the traced window;
+  * ``warmup`` and ``reallocate_working_memory``.
+
 Any failed phase raises, and the script exits non-zero without printing a
 result.  It needs a CUDA GPU: without one it exits non-zero at once.  The
 last line of its output is a JSON object naming the device; the line
@@ -19,9 +34,12 @@ before it is a JSON object with one entry per kernel.
 
 from __future__ import annotations
 
+import glob
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -75,12 +93,37 @@ def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
     return x.shape == y.shape and torch.equal(x.view(view), y.view(view))
 
 
+def reset_launches() -> None:
+    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
+
+    torch.cuda.synchronize()
+    split_cuda.LAUNCHES = 0
+    recombine_cuda.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
+
+    torch.cuda.synchronize()
+    return {"split_digits": split_cuda.LAUNCHES, "recombine": recombine_cuda.LAUNCHES}
+
+
 def residual(got: np.ndarray, ref: np.ndarray) -> dict:
     from ozimmu_tpu_torch.testing import error_metrics
 
     r = error_metrics(got, None, None, c_ref=ref)
     if not r["relative_residual"] < RESIDUAL_GATE:
         raise AssertionError(f"relative residual {r['relative_residual']:.3e} >= {RESIDUAL_GATE}")
+    return r
+
+
+def complex_residual(got: np.ndarray, ref: np.ndarray) -> float:
+    """Relative Frobenius residual of a complex result against a
+    clongdouble reference, under the same gate."""
+    r = float(np.linalg.norm((got.astype(np.clongdouble) - ref).astype(np.complex128))
+              / np.linalg.norm(ref.astype(np.complex128)))
+    if not r < RESIDUAL_GATE:
+        raise AssertionError(f"complex relative residual {r:.3e} >= {RESIDUAL_GATE}")
     return r
 
 
@@ -175,12 +218,9 @@ def main() -> int:
     b_np = generate_input("urand01", (N, N), seed=1)
     a = torch.from_numpy(a_np).to(dev)
     b = torch.from_numpy(b_np).to(dev)
-    torch.cuda.synchronize()
-    split_cuda.LAUNCHES = 0
-    recombine_cuda.LAUNCHES = 0
+    reset_launches()
     out = ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
-    torch.cuda.synchronize()
-    launches = {"split_digits": split_cuda.LAUNCHES, "recombine": recombine_cuda.LAUNCHES}
+    launches = read_launches()
 
     bb = bits_per_int8(N)
     pda, ppa = split_with_row_exp(a, row_exponent(a, 1), NS, bb, 1)
@@ -274,6 +314,16 @@ def main() -> int:
     print(f"[time] {label}: torch.matmul float64 {N}^3: {ms_dgemm:.3f} ms, "
           f"{2 * N**3 / ms_dgemm / 1e9:.3f} TFLOPS", flush=True)
 
+    # 8.-13. the rest of the public GEMM API, each path counted on its own
+    by_path = {"main": launches}
+    by_path["auto"] = phase_auto(ozt, a, b, a_np, b_np, mats, label, rng)
+    del a, b
+    by_path["zgemm"] = phase_zgemm(ozt, label, rng)
+    phase_sgemm(ozt)
+    by_path.update(phase_batched(ozt))
+    phase_trace(ozt)
+    phase_warmup(ozt)
+
     kernels = [
         {"name": "split_digits", "route": "cuda", "source": "ozimmu_tpu_torch/csrc/split.cu",
          "replaces": "ozimmu_tpu/ops/split_pallas.py:134"},
@@ -283,12 +333,296 @@ def main() -> int:
     for kern in kernels:
         name = kern["name"]
         kern.update(launches=launches[name], max_abs_err=max_err[name],
-                    ms=ms[name], plain_ms=plain_ms[name])
+                    ms=ms[name], plain_ms=plain_ms[name],
+                    launches_by_path={p: c[name] for p, c in by_path.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def phase_auto(ozt, a, b, a_np, b_np, mats, label, rng) -> dict:
+    """8. AUTO (no mode) on the main path's operands at the default
+    threshold 0.0: totals against the literal estimator, bits against the
+    chosen mode, residual, launches."""
+    from ozimmu_tpu_torch.core.bits import exponent_field
+    from ozimmu_tpu_torch.ops.mantissa_loss import auto_mode_select, mantissa_loss_totals
+    from ozimmu_tpu_torch.schedule import bits_per_int8
+    from ozimmu_tpu_torch.testing import loss_totals_literal, reference_gemm
+
+    bb = bits_per_int8(N)
+    h = ozt.create(device="cuda")
+    if h.avg_mantissa_loss_threshold != 0.0:
+        raise AssertionError("the AUTO phase expects the default threshold 0.0")
+    totals = (mantissa_loss_totals(a, bb, 1) + mantissa_loss_totals(b, bb, 0)).cpu()
+    # the literal form materialises [16, rows, cols]: feed it 2048-row slabs
+    e_a = torch.amax(exponent_field(a), dim=1)
+    e_b = torch.amax(exponent_field(b), dim=0)
+    literal = sum(loss_totals_literal(a[r:r + 2048], e_a[r:r + 2048], bb, 1)
+                  for r in range(0, N, 2048))
+    literal = literal + sum(loss_totals_literal(b[r:r + 2048], e_b, bb, 0)
+                            for r in range(0, N, 2048))
+    if not torch.equal(totals, literal.cpu()):
+        raise AssertionError(f"AUTO totals {totals.tolist()} != literal {literal.tolist()}")
+    n_cases = 0
+    for name, x_np in mats.items():
+        x = torch.from_numpy(x_np).cuda()
+        for axis in (0, 1):
+            e = torch.amax(exponent_field(x), dim=axis)
+            for b_ in (7, 5):
+                got = mantissa_loss_totals(x, b_, axis)
+                if not torch.equal(got, loss_totals_literal(x, e, b_, axis)):
+                    raise AssertionError(
+                        f"loss totals differ from the literal form: {name} axis={axis} b={b_}")
+                n_cases += 1
+    print(f"[auto] loss totals == literal estimator: {N}^2 urand01 A and B, and {n_cases} "
+          f"cases of {sorted(mats)}", flush=True)
+
+    reset_launches()
+    out = ozt.gemm(a, b, handle=h)
+    counts = read_launches()
+    chosen = auto_mode_select(a, b, N, 0.0)
+    print(f"[auto] {N}^3 urand01, threshold 0.0 (the default): AUTO chose {chosen.value}; "
+          f"loss totals ns=3..18 {totals.tolist()}", flush=True)
+    if not chosen.is_int8:
+        raise AssertionError(f"AUTO chose {chosen.value}: these operands do not reach the kernels")
+    if not bits_equal(out, ozt.gemm(a, b, mode=chosen)):
+        raise AssertionError(f"AUTO output differs from mode={chosen.value}")
+    rows, cols = block(rng, N, N)
+    r = residual(out[rows][:, cols].cpu().numpy(), reference_gemm(a_np[rows], b_np[:, cols]))
+    if counts["split_digits"] < 2 or counts["recombine"] < 1:
+        raise AssertionError(f"the AUTO path did not launch the kernels: {counts}")
+    print(f"[auto] bits == gemm(mode={chosen.value}); sampled 64x256 block "
+          f"relative_residual={r['relative_residual']:.3e}; launches {counts}", flush=True)
+    del out
+    ms_est = cuda_ms(lambda: auto_mode_select(a, b, N, 0.0), iters=3)
+    ms_auto = cuda_ms(lambda: ozt.gemm(a, b, handle=h), iters=2)
+    print(f"[time] {label}: AUTO estimator on both {N}^2 operands: {ms_est:.3f} ms; gemm AUTO "
+          f"({chosen.value}) {N}^3: {ms_auto:.3f} ms, {2 * N**3 / ms_auto / 1e9:.3f} effective "
+          f"FP64 TFLOPS", flush=True)
+    return counts
+
+
+def plain_zgemm(a_re, a_im, b_re, b_im, ns, alpha, beta, c_re, c_im):
+    """The complex engine on the plain split and plain recombine, folded by
+    the same _zfold_passes."""
+    from ozimmu_tpu_torch.core.gemm import ZGEMM_PASSES, _exponent_plane, _zfold_passes
+    from ozimmu_tpu_torch.ops.recombine import acc_shift, fold_group_totals, group_totals
+    from ozimmu_tpu_torch.ops.split import row_exponent, split_with_row_exp
+    from ozimmu_tpu_torch.schedule import bits_per_int8
+
+    m, k = a_re.shape
+    n = b_re.shape[1]
+    bb = bits_per_int8(k)
+
+    def split(x, axis):
+        return split_with_row_exp(x, row_exponent(x, axis), ns, bb, axis)
+
+    a_planes = {0: split(a_re, 1), 1: split(a_im, 1)}
+    b_planes = {0: split(b_re, 0), 1: split(b_im, 0)}
+    SEs = []
+    for ap, bp in ZGEMM_PASSES:
+        da, pa = a_planes[ap]
+        db, pb = b_planes[bp]
+        S = fold_group_totals(group_totals(da, db, ns, k, bb), ns, k, bb)
+        SEs.append((S, _exponent_plane(pa, pb, acc_shift(ns, bb))))
+    return _zfold_passes(SEs, m, n, complex(alpha), complex(beta), c_re, c_im, a_re.device)
+
+
+def phase_zgemm(ozt, label, rng) -> dict:
+    """9. ZGEMM at 8192^3 fp64_int8_9 on complex urand01 operands, and a
+    1000x1234x777 op_a=C probe with complex alpha, beta and c."""
+    from ozimmu_tpu_torch.schedule import effective_flops
+    from ozimmu_tpu_torch.testing import generate_input, reference_gemm
+
+    a_np = generate_input("urand01", (N, N), seed=40, complex_=True)
+    b_np = generate_input("urand01", (N, N), seed=41, complex_=True)
+    a = torch.from_numpy(a_np).cuda()
+    b = torch.from_numpy(b_np).cuda()
+    reset_launches()
+    out = ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
+    counts = read_launches()
+    if counts != {"split_digits": 4, "recombine": 4}:
+        raise AssertionError(f"ZGEMM launches {counts}, expected 4 and 4")
+    planes = [x.contiguous() for x in (a.real, a.imag, b.real, b.imag)]
+    re, im = plain_zgemm(*planes, NS, 1.0, 0.0, None, None)
+    if not (bits_equal(out.real.contiguous(), re) and bits_equal(out.imag.contiguous(), im)):
+        raise AssertionError("ZGEMM output differs from the plain pipeline")
+    del re, im, planes
+    if not (torch.isfinite(out.real).all() and torch.isfinite(out.imag).all()):
+        raise AssertionError("non-finite values in the ZGEMM output")
+    rows, cols = block(rng, N, N)
+    r = complex_residual(out[rows][:, cols].cpu().numpy(),
+                         reference_gemm(a_np[rows], b_np[:, cols]))
+    print(f"[zgemm] gemm fp64_int8_{NS} complex128 {N}^3: bits == plain pipeline; sampled "
+          f"64x256 block relative_residual={r:.3e}; launches {counts}", flush=True)
+    del out
+    flops = effective_flops(N, N, N, complex_=True)
+    ms_z = cuda_ms(lambda: ozt.gemm(a, b, mode=f"fp64_int8_{NS}"), iters=3)
+    ms_zm = cuda_ms(lambda: torch.matmul(a, b), iters=3)
+    print(f"[time] {label}: ZGEMM fp64_int8_{NS} {N}^3: {ms_z:.3f} ms, {flops / ms_z / 1e9:.3f} "
+          f"effective FP64 TFLOPS; torch.matmul complex128: {ms_zm:.3f} ms, "
+          f"{flops / ms_zm / 1e9:.3f} TFLOPS", flush=True)
+    del a, b
+
+    m, n, k = 1000, 1234, 777
+    ah_np = generate_input("normal01", (k, m), seed=42, complex_=True)  # op_a="C" reads [m, k]
+    bp_np = generate_input("normal01", (k, n), seed=43, complex_=True)
+    cp_np = generate_input("normal01", (m, n), seed=44, complex_=True)
+    alpha, beta = 2.0 - 0.5j, 0.25 + 1.0j
+    got = ozt.gemm(ah_np, bp_np, mode=f"fp64_int8_{NS}", op_a="C", alpha=alpha, beta=beta,
+                   c=cp_np, device="cuda")
+    rows, cols = block(rng, m, n)
+    ref = (alpha * reference_gemm(np.conj(ah_np).T[rows], bp_np[:, cols])
+           + beta * cp_np[rows][:, cols].astype(np.clongdouble))
+    r = complex_residual(got[rows][:, cols], ref)
+    xr, xi, yr, yi = (torch.from_numpy(np.ascontiguousarray(p)).cuda()
+                      for p in (ah_np.T.real, -ah_np.T.imag, bp_np.real, bp_np.imag))
+    one = ozt.zgemm_f64(xr, xi, yr, yi, NS, alpha=alpha, n_chunks=1)
+    three = ozt.zgemm_f64(xr, xi, yr, yi, NS, alpha=alpha, n_chunks=3)
+    if not all(bits_equal(o, t) for o, t in zip(one, three)):
+        raise AssertionError("ZGEMM n_chunks=3 differs from n_chunks=1")
+    print(f"[probe] zgemm {m}x{n}x{k} op_a=C alpha={alpha} beta={beta}: "
+          f"relative_residual={r:.3e}; n_chunks=3 == n_chunks=1 bitwise", flush=True)
+    return counts
+
+
+def phase_sgemm(ozt) -> None:
+    """10. sgemm at 4096^3: demoted operands equal the plain path's (the
+    same torch ops on the CPU), the product lies within the f32 bound of an
+    f64 product of the demoted operands, and a caller's TF32 setting
+    neither leaks in nor is lost; one complex probe."""
+    from ozimmu_tpu_torch.core.api import _f64_to_f32
+    from ozimmu_tpu_torch.testing import generate_input
+
+    n = 4096
+    a_np = generate_input("normal01", (n, n), seed=50)
+    b_np = generate_input("normal01", (n, n), seed=51)
+    a, b = torch.from_numpy(a_np).cuda(), torch.from_numpy(b_np).cuda()
+    a32, b32 = _f64_to_f32(a), _f64_to_f32(b)
+    if not (bits_equal(a32.cpu(), _f64_to_f32(torch.from_numpy(a_np)))
+            and bits_equal(b32.cpu(), _f64_to_f32(torch.from_numpy(b_np)))):
+        raise AssertionError("demoted operands differ from the plain (CPU) demotion")
+    got = ozt.gemm(a, b, mode="sgemm")
+    ref = a32.double() @ b32.double()
+    bound = 2 * n * 2.0**-24 * (a32.double().abs() @ b32.double().abs())
+    worst = float(((got - ref).abs() / bound).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"sgemm error {worst:.3f} x the bound 2*k*2^-24*(|a|@|b|)")
+    saved = torch.backends.cuda.matmul.fp32_precision
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+    try:
+        tf32_on = ozt.gemm(a, b, mode="sgemm")
+        kept = torch.backends.cuda.matmul.fp32_precision
+    finally:
+        torch.backends.cuda.matmul.fp32_precision = saved
+    if not bits_equal(tf32_on, got) or kept != "tf32":
+        raise AssertionError(
+            f"a caller's TF32 setting changed the sgemm result or was lost ({kept})")
+    print(f"[sgemm] {n}^3: demoted operands == plain demotion bitwise; max |err| / bound = "
+          f"{worst:.3e} (bound 2*k*2^-24*(|a|@|b|) against the f64 product of the demoted "
+          f"operands); the caller's TF32 setting kept out and restored", flush=True)
+    del a, b, a32, b32, got, ref, bound, tf32_on
+    m = 1024
+    ac = generate_input("normal01", (m, m), seed=52, complex_=True)
+    bc = generate_input("normal01", (m, m), seed=53, complex_=True)
+    got = ozt.gemm(ac, bc, mode="sgemm", device="cuda")
+    ar, ai, br, bi = (_f64_to_f32(torch.from_numpy(np.ascontiguousarray(p)).cuda()).double()
+                      for p in (ac.real, ac.imag, bc.real, bc.imag))
+    ref_re, ref_im = ar @ br - ai @ bi, ar @ bi + ai @ br
+    bound = 4 * m * 2.0**-24 * ((ar.abs() + ai.abs()) @ (br.abs() + bi.abs()))
+    err = torch.maximum((torch.from_numpy(got.real.copy()).cuda() - ref_re).abs(),
+                        (torch.from_numpy(got.imag.copy()).cuda() - ref_im).abs())
+    worst = float((err / bound).max())
+    if not worst <= 1.0:
+        raise AssertionError(f"complex sgemm error {worst:.3f} x the bound")
+    print(f"[sgemm] complex {m}^3: max |err| / bound = {worst:.3e} "
+          f"(bound 4*k*2^-24*((|ar|+|ai|)@(|br|+|bi|)))", flush=True)
+
+
+def phase_batched(ozt) -> dict:
+    """11. gemm_batched: 8 x 1024^3, real and complex, fp64_int8_9, with c,
+    bits against a loop of 2-D gemm calls."""
+    from ozimmu_tpu_torch.testing import generate_input
+
+    B, n = 8, 1024
+    counts = {}
+    for kind in ("real", "complex"):
+        cx = kind == "complex"
+        a = torch.from_numpy(generate_input("normal01", (B, n, n), seed=60, complex_=cx)).cuda()
+        b = torch.from_numpy(generate_input("exp_rand-8", (B, n, n), seed=61, complex_=cx)).cuda()
+        c = torch.from_numpy(generate_input("normal01", (B, n, n), seed=62, complex_=cx)).cuda()
+        alpha, beta = (1.5 - 0.5j, 0.5 + 0.25j) if cx else (1.5, -0.5)
+        reset_launches()
+        out = ozt.gemm_batched(a, b, mode=f"fp64_int8_{NS}", alpha=alpha, beta=beta, c=c)
+        got = counts[f"batched_{kind}"] = read_launches()
+        if got != {"split_digits": (4 if cx else 2) * B, "recombine": (4 if cx else 1) * B}:
+            raise AssertionError(f"batched {kind} launches {got}")
+        as_real = torch.view_as_real if cx else (lambda x: x)
+        for i in range(B):
+            want = ozt.gemm(a[i], b[i], mode=f"fp64_int8_{NS}", alpha=alpha, beta=beta, c=c[i])
+            if not bits_equal(as_real(out[i]), as_real(want)):
+                raise AssertionError(f"batched {kind} matrix {i} differs from the 2-D gemm")
+        print(f"[batched] {B} x {n}^3 {kind} fp64_int8_{NS} with c: bits == loop of 2-D gemm; "
+              f"launches {got}", flush=True)
+    return counts
+
+
+def phase_trace(ozt) -> None:
+    """12. device_trace of one 4096^3 fp64_int8_9 GEMM: both kernels in
+    the trace, and the device's busy share over the traced window."""
+    from ozimmu_tpu_torch.testing import generate_input
+
+    n = 4096
+    a = torch.from_numpy(generate_input("urand01", (n, n), seed=70)).cuda()
+    b = torch.from_numpy(generate_input("urand01", (n, n), seed=71)).cuda()
+    ozt.gemm(a, b, mode=f"fp64_int8_{NS}")  # warm
+    torch.cuda.synchronize()
+    log_dir = tempfile.mkdtemp(prefix="oz_trace_")
+    with ozt.device_trace(log_dir):
+        with torch.profiler.record_function("traced_gemm"):
+            ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
+            torch.cuda.synchronize()
+    (path,) = glob.glob(os.path.join(log_dir, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {e["name"] for e in kernels}
+    for want in ("split_digits_kernel", "recombine_kernel"):
+        if not any(want in nm for nm in names):
+            raise AssertionError(f"{want} not in the traced kernels {sorted(names)}")
+    (win,) = [e for e in events
+              if e.get("name") == "traced_gemm" and e.get("cat") == "user_annotation"]
+    w0, w1 = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, w0
+    for s0, s1 in spans:
+        s0, s1 = max(s0, end), min(s1, w1)
+        if s1 > s0:
+            busy += s1 - s0
+            end = s1
+    print(f"[trace] {n}^3 fp64_int8_{NS}: {len(kernels)} device kernels traced, incl. "
+          f"split_digits_kernel and recombine_kernel; device busy {busy / 1e3:.3f} ms of a "
+          f"{(w1 - w0) / 1e3:.3f} ms window = busy share {busy / (w1 - w0):.4f}", flush=True)
+
+
+def phase_warmup(ozt) -> None:
+    """13. warmup of one shape and reallocate_working_memory of a list."""
+    from ozimmu_tpu_torch.types import ElementKind, Operation
+
+    h = ozt.create(device="cuda")
+    t0 = time.perf_counter()
+    ozt.warmup(2048, 2048, 2048, "fp64_int8_9", handle=h)
+    t_w = time.perf_counter() - t0
+    gemms = [(Operation.N, Operation.N, 2048, 1024, 2048, ElementKind.REAL, "fp64_int8_9"),
+             (Operation.N, Operation.T, 1024, 1024, 4096, ElementKind.COMPLEX, "fp64_int8_12")]
+    got = ozt.reallocate_working_memory(h, gemms)
+    if got <= 0:
+        raise AssertionError(f"reallocate_working_memory returned {got}")
+    print(f"[warmup] warmup 2048^3 fp64_int8_9 in {t_w:.3f} s; reallocate_working_memory of "
+          f"2 entries returned {got} B", flush=True)
 
 
 if __name__ == "__main__":

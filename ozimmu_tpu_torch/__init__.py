@@ -17,29 +17,73 @@ Quick start::
     c = ozt.matmul(a, b, mode="fp64_int8_9")     # on "cuda" by default
     c = ozt.gemm(a, b, mode="fp64_int8_9", device="cpu")
 
-Covered so far: real DGEMM at fp64_int8_3..18 and dgemm, op N/T/C,
-alpha/beta/c, column-panel chunking, phase profiling.  AUTO mode, complex
-operands, sgemm and batched calls raise ``NotImplementedError``.
+Covered: real and complex GEMM (``gemm``, ``matmul``, ``gemm_batched``,
+``gemm_f64``, ``zgemm_f64``) at fp64_int8_3..18, AUTO mode selection
+(``fp64_int8_auto``, also what an unset mode resolves to;
+``auto_mode_select``), the dgemm and sgemm modes, op N/T/C, alpha/beta/c,
+column-panel chunking, phase profiling, ``device_trace``, ``warmup`` and
+``reallocate_working_memory``.  Not ported yet: interception, the traced
+surface, the bench CLI, the solvers and the distributed layer.
 """
 
-from .types import ComputeMode, Operation
-from .schedule import bits_per_int8, group_schedule
-from .core.api import gemm, matmul
-from .core.gemm import gemm_f64
-from .core.handle import Handle, create, destroy
+from .types import (
+    ComputeMode,
+    ElementKind,
+    Operation,
+    INT8_MODES,
+    MAX_NUM_SPLIT,
+    MIN_NUM_SPLIT,
+    get_compute_mode_name_str,
+)
+from .schedule import bits_per_int8, group_schedule, pair_schedule
+from .core.api import auto_mode_select, gemm, gemm_batched, matmul, warmup
+from .core.gemm import gemm_f64, zgemm_f64
+from .core.handle import (
+    Handle,
+    create,
+    destroy,
+    default_handle,
+    enable_profiling,
+    disable_profiling,
+    print_profiler_result,
+    clear_profiler_result,
+    reallocate_working_memory,
+    set_auto_mantissa_loss_threshold,
+    get_auto_mantissa_loss_threshold,
+)
+from .utils.profiling import device_trace
 
 __version__ = "0.1.0"
 
 __all__ = [
     "ComputeMode",
+    "ElementKind",
     "Operation",
+    "INT8_MODES",
+    "MIN_NUM_SPLIT",
+    "MAX_NUM_SPLIT",
     "bits_per_int8",
+    "pair_schedule",
     "group_schedule",
     "gemm",
+    "gemm_batched",
     "matmul",
+    "warmup",
     "gemm_f64",
+    "zgemm_f64",
+    "auto_mode_select",
+    "get_compute_mode_name_str",
     "Handle",
     "create",
     "destroy",
+    "default_handle",
+    "enable_profiling",
+    "device_trace",
+    "disable_profiling",
+    "print_profiler_result",
+    "clear_profiler_result",
+    "reallocate_working_memory",
+    "set_auto_mantissa_loss_threshold",
+    "get_auto_mantissa_loss_threshold",
     "__version__",
 ]

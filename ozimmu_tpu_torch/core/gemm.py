@@ -1,7 +1,8 @@
 """The GEMM engine: split -> recombination -> exact epilogue.
 
-Port of ``ozimmu_tpu.core.gemm`` (real path), the equivalent of the
-reference orchestration layer (src/gemm.cu:344-521 ``gemm_int8<double>``):
+Port of ``ozimmu_tpu.core.gemm``, the equivalent of the reference
+orchestration layer (src/gemm.cu:344-521 ``gemm_int8<double>`` and
+``gemm_int8<cuDoubleComplex>``, the 4-pass complex engine):
 
   * equal-weight slice pairs are summed in int32 before any float work
     (ops/recombine.py);
@@ -14,8 +15,9 @@ kernels (ops/split_cuda.py, ops/recombine_cuda.py); on the CPU, their
 plain PyTorch versions.
 
 Layout contract: row-major logical matrices.  ``gemm_f64(a, b)`` computes
-``alpha * (a @ b) + beta * c`` for a [m, k] and b [k, n].  Transpose flags
-are applied by the public API (core/api.py).
+``alpha * (a @ b) + beta * c`` for a [m, k] and b [k, n]; ``zgemm_f64``
+does the same on the real and imaginary float64 planes of complex
+operands.  Transpose flags are applied by the public API (core/api.py).
 """
 
 from __future__ import annotations
@@ -130,3 +132,166 @@ def gemm_f64(
     if n_chunks > 1:
         return _gemm_core_nchunked(a, b, num_split, n_chunks, float(alpha), float(beta), c)
     return _gemm_core(a, b, num_split, float(alpha), float(beta), c)
+
+
+# ---------------------------------------------------------------------------
+# Complex engine: 4-pass real algorithm (reference gemm.cu:412-521).
+# ---------------------------------------------------------------------------
+
+#: the reference's pass order (gemm.cu:479-518): (A-part, B-part) with
+#: 0 = real plane, 1 = imag plane.  The output bits depend on the order of
+#: the aligned adds, so it stays exactly as the JAX package has it.
+ZGEMM_PASSES = ((1, 1), (0, 0), (1, 0), (0, 1))
+
+#: exponent of an empty accumulator: far enough below any real term that
+#: the aligned add drops the zero triple it labels.
+_EMPTY_EXP = -(2**20)
+
+
+def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im, device):
+    """Fold the four pass results into the complex output (shared by the
+    fused `_zgemm_core` and the staged/profiled path in core.api).
+
+    ``SEs`` lists (S, E) per entry of :data:`ZGEMM_PASSES`.  Fold factors
+    (reference gemm.cu:479-518): re*re -> +alpha, im*im -> -alpha, cross
+    terms -> i*alpha; C is pre-scaled by beta (init_c_complex,
+    gemm.cu:199-239).  Returns the (re, im) float64 planes.
+    """
+
+    def empty():
+        return (tf32x3.zeros((m, n), device=device),
+                torch.full((m, n), _EMPTY_EXP, dtype=torch.int32, device=device))
+
+    def init_part(cp):
+        if beta == 0 or cp is None:
+            return empty()
+        return unpack_f64(cp)
+
+    def cmul_fold(acc, fold_re, fold_im, S, E):
+        """acc(+)= (fold_re + i*fold_im) * S*2^E  on (re, im) parts."""
+        (tre, Ere), (tim, Eim) = acc
+        if fold_re != 0.0:
+            ft, fe = scalar_triple(fold_re, device=device)
+            tre, Ere = aligned_add(tre, Ere, tf32x3.mul(S, ft), E + fe)
+        if fold_im != 0.0:
+            ft, fe = scalar_triple(fold_im, device=device)
+            tim, Eim = aligned_add(tim, Eim, tf32x3.mul(S, ft), E + fe)
+        return (tre, Ere), (tim, Eim)
+
+    acc_re = init_part(c_re)
+    acc_im = init_part(c_im)
+    if beta != 0 and beta != 1:
+        # (re + i*im) * beta
+        br, bi = beta.real, beta.imag
+        tre, Ere = acc_re
+        tim, Eim = acc_im
+        acc = (empty(), empty())
+        acc = cmul_fold(acc, br, bi, tre, Ere)
+        acc = cmul_fold(acc, -bi, br, tim, Eim)
+        acc_re, acc_im = acc
+
+    for (ap, bp), (S, E) in zip(ZGEMM_PASSES, SEs):
+        if ap == 0 and bp == 0:
+            fold = alpha
+        elif ap == 1 and bp == 1:
+            fold = -alpha
+        else:
+            fold = complex(-alpha.imag, alpha.real)
+        acc_re, acc_im = cmul_fold((acc_re, acc_im), fold.real, fold.imag, S, E)
+
+    return pack_f64(*acc_re), pack_f64(*acc_im)
+
+
+def _zpasses(a_planes, b_planes, num_split: int, bb: int, k: int):
+    """(S, E) of every pass of :data:`ZGEMM_PASSES`; ``a_planes`` and
+    ``b_planes`` map 0/1 (real/imag) to (digits, pexp)."""
+    shift = acc_shift(num_split, bb)
+    SEs = []
+    for ap, bp in ZGEMM_PASSES:
+        da, pa = a_planes[ap]
+        db, pb = b_planes[bp]
+        SEs.append((recombine(da, db, num_split, bb, k), _exponent_plane(pa, pb, shift)))
+    return SEs
+
+
+def _zgemm_core(a_re, a_im, b_re, b_im, num_split: int, alpha: complex, beta: complex,
+                c_re=None, c_im=None):
+    """Complex engine core on one device: four plane splits, four
+    recombinations, one fold."""
+    m, k = a_re.shape
+    n = b_re.shape[1]
+    bb = bits_per_int8(k)
+    a_planes = {0: split_f64(a_re, num_split, bb), 1: split_f64(a_im, num_split, bb)}
+    b_planes = {0: split_f64_cols(b_re, num_split, bb), 1: split_f64_cols(b_im, num_split, bb)}
+    SEs = _zpasses(a_planes, b_planes, num_split, bb, k)
+    return _zfold_passes(SEs, m, n, alpha, beta, c_re, c_im, a_re.device)
+
+
+def _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split: int, n_chunks: int,
+                         alpha: complex, beta: complex, c_re=None, c_im=None):
+    """Column-panel-chunked 4-pass complex engine (bitwise identical to
+    :func:`_zgemm_core`): A's two plane splits happen once; each B column
+    panel runs the four recombinations and the complex fold locally (the
+    fold is elementwise, so chunking columns is exact)."""
+    m, k = a_re.shape
+    n = b_re.shape[1]
+    if n == 0:
+        return _zgemm_core(a_re, a_im, b_re, b_im, num_split, alpha, beta, c_re, c_im)
+    w = -(-n // n_chunks)
+    bb = bits_per_int8(k)
+    a_planes = {0: split_f64(a_re, num_split, bb), 1: split_f64(a_im, num_split, bb)}
+    out_re = torch.empty((m, n), dtype=torch.float64, device=a_re.device)
+    out_im = torch.empty((m, n), dtype=torch.float64, device=a_re.device)
+    for j0 in range(0, n, w):
+        j1 = min(j0 + w, n)
+        b_planes = {
+            0: split_f64_cols(b_re[:, j0:j1].contiguous(), num_split, bb),
+            1: split_f64_cols(b_im[:, j0:j1].contiguous(), num_split, bb),
+        }
+        SEs = _zpasses(a_planes, b_planes, num_split, bb, k)
+        cr = c_re[:, j0:j1] if c_re is not None else None
+        ci = c_im[:, j0:j1] if c_im is not None else None
+        out_re[:, j0:j1], out_im[:, j0:j1] = _zfold_passes(
+            SEs, m, j1 - j0, alpha, beta, cr, ci, a_re.device)
+    return out_re, out_im
+
+
+def zgemm_f64(
+    a_re: torch.Tensor,
+    a_im: torch.Tensor,
+    b_re: torch.Tensor,
+    b_im: torch.Tensor,
+    num_split: int,
+    alpha: complex = 1.0 + 0j,
+    beta: complex = 0.0 + 0j,
+    c_re: Optional[torch.Tensor] = None,
+    c_im: Optional[torch.Tensor] = None,
+    n_chunks: Optional[int] = None,
+):
+    """Emulated complex FP64 GEMM (4-pass real engine) on float64 planes:
+    ``(re, im) = alpha * (a @ b) + beta * c`` with ``a = a_re + i a_im``
+    [m, k], ``b = b_re + i b_im`` [k, n] and ``c = c_re + i c_im`` [m, n],
+    all on one device.  Returns the (re, im) float64 planes.
+
+    Like :func:`gemm_f64`, ``n_chunks=None`` auto-selects column-panel
+    streaming from the working-set estimate; chunked output is bitwise
+    identical.
+    """
+    planes = [a_re, a_im, b_re, b_im] + [x for x in (c_re, c_im) if x is not None]
+    if any(x.dtype != torch.float64 or x.dim() != 2 for x in planes):
+        raise TypeError("zgemm_f64 takes 2-D float64 planes")
+    if any(x.device != a_re.device for x in planes):
+        raise ValueError("all planes must lie on one device")
+    if a_im.shape != a_re.shape or b_im.shape != b_re.shape or a_re.shape[1] != b_re.shape[0]:
+        raise ValueError(f"shape mismatch: {tuple(a_re.shape)} @ {tuple(b_re.shape)}")
+    if bits_per_int8(a_re.shape[1]) <= 0:
+        raise ValueError(f"k={a_re.shape[1]} too large for int8 emulation")
+    a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
+    m, k = a_re.shape
+    n = b_re.shape[1]
+    if n_chunks is None:
+        n_chunks = auto_n_chunks(m, n, k, num_split, complex_=True, device=a_re.device)
+    args = (complex(alpha), complex(beta), c_re, c_im)
+    if n_chunks > 1:
+        return _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split, n_chunks, *args)
+    return _zgemm_core(a_re, a_im, b_re, b_im, num_split, *args)

@@ -30,6 +30,8 @@ from typing import List, Tuple
 
 import torch
 
+from .utils.log import error
+
 #: int32 magnitude budget for an accumulated dot product.
 _INT32_BUDGET = 2**31 - 1
 
@@ -200,8 +202,10 @@ def auto_n_chunks(
 ) -> int:
     """Smallest column-panel count whose peak working set fits the memory
     budget of ``device`` (1 = unchunked).  Doubling sweep, capped at
-    min(n, 64): beyond that the problem simply does not fit — let the
-    allocator report the out-of-memory error.
+    min(n, 64): beyond that the problem simply does not fit.  The cap is
+    then reported through ``utils.log.error`` (m, n, k, ns, budget and
+    working set) and returned; the allocator reports the out-of-memory
+    error if there is one.
     """
     budget = hbm_budget_bytes(device)
     c = 1
@@ -210,4 +214,12 @@ def auto_n_chunks(
         and c < min(n, 64)
     ):
         c *= 2
-    return min(c, max(n, 1))
+    c = min(c, max(n, 1))
+    need = working_set_bytes_chunked(m, n, k, num_split, c, complex_)
+    if need > budget:
+        error(
+            f"auto_n_chunks: m={m} n={n} k={k} ns={num_split}"
+            f"{' complex' if complex_ else ''}: working set {need} B at the cap of "
+            f"{c} column panels exceeds the memory budget {budget} B"
+        )
+    return c

@@ -1,4 +1,4 @@
-"""Test/benchmark input generators and error metrics (numpy only).
+"""Test/benchmark input generators, error metrics and plain references.
 
 A copy of the numpy part of ``ozimmu_tpu.testing``, so that a run on the
 GPU machine has an oracle without importing the JAX package:
@@ -8,6 +8,9 @@ GPU machine has an oracle without importing the JAX package:
   - error metrics ``relative_residual`` and ``max_relative_error`` against
     a higher-precision reference GEMM (reference test/mateval usage at
     test/main_test.cu:101-117).
+
+Plus :func:`loss_totals_literal`, the plain reference of the AUTO
+estimator's histogram form (ops/mantissa_loss.py).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 
 def generate_input(
@@ -70,3 +74,22 @@ def error_metrics(
         "relative_residual": residual,
         "max_relative_error": float(np.max(rel)),
     }
+
+
+def loss_totals_literal(x: torch.Tensor, e_group: torch.Tensor, b: int, axis: int) -> torch.Tensor:
+    """The JAX package's literal loss estimator
+    (``ozimmu_tpu.ops.mantissa_loss.loss_totals_with_group_exp``):
+    ``required`` broadcast against all 16 candidate split counts and
+    summed in int64.  It materialises a [16, rows, cols] tensor, so large
+    operands are best fed in row slabs (the totals add up exactly)."""
+    bits = x.view(torch.int64)
+    e = ((bits >> 52) & 0x7FF).to(torch.int32)
+    value_nonzero = (e > 0) | ((bits & ((1 << 52) - 1)) != 0)
+    bcast = (slice(None), None) if axis == 1 else (None, slice(None))
+    eg = e_group.to(torch.int32)[bcast]
+    valid = value_nonzero & (eg > 0)
+    required = torch.where(valid, (eg + 1 - e) + 53, 0)
+    space = (torch.arange(3, 19, dtype=torch.int32, device=x.device) * b)[:, None, None]
+    loss = torch.clamp(required[None] - space, min=0)
+    loss = torch.where(valid[None], loss, 0)
+    return loss.to(torch.int64).sum(dim=(1, 2))

@@ -12,11 +12,16 @@ Two mechanisms, mirroring the reference:
   2. :func:`culip_timer` — per-call timing printed as
      ``[CULiP Result][<name>-m..n..k..] <ns> [ns]`` gated by
      ``OZIMMU_ENABLE_CULIP_PROFILING`` (reference src/culip.cu:14-50).
+
+For kernel timelines, :func:`device_trace` records a ``torch.profiler``
+trace of a block.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, List
@@ -107,3 +112,42 @@ def culip_timer(name: str, sync_fn=None) -> Iterator[None]:
         sync_fn()
     dt = time.perf_counter_ns() - t0
     print(f"[CULiP Result][{name}] {dt} [ns]", flush=True)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[None]:
+    """Record a ``torch.profiler`` trace (host ops, and CUDA kernels where
+    a GPU is present) of everything inside the block, and write it into
+    ``log_dir`` as one Chrome-trace JSON file (view with Perfetto or
+    chrome://tracing) — the deep-analysis complement to
+    :class:`PhaseProfiler`.
+
+    ::
+
+        with ozt.device_trace("oz_trace"):
+            c = ozt.matmul(a, b, mode="fp64_int8_9")
+
+    Raises ``RuntimeError`` if the block launched CUDA kernels and the
+    trace holds none of them (the profiler could not trace the device):
+    an empty device trace is never written silently.
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(log_dir, f"ozimmu_trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                   and "LaunchKernel" in e.get("name", ""))
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    if launches and not kernels:
+        raise RuntimeError(
+            f"device_trace: {launches} kernel launches in the block but no device "
+            f"kernel in the trace ({path}); the profiler cannot trace this GPU"
+        )

@@ -1,6 +1,7 @@
 """The port's main path end to end on the CPU: ``ozimmu_tpu_torch.gemm``
-returns the same f64 bits as ``ozimmu_tpu.gemm``; plus chunking, the
-residual gate, the import boundary and the device rules of the wrappers."""
+returns the same f64 bits as ``ozimmu_tpu.gemm``, with a mode or with
+none (AUTO); plus chunking, the residual gate, warm-up, the device trace,
+the import boundary and the device rules of the wrappers."""
 
 import os
 import subprocess
@@ -126,19 +127,60 @@ def test_epilogue_keeps_a_subnormal_sticky_bit_at_a_tie(p):
     assert got[0, 0] == exact == 1.5 + 2.0**-52
 
 
-def test_unported_surfaces_raise():
-    a, b, _ = _operands(seed=60)
+@pytest.mark.parametrize("dist", ["urand01", "normal01"])
+@pytest.mark.parametrize("op_a,op_b", [("N", "N"), ("T", "C")])
+def test_no_mode_is_auto_and_matches_reference(dist, op_a, op_b):
+    """An unset mode resolves to fp64_int8_auto; on these operands AUTO
+    picks an int8 mode (the same as the JAX package's), so the bits are
+    equal."""
+    a, b, c = _operands(dist=dist, seed=63)
+    a = a if op_a == "N" else a.T.copy()
+    b = b if op_b == "N" else b.T.copy()
     h = ozt.create(device="cpu")
-    with pytest.raises(NotImplementedError, match="step 8"):
-        ozt.gemm(a, b, handle=h)  # an unset mode resolves to fp64_int8_auto
-    with pytest.raises(NotImplementedError, match="step 10"):
-        ozt.gemm(a, b, mode="sgemm", handle=h)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        ozt.gemm(a + 1j * a, b, mode="fp64_int8_9", handle=h)
-    from ozimmu_tpu_torch.core.api import gemm_batched
+    mode = ozt.auto_mode_select(a, b, op_a=op_a, op_b=op_b, handle=h)
+    assert mode.is_int8
+    kw = dict(op_a=op_a, op_b=op_b, alpha=-0.5, beta=2.0, c=c)
+    got = ozt.gemm(a, b, handle=h, **kw)
+    np.testing.assert_array_equal(_u64(got), _u64(oz.gemm(a, b, handle=oz.create(), **kw)))
+    np.testing.assert_array_equal(_u64(got), _u64(ozt.gemm(a, b, mode=mode, handle=h, **kw)))
+    if op_a == op_b == "N":
+        got = ozt.matmul(torch.from_numpy(a), torch.from_numpy(b))
+        np.testing.assert_array_equal(_u64(got.numpy()), _u64(oz.matmul(a, b)))
 
-    with pytest.raises(NotImplementedError, match="step 11"):
-        gemm_batched(a[None], b[None])
+
+def test_warmup_and_reallocate_working_memory():
+    from ozimmu_tpu_torch.schedule import working_set_bytes
+
+    h = ozt.create(device="cpu")
+    assert h.working_memory_bytes == 0
+    ozt.warmup(8, 9, 10, "fp64_int8_9", handle=h)
+    ozt.warmup(8, 9, 10, "fp64_int8_auto", ozt.ElementKind.COMPLEX, handle=h)
+    ozt.warmup(8, 9, 10, "sgemm", "complex", handle=h)
+    # the bytes form is a grow-only advisory
+    assert ozt.reallocate_working_memory(h, 1000) == 1000
+    assert ozt.reallocate_working_memory(h, 10) == 1000
+    assert ozt.reallocate_working_memory(h, 5000) == 5000 == h.working_memory_bytes
+    # the list form warms each entry up and returns the largest working set
+    gemms = [
+        (ozt.Operation.N, ozt.Operation.N, 16, 8, 24, ozt.ElementKind.REAL, "fp64_int8_9"),
+        ("N", "T", 8, 8, 32, "complex", ozt.ComputeMode.FP64_INT8_12),
+        ("N", "N", 64, 64, 64, "real", "dgemm"),
+    ]
+    want = max(working_set_bytes(16, 8, 24, 9), working_set_bytes(8, 8, 32, 12, complex_=True))
+    assert ozt.reallocate_working_memory(h, gemms) == want
+    assert h.working_memory_bytes == 5000
+
+
+def test_device_trace_writes_a_trace_file(tmp_path):
+    import json
+
+    a, b, _ = _operands(seed=64)
+    with ozt.device_trace(str(tmp_path / "trace")):
+        got = ozt.gemm(a, b, mode="fp64_int8_9", device="cpu")
+    (path,) = (tmp_path / "trace").iterdir()
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    np.testing.assert_array_equal(_u64(got), _u64(oz.gemm(a, b, mode="fp64_int8_9")))
 
 
 def test_bad_operands_raise(monkeypatch):

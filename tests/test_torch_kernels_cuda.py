@@ -63,3 +63,56 @@ def test_recombine_kernel_equals_plain(dev, m, n, k, ns):
     got = recombine_cuda.recombine(da, db, ns, b, k)
     for w, g in zip(want, got):
         assert torch.equal(w.view(torch.int32), g.view(torch.int32))
+
+
+@pytest.mark.parametrize("m,n,k,ns", [(200, 136, 272, 6), (1000, 1234, 777, 9), (256, 128, 1024, 18)])
+def test_zgemm_on_the_kernels_equals_plain(dev, m, n, k, ns):
+    """The 4-pass complex engine through both kernels against the same
+    engine on the CPU, where it runs the plain versions."""
+    import ozimmu_tpu_torch as ozt
+
+    rng = np.random.default_rng(k)
+    planes = [rng.standard_normal(s) for s in ((m, k), (m, k), (k, n), (k, n), (m, n), (m, n))]
+    kw = dict(alpha=2 - 0.5j, beta=0.25 + 1j)
+    cpu = [torch.from_numpy(p) for p in planes]
+    want = ozt.zgemm_f64(*cpu[:4], ns, c_re=cpu[4], c_im=cpu[5], **kw)
+    before = (split_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
+    gpu = [t.to(dev) for t in cpu]
+    got = ozt.zgemm_f64(*gpu[:4], ns, c_re=gpu[4], c_im=gpu[5], **kw)
+    assert (split_cuda.LAUNCHES - before[0], recombine_cuda.LAUNCHES - before[1]) == (4, 4)
+    for w, g in zip(want, got):
+        assert torch.equal(w.view(torch.int64), g.cpu().view(torch.int64))
+
+
+@pytest.mark.parametrize("name", ["normal01", "exp_rand-8", "special"])
+def test_auto_totals_histogram_equals_literal(dev, name):
+    from ozimmu_tpu_torch.core.bits import exponent_field
+    from ozimmu_tpu_torch.ops.mantissa_loss import mantissa_loss_totals
+    from ozimmu_tpu_torch.testing import loss_totals_literal
+
+    x_np = _special() if name == "special" else generate_input(name, (1000, 1234), seed=1)
+    x = torch.from_numpy(x_np).to(dev)
+    for axis in (0, 1):
+        e = torch.amax(exponent_field(x), dim=axis)
+        for b in (7, 5):
+            got = mantissa_loss_totals(x, b, axis)
+            assert torch.equal(got, loss_totals_literal(x, e, b, axis)), (name, axis, b)
+            assert torch.equal(got.cpu(), mantissa_loss_totals(x.cpu(), b, axis))
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_batched_equals_a_loop_and_plain(dev, kind):
+    import ozimmu_tpu_torch as ozt
+
+    cx = kind == "complex"
+    a = torch.from_numpy(generate_input("normal01", (3, 200, 272), seed=5, complex_=cx))
+    b = torch.from_numpy(generate_input("exp_rand-8", (3, 272, 136), seed=6, complex_=cx))
+    c = torch.from_numpy(generate_input("normal01", (3, 200, 136), seed=7, complex_=cx))
+    kw = dict(mode="fp64_int8_9", alpha=1.5, beta=-0.5)
+    got = ozt.gemm_batched(a.to(dev), b.to(dev), c=c.to(dev), **kw)
+    as_real = torch.view_as_real if cx else (lambda t: t)
+    want = ozt.gemm_batched(a, b, c=c, **kw)
+    assert torch.equal(as_real(got.cpu()).view(torch.int64), as_real(want).view(torch.int64))
+    for i in range(3):
+        one = ozt.gemm(a[i].to(dev), b[i].to(dev), c=c[i].to(dev), **kw)
+        assert torch.equal(as_real(got[i]).view(torch.int64), as_real(one).view(torch.int64))

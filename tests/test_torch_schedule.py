@@ -64,6 +64,27 @@ def test_auto_n_chunks_under_an_explicit_budget(monkeypatch, budget_mb):
             assert port.auto_n_chunks(m, n, k, ns, device="cpu") == ref.auto_n_chunks(m, n, k, ns)
 
 
+@pytest.mark.parametrize("complex_", [False, True])
+def test_auto_n_chunks_reports_its_cap(monkeypatch, capsys, complex_):
+    """At the min(n, 64) cap with the working set still over the budget,
+    the same count comes back and the error log names the sizes."""
+    monkeypatch.setenv("OZIMMU_HBM_BUDGET_MB", "1")
+    monkeypatch.delenv("OZIMMU_ERROR", raising=False)
+    m, n, k, ns = 4096, 300, 4096, 9
+    got = port.auto_n_chunks(m, n, k, ns, complex_=complex_, device="cpu")
+    assert got == ref.auto_n_chunks(m, n, k, ns, complex_=complex_) == 64
+    need = port.working_set_bytes_chunked(m, n, k, ns, 64, complex_)
+    out = capsys.readouterr().out
+    assert "[ozIMMU ERROR] auto_n_chunks" in out
+    for part in (f"m={m}", f"n={n}", f"k={k}", f"ns={ns}", f"{need} B", f"budget {1 << 20} B"):
+        assert part in out, (part, out)
+    # under the budget, or off the cap, nothing is reported
+    assert port.auto_n_chunks(33, 65, 47, ns, complex_=complex_, device="cpu") == 1
+    monkeypatch.setenv("OZIMMU_HBM_BUDGET_MB", "90000")
+    assert port.auto_n_chunks(m, n, k, ns, complex_=complex_, device="cpu") == 1
+    assert capsys.readouterr().out == ""
+
+
 def test_default_budget_reads_the_device(monkeypatch):
     import os
 
