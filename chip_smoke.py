@@ -24,7 +24,15 @@ counts set to 0 just before it and read just after:
   * ``gemm_batched``: 8 x 1024^3, real and complex, bits against a loop;
   * ``device_trace`` of one 4096^3 GEMM: kernel names and the device's
     busy share over the traced window;
-  * ``warmup`` and ``reallocate_working_memory``.
+  * ``warmup`` and ``reallocate_working_memory``;
+  * interception: ``a @ b`` at 8192^3 under ``intercept(mode=...)`` bitwise
+    equal to the direct call and timed against it, batched ``einsum``, a
+    conj-bit ``a.mH @ b``, an ``nn.Linear`` step with its backward, the
+    size gate and the per-call env mode;
+  * ``traced.gemm`` at 8192^3 inside ``torch.compile(fullgraph=True)``,
+    bitwise equal to the eager call;
+  * the bench CLI: one 8192^3 CSV row, the 72-case ``ci_test`` at 1025,
+    and the ``power`` mode with NVML watts.
 
 Any failed phase raises, and the script exits non-zero without printing a
 result.  It needs a CUDA GPU: without one it exits non-zero at once.  The
@@ -34,16 +42,23 @@ before it is a JSON object with one entry per kernel.
 
 from __future__ import annotations
 
+import contextlib
 import glob
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 
-import numpy as np
-import torch
+# torch.compile's code generation runs in this process, not in a pool of
+# worker processes that could outlive the script
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 N = 8192  # main-path size: m = n = k
 NS = 9  # fp64_int8_9
@@ -314,7 +329,7 @@ def main() -> int:
     print(f"[time] {label}: torch.matmul float64 {N}^3: {ms_dgemm:.3f} ms, "
           f"{2 * N**3 / ms_dgemm / 1e9:.3f} TFLOPS", flush=True)
 
-    # 8.-13. the rest of the public GEMM API, each path counted on its own
+    # 8.-16. the rest of the public surface, each path counted on its own
     by_path = {"main": launches}
     by_path["auto"] = phase_auto(ozt, a, b, a_np, b_np, mats, label, rng)
     del a, b
@@ -323,6 +338,9 @@ def main() -> int:
     by_path.update(phase_batched(ozt))
     phase_trace(ozt)
     phase_warmup(ozt)
+    by_path["intercept"] = phase_intercept(ozt, label)
+    by_path["traced"] = phase_traced(ozt, label)
+    by_path["bench"] = phase_bench(label)
 
     kernels = [
         {"name": "split_digits", "route": "cuda", "source": "ozimmu_tpu_torch/csrc/split.cu",
@@ -623,6 +641,210 @@ def phase_warmup(ozt) -> None:
         raise AssertionError(f"reallocate_working_memory returned {got}")
     print(f"[warmup] warmup 2048^3 fp64_int8_9 in {t_w:.3f} s; reallocate_working_memory of "
           f"2 entries returned {got} B", flush=True)
+
+
+def relative_residual(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """||got - ref||_F / ||ref||_F of two real tensors."""
+    return float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+
+
+def phase_intercept(ozt, label) -> dict:
+    """14. Interception through a dispatch mode: ``a @ b`` at 8192^3 equals
+    the direct call bitwise and launches split 2 and recombine 1; its time
+    against the direct call (CUDA events) shows the mode's host overhead.
+    Then a batched einsum, a conj-bit ``a.mH @ b``, an ``nn.Linear`` step
+    (forward addmm and both backward mm routed), the 1024 size gate and
+    ``OZIMMU_COMPUTE_MODE`` with no pinned mode."""
+    import ozimmu_tpu_torch.intercept as ozi
+    from ozimmu_tpu_torch.testing import generate_input
+
+    mode = f"fp64_int8_{NS}"
+    a = torch.from_numpy(generate_input("urand01", (N, N), seed=80)).cuda()
+    b = torch.from_numpy(generate_input("urand01", (N, N), seed=81)).cuda()
+    want = ozt.gemm(a, b, mode=mode)
+    reset_launches()
+    with ozi.intercept(mode=mode):
+        got = a @ b
+    counts = read_launches()
+    if counts != {"split_digits": 2, "recombine": 1}:
+        raise AssertionError(f"intercepted {N}^3 launches {counts}, expected 2 and 1")
+    if not bits_equal(got, want):
+        raise AssertionError("intercepted a @ b differs from gemm(a, b)")
+    del got, want
+    with ozi.intercept(mode=mode):
+        ms_int = cuda_ms(lambda: a @ b, iters=3)
+    ms_dir = cuda_ms(lambda: ozt.gemm(a, b, mode=mode), iters=3)
+    print(f"[intercept] a @ b {N}^3 under intercept(mode={mode}): bits == gemm(a, b); launches "
+          f"{counts}", flush=True)
+    print(f"[time] {label}: intercepted a @ b {N}^3: {ms_int:.3f} ms; direct gemm: {ms_dir:.3f} "
+          f"ms; difference {ms_int - ms_dir:+.3f} ms", flush=True)
+    del a, b
+
+    B, n = 8, 1024
+    a3 = torch.from_numpy(generate_input("normal01", (B, n, n), seed=82)).cuda()
+    b3 = torch.from_numpy(generate_input("normal01", (B, n, n), seed=83)).cuda()
+    reset_launches()
+    with ozi.intercept(mode=mode):
+        got = torch.einsum("bik,bkj->bij", a3, b3)
+    c3 = read_launches()
+    if c3 != {"split_digits": 2 * B, "recombine": B}:
+        raise AssertionError(f"intercepted einsum launches {c3}")
+    if not bits_equal(got, ozt.gemm_batched(a3, b3, mode=mode)):
+        raise AssertionError("intercepted einsum differs from gemm_batched")
+    del a3, b3, got
+
+    n = 2048
+    x = torch.from_numpy(generate_input("normal01", (n, n), seed=84, complex_=True)).cuda()
+    y = torch.from_numpy(generate_input("normal01", (n, n), seed=85, complex_=True)).cuda()
+    reset_launches()
+    with ozi.intercept(mode=mode):
+        got = x.mH @ y
+    cz = read_launches()
+    want = ozt.gemm(x, y, mode=mode, op_a="C")
+    if cz != {"split_digits": 4, "recombine": 4} or not bits_equal(
+            torch.view_as_real(got), torch.view_as_real(want)):
+        raise AssertionError(f"intercepted x.mH @ y: launches {cz} or bits differ")
+    print(f"[intercept] einsum bik,bkj->bij {B} x 1024^3: bits == gemm_batched, launches {c3}; "
+          f"complex x.mH @ y {n}^3: bits == gemm(op_a='C'), launches {cz}", flush=True)
+    del x, y, got, want
+
+    # On full-mantissa data native f64 at k = 4096 carries ~2e-15 of its own
+    # rounding (one accumulator along k), more than the gate.  On a 2^-16
+    # fixed-point grid in [-0.5, 0.5] every product and every sum of 4096
+    # of them is exact in f64, so the native step is the exact answer and
+    # the routed step must meet it.
+    n = 4096
+    rng = np.random.default_rng(86)
+
+    def grid(*shape):
+        return torch.from_numpy(np.round(rng.uniform(-0.5, 0.5, shape) * 2**16) / 2**16).cuda()
+
+    layer = torch.nn.Linear(n, n, bias=True, dtype=torch.float64, device="cuda")
+    with torch.no_grad():
+        layer.weight.copy_(grid(n, n))
+        layer.bias.copy_(grid(n))
+    xin, gout = grid(n, n), grid(n, n)
+
+    def step():
+        layer.zero_grad(set_to_none=True)
+        xr = xin.clone().requires_grad_(True)
+        out = layer(xr)
+        out.backward(gout)
+        return out.detach(), xr.grad, layer.weight.grad, layer.bias.grad
+
+    native = step()
+    reset_launches()
+    with ozi.intercept(mode=mode):
+        routed = step()
+    cl = read_launches()
+    if cl != {"split_digits": 6, "recombine": 3}:
+        raise AssertionError(f"nn.Linear step launches {cl}, expected 6 and 3 (addmm + 2 mm)")
+    res = [relative_residual(r, nat) for r, nat in zip(routed, native)]
+    if not max(res) < RESIDUAL_GATE:
+        raise AssertionError(f"nn.Linear step differs from native f64: residuals {res}")
+    print(f"[intercept] nn.Linear({n}, {n}) forward + backward on a [{n}, {n}] batch (2^-16 "
+          f"grid): launches {cl}; relative residual vs the native f64 step of output, dx, dW, "
+          f"db = " + ", ".join(f"{r:.3e}" for r in res), flush=True)
+    del layer, xin, gout, native, routed
+
+    small = torch.from_numpy(generate_input("urand01", (512, 512), seed=89)).cuda()
+    a1 = torch.from_numpy(generate_input("urand01", (1024, 1024), seed=90)).cuda()
+    reset_launches()
+    with ozi.intercept(mode=mode):
+        small @ small
+    c512 = read_launches()
+    saved = os.environ.get("OZIMMU_COMPUTE_MODE")
+    os.environ["OZIMMU_COMPUTE_MODE"] = mode
+    try:
+        reset_launches()
+        with ozi.intercept():
+            got = a1 @ a1
+        cenv = read_launches()
+    finally:
+        if saved is None:
+            del os.environ["OZIMMU_COMPUTE_MODE"]
+        else:
+            os.environ["OZIMMU_COMPUTE_MODE"] = saved
+    if c512 != {"split_digits": 0, "recombine": 0}:
+        raise AssertionError(f"a 512^3 product under the 1024 thresholds launched {c512}")
+    if cenv != {"split_digits": 2, "recombine": 1} or not bits_equal(
+            got, ozt.gemm(a1, a1, mode=mode)):
+        raise AssertionError(f"OZIMMU_COMPUTE_MODE={mode} did not route the call: {cenv}")
+    print(f"[intercept] 512^3 launches {c512}; OZIMMU_COMPUTE_MODE={mode} with no pinned mode "
+          f"routes 1024^3: launches {cenv}, bits == gemm", flush=True)
+    return counts
+
+
+def phase_traced(ozt, label) -> dict:
+    """15. ``traced.gemm`` at 8192^3 with alpha, beta and c inside
+    ``torch.compile(fullgraph=True)`` (the default backend): bits equal the
+    eager ``gemm`` and both kernels launch."""
+    from ozimmu_tpu_torch import traced
+    from ozimmu_tpu_torch.testing import generate_input
+
+    a, b, c = (torch.from_numpy(generate_input("urand01", (N, N), seed=91 + i)).cuda()
+               for i in range(3))
+    f = torch.compile(lambda x, y, z: traced.gemm(x, y, num_split=NS, alpha=2.0, beta=-0.5, c=z),
+                      fullgraph=True)
+    t0 = time.perf_counter()
+    reset_launches()
+    got = f(a, b, c)
+    counts = read_launches()
+    t_first = time.perf_counter() - t0
+    want = ozt.gemm(a, b, mode=f"fp64_int8_{NS}", alpha=2.0, beta=-0.5, c=c)
+    if counts != {"split_digits": 2, "recombine": 1}:
+        raise AssertionError(f"compiled traced.gemm launches {counts}, expected 2 and 1")
+    if not bits_equal(got, want):
+        raise AssertionError("compiled traced.gemm differs from the eager gemm")
+    ms_c = cuda_ms(lambda: f(a, b, c), iters=3)
+    ms_e = cuda_ms(lambda: ozt.gemm(a, b, mode=f"fp64_int8_{NS}", alpha=2.0, beta=-0.5, c=c),
+                   iters=3)
+    print(f"[traced] torch.compile(fullgraph=True) of traced.gemm {N}^3 alpha=2 beta=-0.5 c: "
+          f"bits == eager gemm; launches {counts}; first call (compile + run) {t_first:.2f} s",
+          flush=True)
+    print(f"[time] {label}: compiled traced.gemm {N}^3 alpha=2 beta=-0.5 c: {ms_c:.3f} ms; eager "
+          f"gemm with the same arguments: {ms_e:.3f} ms", flush=True)
+    return counts
+
+
+def phase_bench(label) -> dict:
+    """16. The bench CLI: one 8192^3 CSV row (sampled-block residual,
+    TFLOPS), the 72-case ci_test at 1025 and the power mode (NVML)."""
+    from ozimmu_tpu_torch import bench_cli
+
+    def run(fn, *args, **kw):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(*args, **kw)
+        return rc, buf.getvalue().strip().splitlines(), time.perf_counter() - t0
+
+    reset_launches()
+    rc, lines, _ = run(bench_cli.main, ["urand01", "dgemm", f"fp64_int8_{NS}", "seq", str(N),
+                                        str(N), "1", "--test-count", "3"])
+    if rc != 0 or len(lines) != 2 or lines[0] != bench_cli.CSV_HEADER:
+        raise AssertionError(f"bench_cli seq printed {lines} (rc {rc})")
+    row = lines[1].split(",")
+    if not (float(row[9]) < RESIDUAL_GATE and np.isfinite(float(row[11])) and float(row[11]) > 0):
+        raise AssertionError(f"bench_cli row {lines[1]}")
+    print(f"[bench] {lines[1]}", flush=True)
+
+    rc, lines, t_ci = run(bench_cli.run_ci_test, sizes=(1025,))
+    worst = max(float(r.split(",")[9]) for r in lines[:-1])
+    if rc != 0 or lines[-1] != "   72 /    72 PASSED" or len(lines) != 73:
+        raise AssertionError(f"ci_test at 1025: rc {rc}, last line {lines[-1]!r}")
+    print(f"[bench] ci_test sizes=(1025,): {lines[-1].strip()} in {t_ci:.1f} s; largest residual "
+          f"{worst:.3e}", flush=True)
+
+    rc, lines, _ = run(bench_cli.run_power, "dgemm", f"fp64_int8_{NS}", N, min_seconds=3)
+    m = re.search(r"tflops=([0-9.eE+-]+),watts=([0-9.]+),gflops_per_w=([0-9.]+)$", lines[-1])
+    if rc != 0 or not m:
+        raise AssertionError(f"power mode printed {lines}")
+    counts = read_launches()
+    print(f"[bench] {lines[-1]}", flush=True)
+    print(f"[time] {label}: power fp64_int8_{NS} {N}^3: {m[1]} TFLOPS at {m[2]} W = "
+          f"{m[3]} GFLOPS/W", flush=True)
+    return counts
 
 
 if __name__ == "__main__":

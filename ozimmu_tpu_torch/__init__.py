@@ -22,8 +22,13 @@ Covered: real and complex GEMM (``gemm``, ``matmul``, ``gemm_batched``,
 (``fp64_int8_auto``, also what an unset mode resolves to;
 ``auto_mode_select``), the dgemm and sgemm modes, op N/T/C, alpha/beta/c,
 column-panel chunking, phase profiling, ``device_trace``, ``warmup`` and
-``reallocate_working_memory``.  Not ported yet: interception, the traced
-surface, the bench CLI, the solvers and the distributed layer.
+``reallocate_working_memory``; drop-in interception of float64 and
+complex128 matmuls (``intercept``: a dispatch mode over aten
+mm/bmm/addmm/baddbmm), the ``torch.compile`` surface (``traced``: custom
+ops), the bench CLI (``python -m ozimmu_tpu_torch.bench_cli``) with its
+timing helpers (``testing``) and the long-double oracle (``oracle``, built
+with g++ at first use).  Not ported yet: the solvers and the distributed
+layer.
 """
 
 from .types import (
@@ -52,6 +57,7 @@ from .core.handle import (
     get_auto_mantissa_loss_threshold,
 )
 from .utils.profiling import device_trace
+from . import intercept, traced
 
 __version__ = "0.1.0"
 
@@ -79,6 +85,8 @@ __all__ = [
     "default_handle",
     "enable_profiling",
     "device_trace",
+    "intercept",
+    "traced",
     "disable_profiling",
     "print_profiler_result",
     "clear_profiler_result",

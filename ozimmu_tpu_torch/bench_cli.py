@@ -1,0 +1,446 @@
+"""Benchmark/evaluation CLI — the reference ``main.test`` harness surface.
+
+Port of ``ozimmu_tpu.bench_cli``: the reference CLI semantics
+(test/main_test.cu:550-568) and its CSV schema (main_test.cu:143-151)::
+
+    python -m ozimmu_tpu_torch.bench_cli urand01 dgemm fp64_int8_9 seq 1024 4096 1024
+    python -m ozimmu_tpu_torch.bench_cli exp_rand-2 zgemm fp64_int8_8,fp64_int8_12 \\
+        exp2 1024 8192 2 --test-count 10
+    python -m ozimmu_tpu_torch.bench_cli ci_test
+    python -m ozimmu_tpu_torch.bench_cli power dgemm fp64_int8_9 8192 --min-seconds 10
+    python -m ozimmu_tpu_torch.bench_cli matfile a.npy b.npy fp64_int8_9,fp64_int8_12
+    python -m ozimmu_tpu_torch.bench_cli matfile_raw a.bin b.bin 1000 800 600 --dtype fp64
+
+CSV columns: device,gemm,input,mode,opA,opB,m,n,k,residual,max_relative,tflops
+(the reference's ``gpu`` column is ``device``: ``torch.cuda.get_device_name``
+with ``,`` replaced by ``;``, or ``cpu``; TFLOPS is effective 2mnk/t, x4
+complex — main_test.cu:134-141).  Every mode takes ``--device`` (default
+``cuda``); without a GPU the default raises instead of moving to the CPU.
+
+Residuals come from the long-double oracle (ozimmu_tpu_torch.oracle, built
+with g++ at first use).  Above 2^31 multiply-adds (about 1290^3) it scores
+a seeded 256 x 256 block of C instead of all of it: the oracle streams B by
+columns, so a full pass at 8192^3 would read B once per row of C.  The
+``hpl`` mode waits for the port of the solvers (ROADMAP.md queue 1, step 16).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import itertools
+import os
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from . import oracle
+from .core.api import gemm
+from .testing import effective_tflops, generate_input, sustained_run
+
+CSV_HEADER = "device,gemm,input,mode,opA,opB,m,n,k,residual,max_relative,tflops"
+
+#: above this many multiply-adds the oracle scores a sampled block of C
+FULL_ORACLE_MAX_MACS = 2**31
+SAMPLE = 256
+
+
+def _device_name(device) -> str:
+    dev = torch.device(device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type
+    return name.replace(",", ";")
+
+
+def _op(x: np.ndarray, op: str) -> np.ndarray:
+    """The logical operand op(x) as a contiguous array."""
+    if op == "N":
+        return np.ascontiguousarray(x)
+    return np.ascontiguousarray(np.conj(x).T if op == "C" else x.T)
+
+
+def _scored(cs, a: np.ndarray, b: np.ndarray):
+    """``(cs, a, b)`` as the oracle scores them: whole up to
+    :data:`FULL_ORACLE_MAX_MACS`, else a seeded SAMPLE x SAMPLE block."""
+    m, k = a.shape
+    n = b.shape[1]
+    if m * n * k <= FULL_ORACLE_MAX_MACS:
+        return cs, a, b
+    rng = np.random.default_rng(0)
+    rows = np.sort(rng.choice(m, size=min(SAMPLE, m), replace=False))
+    cols = np.sort(rng.choice(n, size=min(SAMPLE, n), replace=False))
+    return ([np.ascontiguousarray(c[rows][:, cols]) for c in cs], np.ascontiguousarray(a[rows]),
+            np.ascontiguousarray(b[:, cols]))
+
+
+def _tflops(a: np.ndarray, b: np.ndarray, mode: str, test_count: int, device) -> float:
+    """Effective TFLOPS over ``test_count`` calls, or nan for a count of 0."""
+    return effective_tflops(a, b, mode, test_count, device) if test_count > 0 else float("nan")
+
+
+def _row(dev_name, complex_, input_mode, mode, op_a, op_b, m, n, k, err, tflops) -> str:
+    return (
+        f"{dev_name},{'Z' if complex_ else 'D'},{input_mode},{mode},"
+        f"{op_a},{op_b},{m},{n},{k},{err['relative_residual']:e},"
+        f"{err['max_relative_error']:e},{tflops:e}"
+    )
+
+
+def _run_case(
+    gemm_kind: str,
+    input_mode: str,
+    mode: str,
+    op_a: str,
+    op_b: str,
+    m: int,
+    n: int,
+    k: int,
+    test_count: int,
+    error_threshold: float = 0.0,
+    device="cuda",
+) -> int:
+    complex_ = gemm_kind == "zgemm"
+    a = generate_input(input_mode, (m, k) if op_a == "N" else (k, m), seed=0, complex_=complex_)
+    b = generate_input(input_mode, (k, n) if op_b == "N" else (n, k), seed=1, complex_=complex_)
+
+    c = gemm(a, b, mode=mode, op_a=op_a, op_b=op_b, device=device)
+    ae, be = _op(a, op_a), _op(b, op_b)
+    (cs, sa, sb) = _scored([c], ae, be)
+    err = oracle.error_metrics(cs[0], sa, sb)
+
+    tflops = _tflops(ae, be, mode, test_count, device)
+    print(_row(_device_name(device), complex_, input_mode, mode, op_a, op_b, m, n, k, err, tflops),
+          flush=True)
+    if error_threshold and err["relative_residual"] >= error_threshold:
+        print("^^^ FAILED ^^^^", flush=True)
+        return 1
+    return 0
+
+
+def _size_list(kind: str, start: int, end: int, interval: int):
+    if kind == "seq":
+        return list(range(start, end + 1, interval))
+    if kind == "exp2":
+        out = []
+        v = start
+        while v <= end:
+            out.append(v)
+            v *= interval if interval > 1 else 2
+        return out
+    raise ValueError(f"unknown size mode {kind}")
+
+
+def run_ci_test(sizes=(1023, 1024, 1025), device="cuda") -> int:
+    """The reference 1944-case gate (main_test.cu:702-746): every (D|Z,
+    opA, opB, m, n, k) over ``sizes`` at the nine modes fp64_int8_8..16,
+    residual < 1e-15, ending ``NNNN / NNNN PASSED``.
+
+    One multi-C oracle call scores the nine modes of an operand set against
+    one long-double accumulation.  The GEMMs run on ``device`` in order
+    while the oracle calls run on a pool of host threads (one per CPU;
+    ctypes releases the interpreter lock); rows print in case order.
+    """
+    modes = [f"fp64_int8_{ns}" for ns in range(8, 17)]
+    dev = _device_name(device)
+    cases = [
+        (kind, op_a, op_b, m, n, k)
+        for kind in ("dgemm", "zgemm")
+        for op_a, op_b in itertools.product("NT", "NT")
+        for m in sizes
+        for n in sizes
+        for k in sizes
+    ]
+    workers = len(os.sched_getaffinity(0))
+    num_errors = total = 0
+
+    def report(case, errs) -> None:
+        nonlocal num_errors, total
+        kind, op_a, op_b, m, n, k = case
+        for mode, err in zip(modes, errs):
+            total += 1
+            print(_row(dev, kind == "zgemm", "urand01", mode, op_a, op_b, m, n, k, err,
+                       float("nan")), flush=True)
+            if err["relative_residual"] >= 1e-15:
+                print("^^^ FAILED ^^^^", flush=True)
+                num_errors += 1
+
+    pending = collections.deque()
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for case in cases:
+            kind, op_a, op_b, m, n, k = case
+            complex_ = kind == "zgemm"
+            a = generate_input("urand01", (m, k) if op_a == "N" else (k, m), seed=0,
+                               complex_=complex_)
+            b = generate_input("urand01", (k, n) if op_b == "N" else (n, k), seed=1,
+                               complex_=complex_)
+            cs = [gemm(a, b, mode=mode, op_a=op_a, op_b=op_b, device=device) for mode in modes]
+            pending.append((case, pool.submit(oracle.error_metrics_multi,
+                                              *_scored(cs, _op(a, op_a), _op(b, op_b)))))
+            while len(pending) > 2 * workers:  # bounds the operand sets held
+                case_done, fut = pending.popleft()
+                report(case_done, fut.result())
+        while pending:
+            case_done, fut = pending.popleft()
+            report(case_done, fut.result())
+    print(f"{total - num_errors:5d} / {total:5d} PASSED", flush=True)
+    return 1 if num_errors else 0
+
+
+def run_matfile(path_a: str, path_b: str, modes, test_count: int, device="cuda") -> int:
+    """Real-matrix replay (reference matfile mode, main_test.cu:273-406):
+    load A and B from .npy files and evaluate each mode."""
+    a = np.load(path_a)
+    b = np.load(path_b)
+    return _run_loaded(a, b, "matfile", modes, test_count, device)
+
+
+def _run_loaded(a: np.ndarray, b: np.ndarray, input_name: str, modes, test_count: int,
+                device) -> int:
+    m, k = a.shape
+    n = b.shape[1]
+    complex_ = np.iscomplexobj(a) or np.iscomplexobj(b)
+    print(CSV_HEADER)
+    for mode in modes:
+        c = gemm(a, b, mode=mode, device=device)
+        (cs, sa, sb) = _scored([c], a, b)
+        err = oracle.error_metrics(cs[0], sa, sb)
+        tflops = _tflops(a, b, mode, test_count, device)
+        print(_row(_device_name(device), complex_, input_name, mode, "N", "N", m, n, k, err,
+                   tflops), flush=True)
+    return 0
+
+
+_RAW_DTYPES = {
+    "fp32": np.float32,
+    "fp64": np.float64,
+    # x86-64 long double: 80-bit extended in 16 bytes — the same layout
+    # the reference's fp128 matfiles hold (main_test.cu:273-302 loads
+    # long double)
+    "fp128": np.longdouble,
+}
+
+
+def load_raw_matrix(path: str, m: int, n: int, dtype: str, order: str = "F") -> np.ndarray:
+    """Raw binary matrix loader (reference matfile replay parity,
+    main_test.cu:273-302: fp32/fp64/fp128 dense files).
+
+    The reference's ``mtk::matfile`` self-describing header comes from a
+    submodule that is not checked out in the reference snapshot, so this
+    loader takes dtype/shape explicitly (column-major by default, the BLAS
+    convention the reference uses).  ``.npy`` files (run_matfile) remain
+    the self-describing path.
+    """
+    if dtype not in _RAW_DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(_RAW_DTYPES)}, got {dtype!r}")
+    raw = np.fromfile(path, dtype=_RAW_DTYPES[dtype])
+    if raw.size != m * n:
+        raise ValueError(
+            f"{path}: expected {m}x{n} = {m*n} elements of {dtype}, found {raw.size}"
+        )
+    return np.asarray(raw.reshape((m, n), order=order), dtype=np.float64)
+
+
+def run_matfile_raw(
+    path_a: str, path_b: str, m: int, k: int, n: int, dtype: str, modes, test_count: int,
+    device="cuda",
+) -> int:
+    """Evaluate modes on raw-binary operand dumps (fp32/fp64/fp128)."""
+    a = load_raw_matrix(path_a, m, k, dtype)
+    b = load_raw_matrix(path_b, k, n, dtype)
+    return _run_loaded(a, b, f"matfile-{dtype}", modes, test_count, device)
+
+
+class _PowerSampler:
+    """Load-window power of one GPU through NVML (``libnvidia-ml.so.1``,
+    ctypes); :meth:`stop` returns average watts, or None without NVML.
+
+    The reference samples NVML during its run loops (main_test.cu:473-498).
+    Here the total-energy counter (``nvmlDeviceGetTotalEnergyConsumption``,
+    mJ) is read at start and stop where the card supports it: average watts
+    = energy / elapsed.  Otherwise ``nvmlDeviceGetPowerUsage`` (mW) is
+    sampled every 200 ms on a thread and averaged.  The card is the NVML
+    device that ``torch.cuda._get_nvml_device_index`` maps ``device`` to
+    (CUDA_VISIBLE_DEVICES taken into account).
+    """
+
+    def __init__(self, device):
+        self._nvml = self._handle = None
+        self._samples = []
+        self._thread = self._stop = None
+        self._e0 = self._t0 = None
+        try:
+            nvml = ctypes.CDLL("libnvidia-ml.so.1")
+        except OSError:
+            return  # no NVML on this machine: watts are n/a
+        if nvml.nvmlInit_v2() != 0:
+            return
+        handle = ctypes.c_void_p()
+        index = torch.cuda._get_nvml_device_index(torch.device(device))
+        if nvml.nvmlDeviceGetHandleByIndex_v2(ctypes.c_uint(index), ctypes.byref(handle)) != 0:
+            return
+        self._nvml, self._handle = nvml, handle
+
+    def _energy_mj(self):
+        v = ctypes.c_ulonglong()
+        if self._nvml.nvmlDeviceGetTotalEnergyConsumption(self._handle, ctypes.byref(v)) != 0:
+            return None
+        return v.value
+
+    def _power_w(self):
+        v = ctypes.c_uint()
+        if self._nvml.nvmlDeviceGetPowerUsage(self._handle, ctypes.byref(v)) != 0:
+            return None
+        return v.value / 1e3
+
+    def start(self):
+        import threading
+
+        self._t0 = time.perf_counter()
+        if self._nvml is None:
+            return
+        self._e0 = self._energy_mj()
+        if self._e0 is not None or self._power_w() is None:
+            return  # the energy counter needs no sampler thread
+        self._stop = threading.Event()
+
+        def loop():
+            while not self._stop.wait(0.2):
+                w = self._power_w()
+                if w is not None:
+                    self._samples.append(w)
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        """Average watts over the start..stop window, or None."""
+        elapsed = time.perf_counter() - self._t0
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join(timeout=2.0)
+        if self._e0 is not None and elapsed > 0:
+            e1 = self._energy_mj()
+            if e1 is not None and e1 >= self._e0:
+                return (e1 - self._e0) / 1e3 / elapsed  # mJ -> J -> W
+        if self._samples:
+            return sum(self._samples) / len(self._samples)
+        return None
+
+
+def run_power(gemm_kind: str, mode: str, size: int, min_seconds: float, device="cuda") -> int:
+    """Sustained-throughput loop (reference power mode,
+    main_test.cu:408-512: >=10 s NVML-sampled loops reporting TFLOPS, avg
+    W and GFLOPS/W).  ``iters`` counts the GEMMs that ran in the window and
+    ``avg_time`` is elapsed/iters (testing.sustained_run).  Watts are
+    measured over the load window only; 'n/a' means no NVML (or a CPU
+    device)."""
+    complex_ = gemm_kind == "zgemm"
+    a = generate_input("urand01", (size, size), seed=0, complex_=complex_)
+    b = generate_input("urand01", (size, size), seed=1, complex_=complex_)
+    sampler = _PowerSampler(device) if torch.device(device).type == "cuda" else None
+    tflops, n_iter, avg_time = sustained_run(
+        a, b, mode, min_seconds=min_seconds,
+        on_measure_start=sampler.start if sampler is not None else None, device=device,
+    )
+    watts = sampler.stop() if sampler is not None else None
+    if watts is not None:
+        w_s = f"{watts:.1f}"
+        eff_s = f"{tflops * 1e3 / watts:.2f}"
+    else:
+        w_s = eff_s = "n/a"
+    print(
+        f"power,{_device_name(device)},{mode},m=n=k={size},iters={n_iter},"
+        f"avg_time={avg_time:.4e}s,tflops={tflops:.4g},watts={w_s},"
+        f"gflops_per_w={eff_s}",
+        flush=True,
+    )
+    return 0
+
+
+def run_hpl(*_args, **_kwargs) -> int:
+    """The HPL-class solver benchmark needs the port of ``linalg``."""
+    raise NotImplementedError(
+        "bench_cli hpl needs ozimmu_tpu_torch.linalg, which is not ported yet "
+        "(ROADMAP.md queue 1, step 16)"
+    )
+
+
+def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] == "matfile":
+        q = argparse.ArgumentParser()
+        q.add_argument("cmd")
+        q.add_argument("a_npy")
+        q.add_argument("b_npy")
+        q.add_argument("modes", nargs="?", default="fp64_int8_9")
+        q.add_argument("--test-count", type=int, default=1)
+        q.add_argument("--device", default="cuda")
+        ar = q.parse_args(argv)
+        return run_matfile(ar.a_npy, ar.b_npy, ar.modes.split(","), ar.test_count, ar.device)
+    if argv and argv[0] == "matfile_raw":
+        q = argparse.ArgumentParser()
+        q.add_argument("cmd")
+        q.add_argument("a_bin")
+        q.add_argument("b_bin")
+        q.add_argument("m", type=int)
+        q.add_argument("k", type=int)
+        q.add_argument("n", type=int)
+        q.add_argument("--dtype", default="fp64", choices=sorted(_RAW_DTYPES))
+        q.add_argument("modes", nargs="?", default="fp64_int8_9")
+        q.add_argument("--test-count", type=int, default=1)
+        q.add_argument("--device", default="cuda")
+        ar = q.parse_args(argv)
+        return run_matfile_raw(
+            ar.a_bin, ar.b_bin, ar.m, ar.k, ar.n, ar.dtype,
+            ar.modes.split(","), ar.test_count, ar.device,
+        )
+    if argv and argv[0] == "hpl":
+        return run_hpl(*argv[1:])
+    if argv and argv[0] == "power":
+        q = argparse.ArgumentParser()
+        q.add_argument("cmd")
+        q.add_argument("gemm", nargs="?", default="dgemm", choices=["dgemm", "zgemm"])
+        q.add_argument("mode", nargs="?", default="fp64_int8_9")
+        q.add_argument("size", nargs="?", type=int, default=4096)
+        q.add_argument("--min-seconds", type=float, default=10.0)
+        q.add_argument("--device", default="cuda")
+        ar = q.parse_args(argv)
+        return run_power(ar.gemm, ar.mode, ar.size, ar.min_seconds, ar.device)
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("input", help="urand01|normal01|exp_rand-<phi>|ci_test")
+    p.add_argument("gemm", nargs="?", default="dgemm", choices=["dgemm", "zgemm"])
+    p.add_argument("modes", nargs="?", default="fp64_int8_9",
+                   help="comma-separated compute modes")
+    p.add_argument("size_mode", nargs="?", default="seq", choices=["seq", "exp2"])
+    p.add_argument("start", nargs="?", type=int, default=1024)
+    p.add_argument("end", nargs="?", type=int, default=1024)
+    p.add_argument("interval", nargs="?", type=int, default=1024)
+    p.add_argument("--test-count", type=int, default=10)
+    p.add_argument("--ops", default="NN", help="pairs like NN,NT,TN,TT")
+    p.add_argument("--ci-sizes", default="1023,1024,1025")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    if args.input == "ci_test":
+        sizes = tuple(int(s) for s in args.ci_sizes.split(","))
+        return run_ci_test(sizes, args.device)
+
+    print(CSV_HEADER)
+    rc = 0
+    for size in _size_list(args.size_mode, args.start, args.end, args.interval):
+        for mode in args.modes.split(","):
+            for ops in args.ops.split(","):
+                rc |= _run_case(
+                    args.gemm, args.input, mode, ops[0], ops[1],
+                    size, size, size, args.test_count, device=args.device,
+                )
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

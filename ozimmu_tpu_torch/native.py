@@ -69,23 +69,33 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"liboz_kernels-{h.hexdigest()[:16]}.so")
 
 
+def compile_library(cmd: List[str], so: str) -> str:
+    """Run the compiler command ``cmd`` (which lacks only ``-o``) to build
+    the shared library ``so``; return the compiler's output.  Raises with
+    that output if the compiler fails or is missing."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    full = [*cmd, "-o", tmp]
+    try:
+        proc = subprocess.run(full, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"{cmd[0]} not found: cannot build {os.path.basename(so)}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{os.path.basename(cmd[0])} failed ({proc.returncode}): {' '.join(full)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    return proc.stdout + proc.stderr
+
+
 def build() -> str:
     """Compile the kernels unless this exact build exists; return its path."""
     global build_log
     so = library_path()
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-    build_log = proc.stdout + proc.stderr
+    if not os.path.exists(so):
+        cu = [s for s in sources() if s.endswith(".cu")]
+        build_log = compile_library([_nvcc(), *NVCC_FLAGS, *cu], so)
     return so
 
 

@@ -224,6 +224,7 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
 
 def test_port_never_imports_jax():
     code = (
+        "import ozimmu_tpu_torch.intercept, ozimmu_tpu_torch.traced, ozimmu_tpu_torch.bench_cli\n"
         "import importlib, pkgutil, sys, ozimmu_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'ozimmu_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"

@@ -116,3 +116,33 @@ def test_batched_equals_a_loop_and_plain(dev, kind):
     for i in range(3):
         one = ozt.gemm(a[i].to(dev), b[i].to(dev), c=c[i].to(dev), **kw)
         assert torch.equal(as_real(got[i]).view(torch.int64), as_real(one).view(torch.int64))
+
+
+def test_intercepted_product_runs_the_kernels(dev):
+    """An intercepted 1024^3 float64 product equals ``ozt.gemm`` bitwise and
+    launches split twice and recombine once."""
+    import ozimmu_tpu_torch as ozt
+    import ozimmu_tpu_torch.intercept as ozi
+
+    a = torch.from_numpy(generate_input("urand01", (1024, 1024), seed=80)).to(dev)
+    b = torch.from_numpy(generate_input("urand01", (1024, 1024), seed=81)).to(dev)
+    want = ozt.gemm(a, b, mode="fp64_int8_9")
+    torch.cuda.synchronize()
+    before = (split_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
+    with ozi.intercept(mode="fp64_int8_9"):
+        got = a @ b
+    torch.cuda.synchronize()
+    assert (split_cuda.LAUNCHES - before[0], recombine_cuda.LAUNCHES - before[1]) == (2, 1)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+def test_compiled_traced_gemm_equals_eager(dev):
+    import ozimmu_tpu_torch as ozt
+    from ozimmu_tpu_torch import traced
+
+    a, b, c = (torch.from_numpy(generate_input("normal01", s, seed=90 + i)).to(dev)
+               for i, s in enumerate([(300, 520), (520, 260), (300, 260)]))
+    f = torch.compile(lambda x, y, z: traced.gemm(x, y, alpha=2.0, beta=-0.5, c=z), fullgraph=True)
+    got = f(a, b, c)
+    want = ozt.gemm(a, b, mode="fp64_int8_9", alpha=2.0, beta=-0.5, c=c)
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
