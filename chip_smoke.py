@@ -4,11 +4,13 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``ozimmu_tpu_torch/csrc``, checks each kernel
-bit for bit against its plain PyTorch version, drives the main path — the
-real DGEMM ``gemm(a, b, mode="fp64_int8_9")`` at m = n = k = 8192 — checks
-its bits against the plain pipeline and its residual against a long-double
-oracle, shows that the main path went through both kernels, and times the
-main path, its phases, each kernel against its plain version, and
+bit for bit against its plain PyTorch version (the recombine kernel in
+each of its tile classes), drives the main path — the real DGEMM
+``gemm(a, b, mode="fp64_int8_9")`` at m = n = k = 8192 — checks its bits
+against the plain pipeline and its residual against a long-double oracle,
+shows that the main path went through both kernels, and times the main
+path, its phases, each kernel against its plain version and its bound, the
+int8 products alone through ``torch._int_mm`` as a yardstick, and
 ``torch.matmul`` on float64.
 
 Then it drives the rest of the public GEMM API, each path with the launch
@@ -21,7 +23,8 @@ counts set to 0 just before it and read just after:
     op_a="C" / complex alpha, beta, c probe;
   * sgemm at 4096^3: demoted operands, an f32 error bound, the caller's
     TF32 setting kept out and restored; one complex probe;
-  * ``gemm_batched``: 8 x 1024^3, real and complex, bits against a loop;
+  * ``gemm_batched``: 8 x 1024^3, real and complex, bits against a loop,
+    and timed;
   * ``device_trace`` of one 4096^3 GEMM: kernel names and the device's
     busy share over the traced window;
   * ``warmup`` and ``reallocate_working_memory``;
@@ -63,6 +66,16 @@ import torch  # noqa: E402
 N = 8192  # main-path size: m = n = k
 NS = 9  # fp64_int8_9
 RESIDUAL_GATE = 1e-15
+# NVIDIA's data sheet for the H100 SXM (dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+
+# recombine cases (m, n, k, ns): ragged edges, k % 16 != 0, one group per
+# pair at ns = 18 (171 pairs), and the int32 group splits of k = 16384
+# (8 + 1) and k = 32768 (groups of at most 4 pairs)
+RECOMBINE_CASES = ((200, 136, 272, 6), (256, 128, 1024, 8), (1000, 1234, 777, 9),
+                   (64, 64, 16384, 9), (17, 9, 32, 3), (1025, 1023, 1025, 16),
+                   (130, 260, 4096, 18), (512, 640, 32768, 12))
 
 
 def gpu_label() -> str:
@@ -101,6 +114,13 @@ def special_matrix() -> np.ndarray:
     x[4, 4] = 1e300
     x[5, 5] = -1e-300
     return x
+
+
+def bound_ms(n_bytes: float, ops: float, peak_ops: float):
+    """The least time the card could take (ms) and what sets it: the bytes
+    over the memory rate, or the operations over the peak rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
@@ -180,9 +200,14 @@ def main() -> int:
     native.lib()
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"({native.library_path()})", flush=True)
+    entry = "?"
     for line in native.build_log.splitlines():
+        m = re.search(r"([a-z_]+_kernel)(I(?:Li-?\d+E)+)?", line)
+        if "Compiling entry function" in line and m:
+            targs = re.findall(r"Li(-?\d+)E", m[2] or "")
+            entry = m[1] + (f"<{', '.join(targs)}>" if targs else "")
         if "Used" in line or "spill" in line:
-            print(f"[build] {line.strip()}", flush=True)
+            print(f"[build] {entry}: {line.strip()}", flush=True)
 
     max_err = {"split_digits": 0.0, "recombine": 0.0}
 
@@ -209,23 +234,28 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[split] kernel == plain bitwise in {n_cases} cases", flush=True)
 
-    # 4. recombine: kernel vs plain, bitwise on all three f32 planes
-    for (m, n, k), ns in (((200, 136, 272), 6), ((256, 128, 1024), 8),
-                          ((1000, 1234, 777), 9), ((64, 64, 16384), 9)):
+    # 4. recombine: kernel vs plain, bitwise on all three f32 planes, in
+    #    every tile class (the launch plan picks one per shape)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for m, n, k, ns in RECOMBINE_CASES:
         b = bits_per_int8(k)
         a_t = torch.from_numpy(generate_input("normal01", (m, k), seed=m)).to(dev)
         b_t = torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=n)).to(dev)
         da, _ = split_f64(a_t, ns, b)
         db, _ = split_f64_cols(b_t, ns, b)
         want = fold_group_totals(group_totals(da, db, ns, k, b), ns, k, b)
-        got = recombine_cuda.recombine(da, db, ns, b, k)
-        err = max((w - g).abs().max().item() for w, g in zip(want, got))
-        max_err["recombine"] = max(max_err["recombine"], float(err))
-        if not all(bits_equal(w, g) for w, g in zip(want, got)):
-            raise AssertionError(f"recombine mismatch at m,n,k={m},{n},{k} ns={ns}")
+        for tile in range(len(recombine_cuda.TILES)):
+            got = recombine_cuda.recombine(da, db, ns, b, k, tile=tile)
+            err = max((w - g).abs().max().item() for w, g in zip(want, got))
+            max_err["recombine"] = max(max_err["recombine"], float(err))
+            if not all(bits_equal(w, g) for w, g in zip(want, got)):
+                raise AssertionError(f"recombine mismatch at m,n,k={m},{n},{k} ns={ns} tile={tile}")
         groups = group_schedule(ns, k, b)
-        print(f"[recombine] kernel == plain bitwise (3 planes) at m,n,k={m},{n},{k} ns={ns} "
-              f"b={b}: {len(groups)} groups of {[len(g.pairs) for g in groups]} pairs", flush=True)
+        plan = recombine_cuda.launch_plan(m, n, k, ns, sms)
+        print(f"[recombine] kernel == plain bitwise (3 planes, tile classes "
+              f"{list(range(len(recombine_cuda.TILES)))}; plan: {plan.tile}) at m,n,k={m},{n},{k} "
+              f"ns={ns} b={b}: {len(groups)} groups of {[len(g.pairs) for g in groups]} pairs",
+              flush=True)
 
     # 5. the main path at full size
     rng = np.random.default_rng(0)
@@ -320,10 +350,33 @@ def main() -> int:
         "recombine": cuda_ms(
             lambda: fold_group_totals(group_totals(da, db, NS, N, bb), NS, N, bb), iters=3),
     }
+    pairs = NS * (NS + 1) // 2
+    rec_ops = pairs * 2 * N**3
+    bounds = {
+        # read f64 [N, N] and the int32 row exponents, write ns int8 planes
+        "split_digits": bound_ms(a.numel() * 8 + e_a.numel() * 4 + NS * a.numel(), 0,
+                                 INT8_OPS_PER_S),
+        # read both operands' planes, write three f32 planes; 2mnk int8
+        # operations per scheduled pair
+        "recombine": bound_ms(da.numel() + db.numel() + 3 * 4 * N * N, rec_ops, INT8_OPS_PER_S),
+    }
     for name in ms:
         print(f"[time] {label}: {name} at the main-path shape: kernel {ms[name]:.3f} ms, "
-              f"plain PyTorch {plain_ms[name]:.3f} ms", flush=True)
-    del da, db
+              f"plain PyTorch {plain_ms[name]:.3f} ms, bound {bounds[name][0]:.3f} ms "
+              f"({bounds[name][1]})", flush=True)
+    print(f"[time] {label}: recombine {N}^3 ns={NS}: {rec_ops / ms['recombine'] / 1e9:.1f} int8 "
+          f"TOPS ({pairs} pairs x 2mnk)", flush=True)
+    # the int8 products alone, without the group sums and the fold: not the
+    # same function, a yardstick of the library's int8 rate
+    pair_list = [(i - 1, j - 1) for g in group_schedule(NS, N, bb) for i, j in g.pairs]
+    dbt = db.transpose(1, 2).contiguous()
+    ms_mm = cuda_ms(lambda: [torch._int_mm(da[i], db[j]) for i, j in pair_list], iters=3)
+    ms_mm_t = cuda_ms(lambda: [torch._int_mm(da[i], dbt[j].t()) for i, j in pair_list], iters=3)
+    print(f"[time] {label}: yardstick, NOT the same function: the {pairs} int8 products alone "
+          f"through torch._int_mm at {N}^3: {ms_mm:.3f} ms ({rec_ops / ms_mm / 1e9:.1f} TOPS) with "
+          f"B's planes [k, n] as the plain version passes them, {ms_mm_t:.3f} ms "
+          f"({rec_ops / ms_mm_t / 1e9:.1f} TOPS) with them k-contiguous", flush=True)
+    del da, db, dbt
 
     ms_dgemm = cuda_ms(lambda: torch.matmul(a, b), iters=3)
     print(f"[time] {label}: torch.matmul float64 {N}^3: {ms_dgemm:.3f} ms, "
@@ -335,7 +388,7 @@ def main() -> int:
     del a, b
     by_path["zgemm"] = phase_zgemm(ozt, label, rng)
     phase_sgemm(ozt)
-    by_path.update(phase_batched(ozt))
+    by_path.update(phase_batched(ozt, label))
     phase_trace(ozt)
     phase_warmup(ozt)
     by_path["intercept"] = phase_intercept(ozt, label)
@@ -350,8 +403,10 @@ def main() -> int:
     ]
     for kern in kernels:
         name = kern["name"]
+        # no single PyTorch call computes either function: library_ms is null
         kern.update(launches=launches[name], max_abs_err=max_err[name],
-                    ms=ms[name], plain_ms=plain_ms[name],
+                    ms=ms[name], plain_ms=plain_ms[name], bound_ms=bounds[name][0],
+                    bound_by=bounds[name][1], library_ms=None,
                     launches_by_path={p: c[name] for p, c in by_path.items()})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -559,9 +614,9 @@ def phase_sgemm(ozt) -> None:
           f"(bound 4*k*2^-24*((|ar|+|ai|)@(|br|+|bi|)))", flush=True)
 
 
-def phase_batched(ozt) -> dict:
+def phase_batched(ozt, label) -> dict:
     """11. gemm_batched: 8 x 1024^3, real and complex, fp64_int8_9, with c,
-    bits against a loop of 2-D gemm calls."""
+    bits against a loop of 2-D gemm calls, and its time."""
     from ozimmu_tpu_torch.testing import generate_input
 
     B, n = 8, 1024
@@ -582,8 +637,12 @@ def phase_batched(ozt) -> dict:
             want = ozt.gemm(a[i], b[i], mode=f"fp64_int8_{NS}", alpha=alpha, beta=beta, c=c[i])
             if not bits_equal(as_real(out[i]), as_real(want)):
                 raise AssertionError(f"batched {kind} matrix {i} differs from the 2-D gemm")
+        ms_b = cuda_ms(lambda: ozt.gemm_batched(a, b, mode=f"fp64_int8_{NS}", alpha=alpha,
+                                                beta=beta, c=c), iters=3)
         print(f"[batched] {B} x {n}^3 {kind} fp64_int8_{NS} with c: bits == loop of 2-D gemm; "
               f"launches {got}", flush=True)
+        print(f"[time] {label}: gemm_batched {B} x {n}^3 {kind} fp64_int8_{NS} with c: "
+              f"{ms_b:.3f} ms", flush=True)
     return counts
 
 

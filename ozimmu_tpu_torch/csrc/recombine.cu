@@ -18,42 +18,57 @@
 //     (ozimmu_tpu_torch/schedule.py::max_safe_pairs_per_group);
 //   * the fold runs in exactly fold_group_totals' order, with
 //     round-to-nearest intrinsics and no contraction (also built with
-//     --fmad=false), so every f32 operation matches.
+//     --fmad=false), so every f32 operation matches; a triple parked in
+//     the output planes between two groups is stored and reloaded exactly.
 //
 // What bounds it on an H100: int8 arithmetic, ns(ns+1)/2 * 2*m*n*k
-// operations, and the bytes that feed it: every pair streams its two
-// digit planes through shared memory once per output tile.  This version
-// runs on the int8 tensor cores through the warp-level
-// mma.sync.m16n8k32 (s8 x s8 -> s32); wgmma with TMA-fed, deeper
-// pipelines is the next step.  The design keeps what the TPU kernel kept
-// out of device memory out of it: the groups are the OUTER loop and each
-// group's int32 tile lives in registers until it is folded, so one int32
-// tile and one triple are live per thread and no partial product touches
-// device memory.
-// Block: a 64x64 output tile, 4 warps of 32x32 (2 x 4 mma tiles of 16x8),
-// registers capped so that three blocks share an SM (the unaligned-k path
-// ran 1.7x faster so; the aligned path already fit).
-// Both operands arrive k-contiguous (A as [ns, m, k], B transposed by the
-// wrapper to [ns, n, k]), so every mma fragment is one aligned 32-bit
-// shared-memory word and every tile row is copied in 16-byte chunks.  The
-// 64-deep k tiles of all (pair, k) steps of the schedule form one sequence
-// that is double-buffered in shared memory: cp.async copies step s+1 while
-// the tensor cores work on step s (when k % 16 == 0; otherwise plain
-// loads fill the next buffer, still ahead of the barrier).
+// operations, and the bytes that feed them from L2: every (pair, k-tile)
+// step streams one A and one B tile into shared memory.  The design:
+//   * wgmma.mma_async m64nNk32 s8 x s8 -> s32, both operands from shared
+//     memory, K-major (the only layout wgmma takes for 8-bit types: A's
+//     planes are [ns, m, k], B's are transposed by the wrapper to
+//     [ns, n, k]);
+//   * a ring of STAGES shared-memory stages filled by TMA
+//     (cp.async.bulk.tensor.3d over (k, rows, plane), 128-byte swizzle,
+//     BK = 128 bytes of k per stage), with a full and an empty mbarrier per
+//     stage; one producer thread walks the same flat (pair, k-tile) step
+//     sequence as the consumers, choosing the plane of each pair by the
+//     third tensor-map coordinate;
+//   * warp specialisation: one producer warpgroup (its registers given up
+//     through setmaxnreg) and NC consumer warpgroups, each owning 64 rows
+//     of the block tile and keeping one wgmma group in flight;
+//   * only the int32 group accumulator lives in registers (BN/2 a
+//     thread); the triple lives in the output planes o0/o1/o2 and is
+//     read, updated and written back at each group end (the first group
+//     writes without reading, the last ends with renorm), while the
+//     producer keeps filling the ring;
+//   * a persistent grid: one block per SM walking the output tiles in
+//     bands of kGroupM cluster tile rows, so that the tiles in flight
+//     share A row panels and B column panels in L2;
+//   * tile classes, chosen by the launch plan in ops/recombine_cuda.py:
+//     128x256 (two consumer warpgroups) for large products, in clusters
+//     of two blocks that take vertically adjacent tiles and share one B
+//     tile by TMA multicast (a third less L2 traffic; 10-30 % faster at
+//     8192^3 on an H100 held at its power cap, PERF.md), and 64x128 (one consumer
+//     warpgroup, no cluster) when the large tile would leave most SMs
+//     idle.
+// The wrapper zero-pads k to a multiple of 16 (TMA's stride rule); zero
+// digits add zero products, and TMA fills the rest of the last k tile and
+// the rows beyond m or n with zeros.
 
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and the encoder's types; libcuda is reached at run time
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxPairs = 171;   // ns = 18: 18 * 19 / 2
 constexpr int kMaxGroups = 171;  // at most one group per pair
-constexpr int BM = 64, BN = 64, BK = 64;
-constexpr int LDS = BK + 16;  // row stride of the shared tiles, bytes
-constexpr int kThreads = 128;
+constexpr int BK = 128;          // k bytes per stage: one 128-byte swizzle row
+constexpr int kGroupM = 8;       // cluster tile rows per band of the persistent order
 
-// The schedule travels by value, as a kernel parameter: it is a few
-// hundred bytes, read uniformly by every thread.
+// The schedule travels by value, as a kernel parameter: about 2 KB, read
+// uniformly by every thread.
 struct Schedule {
   int n_groups;
   uint16_t start[kMaxGroups + 1];  // group g has pairs [start[g], start[g+1])
@@ -96,186 +111,483 @@ __device__ __forceinline__ void renorm(float& t0, float& t1, float& t2) {
   t2 = s2;
 }
 
-__device__ __forceinline__ int lds32(const int8_t* p) {
-  return *reinterpret_cast<const int*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// d += a (16x32, row-major fragment) * b (32x8, column-major fragment)
-__device__ __forceinline__ void mma_s8(int (&d)[4], const int (&a)[4],
-                                       const int (&b)[2]) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// one box of a 3-D tensor map (k, row, plane) into shared memory,
+// completing `bytes` on the mbarrier `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int k0, int row0,
+                                         int plane) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0), "r"(plane)
+      : "memory");
 }
 
-// One 64-row x BK-byte tile of a k-contiguous [rows, k] int8 plane into
-// shared memory (row stride LDS), zero outside the plane.  Thread tid
-// copies the 16-byte chunks tid and tid + kThreads.  VEC (k % 16 == 0 and
-// 16-byte aligned planes): asynchronous cp.async copies, zero-filled at
-// the edge; otherwise plain byte loads.
-template <bool VEC>
-__device__ __forceinline__ void load_tile(int8_t* __restrict__ dst,
-                                          const int8_t* __restrict__ plane,
-                                          int row0, int rows, int k0, int k,
-                                          int tid) {
+// the same, written into the shared memory of every CTA of the cluster in
+// `mask`, completing on the mbarrier at `bar`'s offset in each of them
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, int k0, int row0,
+                                                   int plane, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k0), "r"(row0), "r"(plane),
+      "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// arrive on the mbarrier at `bar`'s offset in the cluster's CTA `cta`
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzle:
+// 8-row core groups 1024 bytes apart (stride byte offset), leading byte
+// offset unused (1), layout type 1 = SWIZZLE_128B.  The tile base is
+// 1024-byte aligned; each k32 step adds 32 bytes to the start address.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous wgmma issue and wait points.
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = tid + h * kThreads;
-    const int r = c >> 2, col = (c & 3) * 16;
-    const int grow = row0 + r, gcol = k0 + col;
-    int8_t* d = dst + r * LDS + col;
-    const int8_t* src = plane + (int64_t)grow * k + gcol;
-    if (VEC) {
-      const bool in = grow < rows && gcol < k;
-      const unsigned saddr = (unsigned)__cvta_generic_to_shared(d);
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
-                   "l"(in ? src : plane), "r"(in ? 16 : 0));
-    } else {
-      union {
-        int4 v;
-        int8_t b[16];
-      } u;
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define OZ_D8(i)                                                            \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+#define OZ_D32(i) OZ_D8(i), OZ_D8(i + 8), OZ_D8(i + 16), OZ_D8(i + 24)
+
+// d (64 x BN s32 over the warpgroup) = A (64 x 32 s8) * B (32 x BN s8)
+// [+ d when `accumulate`]
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<256> {
+  __device__ __forceinline__ static void run(int (&d)[128], uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+        "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "
+        "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+        "%124, %125, %126, %127}, "
+        "%128, %129, p;\n}\n"
+        : OZ_D32(0), OZ_D32(32), OZ_D32(64), OZ_D32(96)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  __device__ __forceinline__ static void run(int (&d)[64], uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+        "%58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : OZ_D32(0), OZ_D32(32)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+#undef OZ_D32
+#undef OZ_D8
+
+// Unit `t` of a tiles_m x tiles_n grid (cluster tile rows x tile columns)
+// in the persistent order: bands of kGroupM rows, column-major inside a
+// band.
+__device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n,
+                                            int& tm, int& tn) {
+  const int per_band = kGroupM * tiles_n;
+  const int band = t / per_band;
+  const int first = band * kGroupM;
+  const int rows = min(tiles_m - first, kGroupM);
+  const int r = t - band * per_band;
+  tm = first + r % rows;
+  tn = r / rows;
+}
+
+// Folds one finished group total into the triple parked in o0/o1/o2
+// (ops/recombine.py fold_group_totals: hi term, then lo term; renorm
+// after the last group).  Accumulator register r of a thread holds row
+// row0 + 8 * ((r >> 1) & 1), column col0 + (r >> 2) * 8 + (r & 1).  The
+// loads of kBatch elements are issued before the first of them is used.
+template <int R>
+__device__ __forceinline__ void fold_group(const int (&d)[R],
+                                           float* __restrict__ o0,
+                                           float* __restrict__ o1,
+                                           float* __restrict__ o2, int row0,
+                                           int col0, int m, int n, float shi,
+                                           float slo, bool first, bool last) {
+  constexpr int kBatch = 16;
 #pragma unroll
-      for (int x = 0; x < 16; ++x)
-        u.b[x] = grow < rows && gcol + x < k ? src[x] : 0;
-      *reinterpret_cast<int4*>(d) = u.v;
+  for (int b0 = 0; b0 < R; b0 += kBatch) {
+    float t0[kBatch], t1[kBatch], t2[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int r = b0 + q;
+      const int row = row0 + 8 * ((r >> 1) & 1);
+      const int col = col0 + (r >> 2) * 8 + (r & 1);
+      t0[q] = t1[q] = t2[q] = 0.0f;
+      if (!first && row < m && col < n) {
+        const int64_t o = (int64_t)row * n + col;
+        t0[q] = o0[o];
+        t1[q] = o1[o];
+        t2[q] = o2[o];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int r = b0 + q;
+      const int row = row0 + 8 * ((r >> 1) & 1);
+      const int col = col0 + (r >> 2) * 8 + (r & 1);
+      const int hi = d[r] >> 16;     // arithmetic: [-2^15, 2^15)
+      const int lo = d[r] & 0xFFFF;  // == d - hi * 2^16, in [0, 2^16)
+      add_term(t0[q], t1[q], t2[q], __fmul_rn(__int2float_rn(hi), shi));
+      add_term(t0[q], t1[q], t2[q], __fmul_rn(__int2float_rn(lo), slo));
+      if (last) renorm(t0[q], t1[q], t2[q]);
+      if (row < m && col < n) {
+        const int64_t o = (int64_t)row * n + col;
+        o0[o] = t0[q];
+        o1[o] = t1[q];
+        o2[o] = t2[q];
+      }
     }
   }
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads, 3)
-    recombine_kernel(const int8_t* __restrict__ da,
-                     const int8_t* __restrict__ dbt, float* __restrict__ o0,
-                     float* __restrict__ o1, float* __restrict__ o2, int m,
-                     int n, int k, const Schedule sch) {
-  // two stages of (A tile, B tile), each 64 rows of LDS bytes
-  __shared__ __align__(16) int8_t smem[2][2][BM * LDS];
+template <int NC, int BN, int STAGES, int CM>
+struct Tile {
+  static constexpr int BM = 64 * NC;
+  static constexpr int A_BYTES = BM * BK;
+  static constexpr int B_BYTES = BN * BK;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int THREADS = (NC + 1) * 128;
+  // the ring, its 2 * STAGES mbarriers, and slack to align the ring's base
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;  // mma fragment coordinates
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int64_t plane_a = (int64_t)m * k, plane_b = (int64_t)n * k;
-  const int k_tiles = (k + BK - 1) / BK;
-  const int steps = sch.start[sch.n_groups] * k_tiles;
+// NC consumer warpgroups (warpgroups 0 .. NC-1) and one producer
+// warpgroup (NC).  k_tiles = ceil(k_pad / BK).  CM > 1: the block is one
+// of a cluster of CM blocks that take CM vertically adjacent output tiles
+// of one B column panel; each loads 1/CM of the B tile and multicasts it
+// to all of them.
+template <int NC, int BN, int STAGES, int CM>
+__global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
+    recombine_kernel(const __grid_constant__ CUtensorMap map_a,
+                     const __grid_constant__ CUtensorMap map_b,
+                     float* __restrict__ o0, float* __restrict__ o1,
+                     float* __restrict__ o2, int m, int n, int k_tiles,
+                     const Schedule sch) {
+  using T = Tile<NC, BN, STAGES, CM>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;  // 128-byte swizzle wants 1024
+  const uint32_t full0 = ring + STAGES * T::STAGE_BYTES;
+  const uint32_t empty0 = full0 + STAGES * 8;
 
-  // element e = (mi * 4 + ni) * 4 + r of this thread's 32 outputs sits at
-  // row wm + mi*16 + g + 8*(r >> 1), column wn + ni*8 + 2*t + (r & 1)
-  float t0[32], t1[32], t2[32];
-  int acc[2][4][4];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) t0[e] = t1[e] = t2[e] = 0.0f;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0;
+  const int wg = threadIdx.x / 128;
+  const int rank = CM > 1 ? (int)cluster_rank() : 0;
+  // the cluster's unit of work: CM tiles stacked along m
+  const int units_m = ((m + T::BM - 1) / T::BM + CM - 1) / CM;
+  const int tiles_n = (n + BN - 1) / BN;
+  const int units = units_m * tiles_n;
+  const int unit0 = blockIdx.x / CM, units_step = gridDim.x / CM;
+  const int n_pairs = sch.start[sch.n_groups];
 
-  // step s = (pair s / k_tiles, k tile s % k_tiles), in schedule order
-  auto issue = [&](int s) {
-    const int p = s / k_tiles, k0 = (s - p * k_tiles) * BK;
-    load_tile<VEC>(smem[s & 1][0], da + sch.pi[p] * plane_a, m0, m, k0, k, tid);
-    load_tile<VEC>(smem[s & 1][1], dbt + sch.pj[p] * plane_b, n0, n, k0, k, tid);
-    if (VEC) asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  issue(0);
-  int gi = 0;  // group of the current step
-  for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      issue(s + 1);
-      if (VEC) asm volatile("cp.async.wait_group 1;\n" ::);
-    } else if (VEC) {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);        // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 4 * NC * CM);  // each consumer warp of the cluster
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (CM > 1)
+    cluster_sync();
+  else
     __syncthreads();
 
-    const int8_t* As = smem[s & 1][0];
-    const int8_t* Bs = smem[s & 1][1];
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 32) {
-      int af[2][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* r0 = As + (wm + mi * 16 + g) * LDS + ks + t * 4;
-        af[mi][0] = lds32(r0);
-        af[mi][1] = lds32(r0 + 8 * LDS);
-        af[mi][2] = lds32(r0 + 16);
-        af[mi][3] = lds32(r0 + 8 * LDS + 16);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int8_t* c0 = Bs + (wn + ni * 8 + g) * LDS + ks + t * 4;
-        bf[ni][0] = lds32(c0);
-        bf[ni][1] = lds32(c0 + 16);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
-    }
-    __syncthreads();  // the buffer of step s is refilled by step s + 2
-
-    if (s + 1 == sch.start[gi + 1] * k_tiles) {
-      // the group's total is complete: fold it (ops/recombine.py
-      // fold_group_totals: hi term, then lo term) and start the next
-      const float shi = sch.scale_hi[gi], slo = sch.scale_lo[gi];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const int e = (mi * 4 + ni) * 4 + r;
-            const int d = acc[mi][ni][r];
-            const int hi = d >> 16;     // arithmetic: [-2^15, 2^15)
-            const int lo = d & 0xFFFF;  // == d - hi * 2^16, in [0, 2^16)
-            add_term(t0[e], t1[e], t2[e], __fmul_rn(__int2float_rn(hi), shi));
-            add_term(t0[e], t1[e], t2[e], __fmul_rn(__int2float_rn(lo), slo));
-            acc[mi][ni][r] = 0;
+  if (wg == NC) {
+    // producer: one thread keeps the ring full
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == NC * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int u = unit0; u < units; u += units_step) {
+        int um, tn;
+        tile_coords(u, units_m, tiles_n, um, tn);
+        const int tm = um * CM + rank;
+        for (int p = 0; p < n_pairs; ++p) {
+          const int pa = sch.pi[p], pb = sch.pj[p];
+          for (int kt = 0; kt < k_tiles; ++kt) {
+            mbar_wait(empty0 + 8 * stage, phase ^ 1);
+            const uint32_t full = full0 + 8 * stage;
+            const uint32_t dst = ring + stage * T::STAGE_BYTES;
+            mbar_expect_tx(full, T::STAGE_BYTES);
+            tma_load(dst, &map_a, full, kt * BK, tm * T::BM, pa);
+            if constexpr (CM == 1)
+              tma_load(dst + T::A_BYTES, &map_b, full, kt * BK, tn * BN, pb);
+            else
+              tma_load_multicast(dst + T::A_BYTES + rank * (BN / CM) * BK, &map_b, full,
+                                 kt * BK, tn * BN + rank * (BN / CM), pb, (1 << CM) - 1);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
-      ++gi;
-    }
-  }
-
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int e = (mi * 4 + ni) * 4 + r;
-        const int row = m0 + wm + mi * 16 + g + 8 * (r >> 1);
-        const int col = n0 + wn + ni * 8 + 2 * t + (r & 1);
-        renorm(t0[e], t1[e], t2[e]);
-        if (row < m && col < n) {
-          const int64_t o = (int64_t)row * n + col;
-          o0[o] = t0[e];
-          o1[o] = t1[e];
-          o2[o] = t2[e];
         }
       }
+      if constexpr (CM > 1) {
+        // stay until every consumer of the cluster has released every
+        // stage: their arrivals land in this block's barriers
+        for (int i = 0; i < STAGES; ++i) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows wg*64 .. wg*64+63 of the block tile
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    int d[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) d[i] = 0;
+    int stage = 0;
+    uint32_t phase = 0;
+    // a stage is free again once every consumer warp of the cluster is done
+    auto release = [&](int s) {
+      if constexpr (CM == 1) {
+        if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      } else {
+        if (lane < CM) mbar_arrive_cluster(empty0 + 8 * s, lane);
+      }
+    };
+    for (int u = unit0; u < units; u += units_step) {
+      int um, tn;
+      tile_coords(u, units_m, tiles_n, um, tn);
+      const int tm = um * CM + rank;
+      const int row0 = tm * T::BM + wg * 64 + warp * 16 + (lane >> 2);
+      const int col0 = tn * BN + (lane & 3) * 2;
+      int p = 0;
+      for (int g = 0; g < sch.n_groups; ++g) {
+        int prev = -1;  // stage whose wgmma group may still be in flight
+        bool fresh = true;
+        for (; p < sch.start[g + 1]; ++p) {
+          for (int kt = 0; kt < k_tiles; ++kt) {
+            mbar_wait(full0 + 8 * stage, phase);
+            const uint32_t a = ring + stage * T::STAGE_BYTES + wg * 64 * BK;
+            const uint64_t da = sw128_desc(a);
+            const uint64_t db = sw128_desc(ring + stage * T::STAGE_BYTES + T::A_BYTES);
+            fence_regs(d);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 32; ++kk)  // a group's first step overwrites d
+              Wgmma<BN>::run(d, da + 2 * kk, db + 2 * kk, (fresh && kk == 0) ? 0 : 1);
+            wgmma_commit();
+            wgmma_wait<1>();  // the previous step's products are done
+            if (prev >= 0) release(prev);
+            prev = stage;
+            fresh = false;
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+        wgmma_wait<0>();
+        fence_regs(d);
+        release(prev);
+        fold_group(d, o0, o1, o2, row0, col0, m, n, sch.scale_hi[g], sch.scale_lo[g],
+                   g == 0, g == sch.n_groups - 1);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime's entry
+// point query, so the library needs no link against libcuda.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? (EncodeTiled)p : nullptr;
+  }();
+  return fn;
+}
+
+// Tensor map of int8 planes [ns, rows, k_pad] (k contiguous), boxes of
+// BK bytes of k by box_rows rows of one plane, 128-byte swizzle, zeros
+// outside the planes.
+bool plane_map(CUtensorMap* map, const void* planes, int ns, int rows, int k_pad,
+               int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)k_pad, (cuuint64_t)rows, (cuuint64_t)ns};
+  const cuuint64_t strides[2] = {(cuuint64_t)k_pad, (cuuint64_t)rows * k_pad};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(planes), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NC, int BN, int STAGES, int CM>
+int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int m,
+           int n, int ns, int k_pad, const Schedule& sch, int grid, int smem_bytes,
+           cudaStream_t stream) {
+  using T = Tile<NC, BN, STAGES, CM>;
+  if (smem_bytes != T::SMEM_BYTES || grid % CM != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!plane_map(&map_a, da, ns, m, k_pad, T::BM) ||
+      !plane_map(&map_b, dbt, ns, n, k_pad, BN / CM))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = recombine_kernel<NC, BN, STAGES, CM>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = CM;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(T::THREADS);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = CM > 1 ? 1 : 0;
+  if (CM > 1) {
+    // a persistent grid must be resident at once: no more clusters than fit
+    int fit = 0;
+    e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+    if (grid > fit * CM) cfg.gridDim = dim3(fit * CM);
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, o0, o1, o2, m, n,
+                         (k_pad + BK - 1) / BK, sch);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// da: [ns, m, k]; dbt: B's planes transposed to [ns, n, k].
+// da: [ns, m, k_pad]; dbt: B's planes transposed to [ns, n, k_pad]; both
+// 16-byte aligned, k_pad a multiple of 16, zero beyond the true k.
 // group_start: n_groups + 1 pair offsets; pair_i / pair_j: 0-based planes
 // of each pair; scale_hi / scale_lo: the two f32 factors of each group.
-// All five are host arrays; returns a cudaError_t code (0 = launched).
-extern "C" int oz_recombine(const void* da, const void* dbt, void* o0,
-                            void* o1, void* o2, int m, int n, int k,
-                            int n_groups, const int32_t* group_start,
-                            const int32_t* pair_i, const int32_t* pair_j,
-                            const float* scale_hi, const float* scale_lo,
+// All five are host arrays.  tile: 0 = 128x256 in clusters of 2 (4
+// stages), 1 = 64x128 (8 stages); grid: persistent blocks, a multiple of
+// the cluster size (fewer are launched if fewer clusters fit on the card
+// at once); smem_bytes must equal the tile class's dynamic shared memory
+// (ops/recombine_cuda.py::launch_plan).
+// Returns a cudaError_t code (0 = launched).
+extern "C" int oz_recombine(const void* da, const void* dbt, void* o0, void* o1,
+                            void* o2, int m, int n, int ns, int k_pad, int n_groups,
+                            const int32_t* group_start, const int32_t* pair_i,
+                            const int32_t* pair_j, const float* scale_hi,
+                            const float* scale_lo, int tile, int grid, int smem_bytes,
                             void* stream) {
-  if (n_groups < 1 || n_groups > kMaxGroups ||
-      group_start[n_groups] > kMaxPairs || k < 1)
+  if (n_groups < 1 || n_groups > kMaxGroups || group_start[n_groups] > kMaxPairs ||
+      k_pad < 16 || k_pad % 16 != 0 || m < 1 || n < 1 || ns < 1 || grid < 1 ||
+      (uintptr_t)da % 16 != 0 || (uintptr_t)dbt % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Schedule sch;
   sch.n_groups = n_groups;
@@ -288,15 +600,14 @@ extern "C" int oz_recombine(const void* da, const void* dbt, void* o0,
     sch.scale_hi[g] = scale_hi[g];
     sch.scale_lo[g] = scale_lo[g];
   }
-  const bool vec = k % 16 == 0 && (uintptr_t)da % 16 == 0 && (uintptr_t)dbt % 16 == 0;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   cudaStream_t s = (cudaStream_t)stream;
-  const int8_t* a = (const int8_t*)da;
-  const int8_t* b = (const int8_t*)dbt;
   float *p0 = (float*)o0, *p1 = (float*)o1, *p2 = (float*)o2;
-  if (vec)
-    recombine_kernel<true><<<grid, kThreads, 0, s>>>(a, b, p0, p1, p2, m, n, k, sch);
-  else
-    recombine_kernel<false><<<grid, kThreads, 0, s>>>(a, b, p0, p1, p2, m, n, k, sch);
-  return (int)cudaGetLastError();
+  switch (tile) {
+    case 0:
+      return launch<2, 256, 4, 2>(da, dbt, p0, p1, p2, m, n, ns, k_pad, sch, grid, smem_bytes, s);
+    case 1:
+      return launch<1, 128, 8, 1>(da, dbt, p0, p1, p2, m, n, ns, k_pad, sch, grid, smem_bytes, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -90,12 +90,31 @@ def compile_library(cmd: List[str], so: str) -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless this exact build exists; return its path."""
+    """Compile the kernels unless this exact build exists; return its path.
+    One ``nvcc -c`` per source, all started together, then one link."""
     global build_log
     so = library_path()
     if not os.path.exists(so):
+        nvcc = _nvcc()
+        os.makedirs(BUILD_DIR, exist_ok=True)
         cu = [s for s in sources() if s.endswith(".cu")]
-        build_log = compile_library([_nvcc(), *NVCC_FLAGS, *cu], so)
+        objs = [f"{so}.{os.path.basename(s)}.{os.getpid()}.o" for s in cu]
+        flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        procs = [
+            subprocess.Popen([nvcc, *flags, "-c", s, "-o", o],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(cu, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        try:
+            for s, p, log in zip(cu, procs, logs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({p.returncode}) on {os.path.basename(s)}\n{log}")
+            build_log = "".join(logs) + compile_library([nvcc, *NVCC_FLAGS, *objs], so)
+        finally:
+            for o in objs:
+                if os.path.exists(o):
+                    os.remove(o)
     return so
 
 
@@ -103,7 +122,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.oz_split_digits.argtypes = [p, p, p, i64, i64, i32, i32, i32, p]
     lib.oz_split_digits.restype = i32
-    lib.oz_recombine.argtypes = [p, p, p, p, p, i32, i32, i32, i32, p, p, p, p, p, p]
+    lib.oz_recombine.argtypes = [
+        p, p, p, p, p, i32, i32, i32, i32, i32, p, p, p, p, p, i32, i32, i32, p,
+    ]
     lib.oz_recombine.restype = i32
     lib.oz_error_string.argtypes = [i32]
     lib.oz_error_string.restype = ctypes.c_char_p

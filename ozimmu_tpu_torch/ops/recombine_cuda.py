@@ -5,14 +5,23 @@ Its plain PyTorch version is :func:`.recombine.group_totals` followed by
 :func:`.recombine.fold_group_totals`; the two are bitwise equal on all
 three f32 planes.  The wrapper takes CUDA tensors only and raises on
 anything else — there is no fallback.
+
+:func:`launch_plan` decides everything about a launch that depends on the
+shape (tile class, padded k, grid, shared memory) in plain Python, so that
+the CPU tests can check it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import math
+from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import native
 from ..schedule import group_schedule
@@ -23,10 +32,84 @@ from .tf32x3 import Triple
 #: since a caller last reset it)
 LAUNCHES = 0
 
+#: the kernel's tile classes, as csrc/recombine.cu instantiates them:
+#: (consumer warpgroups, block columns, ring stages, cluster size); a block
+#: has 64 rows per consumer warpgroup; a cluster of c blocks shares (by TMA
+#: multicast) the B tile of c vertically adjacent output tiles
+TILES = ((2, 256, 4, 2), (1, 128, 8, 1))
+#: k bytes of one ring stage (one 128-byte swizzle row)
+BLOCK_K = 128
+#: TMA's global strides are multiples of 16 bytes: k is zero-padded to this
+K_ALIGN = 16
+#: dynamic shared memory a block may use on Hopper
+SMEM_LIMIT = 232_448
+#: the most pairs (ns = 18) and groups the kernel's schedule parameter holds
+MAX_PAIRS = 171
+#: int8 rate of one SM on a 64x128 tile relative to a 128x256 tile, used to
+#: weigh the two classes against each other (0.33-0.47 at 4096^3-8192^3 on
+#: an H100, tools/torch_recombine_variants.py; PERF.md)
+SMALL_TILE_RATE = 0.45
 
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    tile: int  # index into TILES
+    block_m: int
+    block_n: int
+    stages: int
+    cluster: int  # blocks sharing one B tile
+    k_pad: int  # k zero-padded to K_ALIGN
+    tiles: int  # output tiles (rounded up to whole clusters)
+    grid: int  # persistent blocks, at most one per SM
+    smem_bytes: int
+    pairs: int
+
+
+def _smem_bytes(block_m: int, block_n: int, stages: int) -> int:
+    """The ring, a full and an empty mbarrier per stage, and 1024 bytes of
+    slack to align the ring (csrc/recombine.cu, Tile::SMEM_BYTES)."""
+    return stages * (block_m + block_n) * BLOCK_K + 2 * stages * 8 + 1024
+
+
+def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
+                tile: Optional[int] = None) -> LaunchPlan:
+    """The launch of an m x n product over ``k`` (the planes' k) with
+    ``num_split`` planes on a card with ``sms`` SMs.  Unless ``tile`` forces
+    a class, the one whose waves of tiles finish first: waves x tile area /
+    relative rate (the large tile leaves most SMs idle on small products)."""
+    pairs = num_split * (num_split + 1) // 2
+    if pairs > MAX_PAIRS or min(m, n, k, sms) < 1:
+        raise ValueError(f"no launch for m={m} n={n} k={k} ns={num_split} sms={sms}")
+
+    def units_of(t: int) -> int:  # clusters' units of work
+        nc, bn, _, cm = TILES[t]
+        return math.ceil(math.ceil(m / (64 * nc)) / cm) * math.ceil(n / bn)
+
+    def cost(t: int) -> float:
+        nc, bn, _, cm = TILES[t]
+        rate = 1.0 if t == 0 else SMALL_TILE_RATE
+        return math.ceil(units_of(t) / (sms // cm)) * 64 * nc * bn / rate
+
+    if tile is None:
+        tile = min((t for t in range(len(TILES)) if TILES[t][3] <= sms), key=cost)
+    nc, bn, stages, cm = TILES[tile]
+    if sms < cm:
+        raise ValueError(f"tile class {tile} needs {cm} SMs, the card has {sms}")
+    k_pad = -(-k // K_ALIGN) * K_ALIGN
+    units = units_of(tile)
+    return LaunchPlan(
+        tile=tile, block_m=64 * nc, block_n=bn, stages=stages, cluster=cm, k_pad=k_pad,
+        tiles=units * cm, grid=cm * min(sms // cm, units),
+        smem_bytes=_smem_bytes(64 * nc, bn, stages), pairs=pairs,
+    )
+
+
+@functools.lru_cache(maxsize=64)
 def _schedule_arrays(num_split: int, k: int, b: int):
     """The group schedule as the C entry takes it: pair offsets, 0-based
-    plane pairs and the two exact f32 factors of each group."""
+    plane pairs and the two exact f32 factors of each group.  Cached (read
+    only): building it costs the host more than issuing the kernel, and
+    batched and small products are bound by the host."""
     groups = group_schedule(num_split, k, b)
     shift = acc_shift(num_split, b)
     start = np.cumsum([0] + [len(g.pairs) for g in groups]).astype(np.int32)
@@ -35,13 +118,28 @@ def _schedule_arrays(num_split: int, k: int, b: int):
     w = np.array([g.weight_log2(b) + shift for g in groups], dtype=np.int32)
     scale_hi = np.ldexp(1.0, w + 16).astype(np.float32)
     scale_lo = np.ldexp(1.0, w).astype(np.float32)
-    return len(groups), start, pi, pj, scale_hi, scale_lo
+    arrays = (start, pi, pj, scale_hi, scale_lo)
+    for a in arrays:
+        a.flags.writeable = False
+    return (len(groups), *arrays)
 
 
-def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int) -> Triple:
+def _k_major(planes: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """``planes`` [ns, rows, k] as a 16-byte aligned [ns, rows, k_pad]
+    tensor, zero beyond k (zero digits add zero products)."""
+    k = planes.shape[2]
+    if k != k_pad:
+        planes = F.pad(planes, (0, k_pad - k))
+    planes = planes.contiguous()
+    return planes if planes.data_ptr() % 16 == 0 else planes.clone()
+
+
+def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
+              tile: Optional[int] = None) -> Triple:
     """The 2^ACC_SHIFT-scaled triple-f32 accumulator [m, n] of the digit
     planes ``da`` int8 [ns, m, k] and ``db`` int8 [ns, k, n]; ``k`` is the
-    true contraction length, which sets the group caps."""
+    true contraction length, which sets the group caps.  ``tile`` forces a
+    tile class of :data:`TILES` (the launch plan chooses otherwise)."""
     global LAUNCHES
     if da.device.type != "cuda" or db.device != da.device:
         raise ValueError(
@@ -63,16 +161,20 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
     out = tuple(torch.empty((m, n), dtype=torch.float32, device=da.device) for _ in range(3))
     if m == 0 or n == 0 or k_in == 0:
         return tuple(o.zero_() for o in out)
-    # the kernel reads both operands k-contiguous: B's planes go over as
-    # [ns, n, k] (one copy of ns*k*n bytes, small beside the product)
-    dbt = db.transpose(1, 2).contiguous()
+    sms = torch.cuda.get_device_properties(da.device).multi_processor_count
+    plan = launch_plan(m, n, k_in, num_split, sms, tile)
+    # both operands go over k-contiguous (wgmma takes 8-bit operands only
+    # K-major): B's planes as [ns, n, k_pad], one copy of ns*k*n bytes
+    da = _k_major(da, plan.k_pad)
+    dbt = _k_major(db.transpose(1, 2), plan.k_pad)
     n_groups, start, pi, pj, shi, slo = _schedule_arrays(num_split, k, b)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
     with torch.cuda.device(da.device):
         stream = torch.cuda.current_stream(da.device).cuda_stream
         code = native.lib().oz_recombine(
             da.data_ptr(), dbt.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            m, n, k_in, n_groups, ptr(start), ptr(pi), ptr(pj), ptr(shi), ptr(slo), stream,
+            m, n, ns, plan.k_pad, n_groups, ptr(start), ptr(pi), ptr(pj), ptr(shi), ptr(slo),
+            plan.tile, plan.grid, plan.smem_bytes, stream,
         )
     native.check(code, "recombine launch")
     LAUNCHES += 1

@@ -51,18 +51,23 @@ def test_split_kernel_equals_plain(dev, name, ns, b):
 
 @pytest.mark.parametrize(
     "m,n,k,ns",
-    [(200, 136, 272, 6), (256, 128, 1024, 8), (1000, 1234, 777, 9), (64, 64, 16384, 9)],
+    [(200, 136, 272, 6), (256, 128, 1024, 8), (1000, 1234, 777, 9), (64, 64, 16384, 9),
+     (17, 9, 32, 3), (1025, 1023, 1025, 16), (130, 260, 4096, 18), (512, 640, 32768, 12)],
 )
 def test_recombine_kernel_equals_plain(dev, m, n, k, ns):
+    """Bitwise on all three planes, in every tile class: ragged edges,
+    k % 16 != 0 (zero-padded k), 171 pairs at ns = 18, int32 group splits
+    at k = 16384 and 32768."""
     b = bits_per_int8(k)
     a = torch.from_numpy(generate_input("normal01", (m, k), seed=m)).to(dev)
     bm = torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=n)).to(dev)
     da, _ = S.split_f64(a, ns, b)
     db, _ = S.split_f64_cols(bm, ns, b)
     want = R.fold_group_totals(R.group_totals(da, db, ns, k, b), ns, k, b)
-    got = recombine_cuda.recombine(da, db, ns, b, k)
-    for w, g in zip(want, got):
-        assert torch.equal(w.view(torch.int32), g.view(torch.int32))
+    for tile in [None, *range(len(recombine_cuda.TILES))]:
+        got = recombine_cuda.recombine(da, db, ns, b, k, tile=tile)
+        for w, g in zip(want, got):
+            assert torch.equal(w.view(torch.int32), g.view(torch.int32)), tile
 
 
 @pytest.mark.parametrize("m,n,k,ns", [(200, 136, 272, 6), (1000, 1234, 777, 9), (256, 128, 1024, 18)])
