@@ -34,8 +34,16 @@ counts set to 0 just before it and read just after:
     size gate and the per-call env mode;
   * ``traced.gemm`` at 8192^3 inside ``torch.compile(fullgraph=True)``,
     bitwise equal to the eager call;
-  * the bench CLI: one 8192^3 CSV row, the 72-case ``ci_test`` at 1025,
-    and the ``power`` mode with NVML watts.
+  * the bench CLI: one 8192^3 CSV row, the 72-case ``ci_test`` at 513,
+    and the ``power`` mode with NVML watts;
+  * the solvers (``linalg``): resident LU (real n = 1024, complex n = 512)
+    and Cholesky with host panels bitwise equal to the same call on CPU
+    tensors, device panels with the same pivots, ``solve`` with refinement
+    at n = 2048, launch counts equal to the step formula on every path;
+    then ``bench_cli hpl`` at n = 16384 and ``hpl --dtype z`` at n = 8192
+    beside ``torch.linalg.lu_factor``, both kernels bit for bit against
+    their plain versions on every engine product of those two runs' first
+    step, and the first HPL trailing update staged.
 
 Any failed phase raises, and the script exits non-zero without printing a
 result.  It needs a CUDA GPU: without one it exits non-zero at once.  The
@@ -71,11 +79,16 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
 # recombine cases (m, n, k, ns): ragged edges, k % 16 != 0, one group per
-# pair at ns = 18 (171 pairs), and the int32 group splits of k = 16384
-# (8 + 1) and k = 32768 (groups of at most 4 pairs)
+# pair at ns = 18 (171 pairs), the int32 group splits of k = 16384
+# (8 + 1) and k = 32768 (groups of at most 4 pairs), and the solvers' wide
+# products over a short k: the first trailing update and the first U12 of
+# HPL at n = 16384 and of ZHPL at n = 8192 with block 1024 (many tiles per
+# persistent block in both tile classes), and a block of 256
 RECOMBINE_CASES = ((200, 136, 272, 6), (256, 128, 1024, 8), (1000, 1234, 777, 9),
                    (64, 64, 16384, 9), (17, 9, 32, 3), (1025, 1023, 1025, 16),
-                   (130, 260, 4096, 18), (512, 640, 32768, 12))
+                   (130, 260, 4096, 18), (512, 640, 32768, 12),
+                   (3072, 3072, 256, 9), (15360, 15360, 1024, 9), (1024, 15360, 1024, 9),
+                   (7168, 7168, 1024, 9), (1024, 7168, 1024, 9))
 
 
 def gpu_label() -> str:
@@ -169,11 +182,22 @@ def block(rng, m: int, n: int):
     return rows, cols
 
 
+def walled(phase, *args):
+    """Run one phase and print the host seconds it took, device work
+    included."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    torch.cuda.synchronize()
+    print(f"[wall] {phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check needs a CUDA GPU",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     import ozimmu_tpu_torch as ozt
     from ozimmu_tpu_torch import native
@@ -250,6 +274,7 @@ def main() -> int:
             max_err["recombine"] = max(max_err["recombine"], float(err))
             if not all(bits_equal(w, g) for w, g in zip(want, got)):
                 raise AssertionError(f"recombine mismatch at m,n,k={m},{n},{k} ns={ns} tile={tile}")
+        del want, got, da, db
         groups = group_schedule(ns, k, b)
         plan = recombine_cuda.launch_plan(m, n, k, ns, sms)
         print(f"[recombine] kernel == plain bitwise (3 planes, tile classes "
@@ -382,18 +407,21 @@ def main() -> int:
     print(f"[time] {label}: torch.matmul float64 {N}^3: {ms_dgemm:.3f} ms, "
           f"{2 * N**3 / ms_dgemm / 1e9:.3f} TFLOPS", flush=True)
 
-    # 8.-16. the rest of the public surface, each path counted on its own
+    # 8.-17. the rest of the public surface, each path counted on its own
+    print(f"[wall] phases 1-7 (build, kernels vs plain, main path, timing): "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     by_path = {"main": launches}
-    by_path["auto"] = phase_auto(ozt, a, b, a_np, b_np, mats, label, rng)
+    by_path["auto"] = walled(phase_auto, ozt, a, b, a_np, b_np, mats, label, rng)
     del a, b
-    by_path["zgemm"] = phase_zgemm(ozt, label, rng)
-    phase_sgemm(ozt)
-    by_path.update(phase_batched(ozt, label))
-    phase_trace(ozt)
-    phase_warmup(ozt)
-    by_path["intercept"] = phase_intercept(ozt, label)
-    by_path["traced"] = phase_traced(ozt, label)
-    by_path["bench"] = phase_bench(label)
+    by_path["zgemm"] = walled(phase_zgemm, ozt, label, rng)
+    walled(phase_sgemm, ozt)
+    by_path.update(walled(phase_batched, ozt, label))
+    walled(phase_trace, ozt)
+    walled(phase_warmup, ozt)
+    by_path["intercept"] = walled(phase_intercept, ozt, label)
+    by_path["traced"] = walled(phase_traced, ozt, label)
+    by_path["bench"] = walled(phase_bench, label)
+    by_path.update(walled(phase_solvers, ozt, label))
 
     kernels = [
         {"name": "split_digits", "route": "cuda", "source": "ozimmu_tpu_torch/csrc/split.cu",
@@ -646,6 +674,22 @@ def phase_batched(ozt, label) -> dict:
     return counts
 
 
+def busy_in_window(events, name: str):
+    """(busy, window) in microseconds: the union of the device's kernel and
+    copy spans inside the ``record_function`` window called ``name``."""
+    (win,) = [e for e in events if e.get("name") == name and e.get("cat") == "user_annotation"]
+    w0, w1 = float(win["ts"]), float(win["ts"]) + float(win["dur"])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, w0
+    for s0, s1 in spans:
+        s0, s1 = max(s0, end), min(s1, w1)
+        if s1 > s0:
+            busy += s1 - s0
+            end = s1
+    return busy, w1 - w0
+
+
 def phase_trace(ozt) -> None:
     """12. device_trace of one 4096^3 fp64_int8_9 GEMM: both kernels in
     the trace, and the device's busy share over the traced window."""
@@ -669,20 +713,10 @@ def phase_trace(ozt) -> None:
     for want in ("split_digits_kernel", "recombine_kernel"):
         if not any(want in nm for nm in names):
             raise AssertionError(f"{want} not in the traced kernels {sorted(names)}")
-    (win,) = [e for e in events
-              if e.get("name") == "traced_gemm" and e.get("cat") == "user_annotation"]
-    w0, w1 = float(win["ts"]), float(win["ts"]) + float(win["dur"])
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, w0
-    for s0, s1 in spans:
-        s0, s1 = max(s0, end), min(s1, w1)
-        if s1 > s0:
-            busy += s1 - s0
-            end = s1
+    busy, window = busy_in_window(events, "traced_gemm")
     print(f"[trace] {n}^3 fp64_int8_{NS}: {len(kernels)} device kernels traced, incl. "
           f"split_digits_kernel and recombine_kernel; device busy {busy / 1e3:.3f} ms of a "
-          f"{(w1 - w0) / 1e3:.3f} ms window = busy share {busy / (w1 - w0):.4f}", flush=True)
+          f"{window / 1e3:.3f} ms window = busy share {busy / window:.4f}", flush=True)
 
 
 def phase_warmup(ozt) -> None:
@@ -868,7 +902,9 @@ def phase_traced(ozt, label) -> dict:
 
 def phase_bench(label) -> dict:
     """16. The bench CLI: one 8192^3 CSV row (sampled-block residual,
-    TFLOPS), the 72-case ci_test at 1025 and the power mode (NVML)."""
+    TFLOPS), the 72-case ci_test at 513 (an odd size, an eighth of the
+    oracle's work at 1025; the kernels' 1025 cases are in phase 4) and the
+    power mode (NVML)."""
     from ozimmu_tpu_torch import bench_cli
 
     def run(fn, *args, **kw):
@@ -888,11 +924,11 @@ def phase_bench(label) -> dict:
         raise AssertionError(f"bench_cli row {lines[1]}")
     print(f"[bench] {lines[1]}", flush=True)
 
-    rc, lines, t_ci = run(bench_cli.run_ci_test, sizes=(1025,))
+    rc, lines, t_ci = run(bench_cli.run_ci_test, sizes=(513,))
     worst = max(float(r.split(",")[9]) for r in lines[:-1])
     if rc != 0 or lines[-1] != "   72 /    72 PASSED" or len(lines) != 73:
-        raise AssertionError(f"ci_test at 1025: rc {rc}, last line {lines[-1]!r}")
-    print(f"[bench] ci_test sizes=(1025,): {lines[-1].strip()} in {t_ci:.1f} s; largest residual "
+        raise AssertionError(f"ci_test at 513: rc {rc}, last line {lines[-1]!r}")
+    print(f"[bench] ci_test sizes=(513,): {lines[-1].strip()} in {t_ci:.1f} s; largest residual "
           f"{worst:.3e}", flush=True)
 
     rc, lines, _ = run(bench_cli.run_power, "dgemm", f"fp64_int8_{NS}", N, min_seconds=3)
@@ -903,6 +939,337 @@ def phase_bench(label) -> dict:
     print(f"[bench] {lines[-1]}", flush=True)
     print(f"[time] {label}: power fp64_int8_{NS} {N}^3: {m[1]} TFLOPS at {m[2]} W = "
           f"{m[3]} GFLOPS/W", flush=True)
+    return counts
+
+
+def pa_lu_residual(a: torch.Tensor, lu: torch.Tensor, piv) -> float:
+    """||P A - L U||_F / ||A||_F on the card, P from the getrf pivots."""
+    n = a.shape[0]
+    perm = np.arange(n)
+    for i, p in enumerate(piv):
+        perm[[i, p]] = perm[[p, i]]
+    l = torch.tril(lu, -1)
+    l.diagonal().fill_(1.0)
+    pa = a[torch.from_numpy(perm).to(a.device)]
+    return float(torch.linalg.norm(pa - l @ torch.triu(lu)) / torch.linalg.norm(a))
+
+
+def step_launches(n: int, block: int, complex_: bool = False, factorizations: int = 1,
+                  matvecs: int = 0) -> dict:
+    """Launches of ``factorizations`` resident factorizations of an n x n
+    matrix and ``matvecs`` engine matvecs: each step that has a trailing
+    block runs two engine GEMMs, a real GEMM launches split twice and
+    recombine once, a complex one four times each."""
+    gemms = 2 * (-(-n // block) - 1) * factorizations + matvecs
+    return {"split_digits": gemms * (4 if complex_ else 2),
+            "recombine": gemms * (4 if complex_ else 1)}
+
+
+def expect_launches(path: str, got: dict, want: dict) -> dict:
+    if got != want or min(got.values()) < 1:
+        raise AssertionError(f"{path}: launches {got}, the step formula gives {want}")
+    return got
+
+
+def hpl_fields(line: str) -> dict:
+    return dict(f.split("=") for f in line.split(",") if "=" in f)
+
+
+def first_step_operands(size: int, blk: int, complex_: bool) -> dict:
+    """The operands of the first step of the HPL (or ZHPL) matrix of
+    ``bench_cli hpl``, at the solver's shapes, strides and exponent spread:
+    ``l11inv`` and ``a12`` of the U12 product, ``l21`` and ``u12`` of the
+    trailing update, the strided window ``c22`` that the solver passes as
+    ``c``, and the unfactored ``panel``.  The panel is factored in plain f64
+    (cuSOLVER); the diagonal dominates, so no row moves."""
+    from ozimmu_tpu_torch import bench_cli, linalg
+
+    a = bench_cli._hpl_matrix(size, 0, complex_, torch.device("cuda"))
+    with linalg._cusolver_preferred(a.device):
+        lu, _, info = linalg._panel_factor_device(a[:, :blk])
+    if int(info) != 0:
+        raise AssertionError(f"the first panel of the n={size} matrix is singular")
+    l11inv = linalg._unit_lower_inverse_device(lu[:blk])
+    return {"l11inv": l11inv, "a12": a[:blk, blk:], "l21": lu[blk:], "c22": a[blk:, blk:],
+            "u12": l11inv @ a[:blk, blk:], "panel": a[:, :blk]}
+
+
+def kernels_equal_plain_on(what: str, a: torch.Tensor, b: torch.Tensor, ns: int) -> str:
+    """Both kernels against their plain versions, bit for bit, on the
+    float64 operands ``a`` [m, k] and ``b`` [k, n] of one engine product:
+    the split of each as the engine launches it, then the recombine of the
+    kernel's planes in the tile class that the launch plan picks for the
+    shape, which is the launch the solver makes."""
+    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops.recombine import fold_group_totals, group_totals
+    from ozimmu_tpu_torch.ops.split import row_exponent, split_with_row_exp
+    from ozimmu_tpu_torch.schedule import bits_per_int8
+
+    a, b = a.contiguous(), b.contiguous()  # as core/gemm.py passes them
+    (m, k), n = a.shape, b.shape[1]
+    bb = bits_per_int8(k)
+    planes = []
+    for name, x, axis in (("A", a, 1), ("B", b, 0)):
+        e = row_exponent(x, axis)
+        want, _ = split_with_row_exp(x, e, ns, bb, axis)
+        got = split_cuda.split_digits(x, e, ns, bb, axis)
+        if not bits_equal(want, got):
+            raise AssertionError(f"{what}: split of {name} {tuple(x.shape)} differs from plain")
+        planes.append(got)
+        del want
+    da, db = planes
+    want = fold_group_totals(group_totals(da, db, ns, k, bb), ns, k, bb)
+    got = recombine_cuda.recombine(da, db, ns, bb, k)
+    if not all(bits_equal(w, g) for w, g in zip(want, got)):
+        raise AssertionError(f"{what}: recombine {m}x{n}x{k} ns={ns} differs from plain")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return f"{what} {m}x{n}x{k} (tile class {recombine_cuda.launch_plan(m, n, k, ns, sms).tile})"
+
+
+def first_step_kernel_checks(size: int, blk: int, complex_: bool) -> list:
+    """Every engine product of the first step of HPL (ZHPL) at ``size``,
+    and the trailing update of the last step that has one (one block
+    square), through :func:`kernels_equal_plain_on`; a complex product is
+    four real ones on the planes."""
+    ops = first_step_operands(size, blk, complex_)
+    products = (("U12 = L11inv @ A12", ops["l11inv"], ops["a12"]),
+                ("A22 -= L21 @ U12", ops["l21"], ops["u12"]),
+                ("last A22 -= L21 @ U12", ops["l21"][-blk:], ops["u12"][:, -blk:]))
+    parts = (lambda t: (("re", t.real), ("im", t.imag))) if complex_ else (lambda t: (("", t),))
+    done = []
+    for name, x, y in products:
+        for px_name, px in parts(x):
+            for py_name, py in parts(y):
+                tag = f" [{px_name} x {py_name}]" if complex_ else ""
+                done.append(kernels_equal_plain_on(name + tag, px, py, NS))
+    return done
+
+
+def phase_solvers(ozt, label) -> dict:
+    """17. The solvers.  Small sizes first, each path counted and held
+    against the same call on CPU tensors (the plain versions) or against
+    its residual gate; then HPL n = 16384 and ZHPL n = 8192 through the
+    bench CLI beside ``torch.linalg.lu_factor``, both kernels against their
+    plain versions on the products of those runs' first step, and the
+    first trailing update of that HPL staged by the handle's profiler."""
+    from ozimmu_tpu_torch import bench_cli, linalg
+    from ozimmu_tpu_torch.ops import recombine_cuda
+    from ozimmu_tpu_torch.ops.split import split_f64, split_f64_cols
+    from ozimmu_tpu_torch.schedule import auto_n_chunks, bits_per_int8
+
+    mode = f"fp64_int8_{NS}"
+    as_real = lambda t: torch.view_as_real(t) if t.is_complex() else t  # noqa: E731
+    counts = {}
+    torch.cuda.empty_cache()
+
+    # real and complex LU: host panels bitwise against the CPU run, device
+    # panels with the same pivots
+    for path, n, blk, cx in (("lu", 1024, 256, False), ("zlu", 512, 128, True)):
+        rng = np.random.default_rng(100 + n)
+        a_np = rng.uniform(-1, 1, (n, n)) + (1j * rng.uniform(-1, 1, (n, n)) if cx else 0.0)
+        a_cpu = torch.from_numpy(a_np)
+        a = a_cpu.cuda()
+        reset_launches()
+        lu, piv = linalg.lu_factor(a, mode=mode, block=blk)
+        counts[path] = expect_launches(path, read_launches(), step_launches(n, blk, cx))
+        lu_cpu, piv_cpu = linalg.lu_factor(a_cpu, mode=mode, block=blk)
+        if not (np.array_equal(piv, piv_cpu) and bits_equal(as_real(lu.cpu()), as_real(lu_cpu))):
+            raise AssertionError(f"{path}: the factor on the card differs from the CPU run")
+        if not torch.equal(a.cpu(), a_cpu):
+            raise AssertionError(f"{path}: the caller's tensor was changed")
+        r_host = pa_lu_residual(a, lu, piv)
+        reset_launches()
+        lu_d, piv_d = linalg.lu_factor(a, mode=mode, block=blk, panel="device")
+        got = expect_launches(f"{path} with device panels", read_launches(),
+                              step_launches(n, blk, cx))
+        if not cx:
+            counts["lu_device_panels"] = got
+        r_dev = pa_lu_residual(a, lu_d, piv_d)
+        if not np.array_equal(piv_d, piv):
+            raise AssertionError(f"{path}: device panels chose other pivots than host panels")
+        if not max(r_host, r_dev) < 1e-14:
+            raise AssertionError(f"{path}: ||PA - LU||/||A|| {r_host:.3e} / {r_dev:.3e} >= 1e-14")
+        print(f"[solvers] {'complex ' if cx else ''}LU n={n} block={blk} {mode}: host panels == "
+              f"CPU run bitwise (factor and pivots), ||PA-LU||/||A|| {r_host:.3e}; device panels "
+              f"same pivots, {r_dev:.3e}, max |lu_dev - lu_host| / max |lu_host| "
+              f"{float((lu_d - lu).abs().max() / lu.abs().max()):.3e}; launches {counts[path]}",
+              flush=True)
+
+    # resident Cholesky
+    n, blk = 1024, 256
+    g = np.random.default_rng(110).standard_normal((n, n))
+    s_cpu = torch.from_numpy(g @ g.T + n * np.eye(n))
+    s = s_cpu.cuda()
+    reset_launches()
+    l = linalg.cholesky(s, mode=mode, block=blk)
+    counts["cholesky"] = expect_launches("cholesky", read_launches(), step_launches(n, blk))
+    if not bits_equal(l.cpu(), linalg.cholesky(s_cpu, mode=mode, block=blk)):
+        raise AssertionError("cholesky: the factor on the card differs from the CPU run")
+    r = float(torch.linalg.norm(s - l @ l.T) / torch.linalg.norm(s))
+    if not r < 1e-14 or torch.triu(l, 1).any():
+        raise AssertionError(f"cholesky: ||A - LL^T||/||A|| {r:.3e} or a nonzero upper triangle")
+    try:
+        linalg.cholesky(torch.complex(s, torch.zeros_like(s)), mode=mode, block=blk)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("resident cholesky took a complex matrix")
+    print(f"[solvers] Cholesky n={n} block={blk} {mode}: == CPU run bitwise, ||A-LL^T||/||A|| "
+          f"{r:.3e}; launches {counts['cholesky']}; complex input refused ({refusal!r})",
+          flush=True)
+
+    # solve on a resident matrix, factored cheaply and refined
+    n, blk = 2048, 256
+    rng = np.random.default_rng(120)
+    a_np = rng.uniform(-1, 1, (n, n)) + n * np.eye(n)
+    b_np = a_np @ rng.standard_normal(n)
+    a = torch.from_numpy(a_np).cuda()
+    scaled = lambda x: float(np.linalg.norm(a_np @ x - b_np) / (  # noqa: E731
+        np.linalg.norm(a_np) * np.linalg.norm(x) + np.linalg.norm(b_np)))
+    r0 = scaled(linalg.solve(a, b_np, mode="fp64_int8_6", block=blk))
+    reset_launches()
+    x = linalg.solve(a, b_np, mode="fp64_int8_6", block=blk, refine=2)
+    counts["solve"] = expect_launches("solve", read_launches(), step_launches(n, blk, matvecs=2))
+    if not scaled(x) < 1e-15:
+        raise AssertionError(f"solve: scaled residual {scaled(x):.3e} >= 1e-15 after refine=2")
+    m = 1030  # not a multiple of the block
+    am = torch.from_numpy(rng.uniform(-1, 1, (m, m))).cuda()
+    reset_launches()
+    lu, piv = linalg.lu_factor(am, mode=mode, block=blk, panel="device")
+    expect_launches("lu n=1030", read_launches(), step_launches(m, blk))
+    r_m = pa_lu_residual(am, lu, piv)
+    if not r_m < 1e-14:
+        raise AssertionError(f"LU n={m}: ||PA - LU||/||A|| {r_m:.3e} >= 1e-14")
+    for panel in ("host", "device"):
+        try:
+            linalg.lu_factor(torch.ones((512, 512), dtype=torch.float64, device="cuda"),
+                             mode=mode, block=128, panel=panel)
+        except np.linalg.LinAlgError:
+            continue
+        raise AssertionError(f"a singular matrix did not raise with {panel} panels")
+    print(f"[solvers] solve n={n} fp64_int8_6 block={blk}: scaled residual {r0:.3e} unrefined, "
+          f"{scaled(x):.3e} after refine=2 (residuals at fp64_int8_12 on the card); launches "
+          f"{counts['solve']}; LU n={m} block={blk} device panels ||PA-LU||/||A|| {r_m:.3e}; "
+          f"singular 512^2 raises with both panel kinds", flush=True)
+    del a, am, lu, s, l
+
+    # full width: HPL and ZHPL through the bench CLI
+    def hpl(path, size, args, cx, factorizations):
+        buf = io.StringIO()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        with contextlib.redirect_stdout(buf):
+            rc = bench_cli.main(["hpl", mode, str(size), "--block", "1024", *args])
+        got = expect_launches(path, read_launches(),
+                              step_launches(size, 1024, cx, factorizations, matvecs=2))
+        line = buf.getvalue().strip().splitlines()[-1]
+        f = hpl_fields(line)
+        if rc != 0 or not line.startswith("zhpl," if cx else "hpl,") or not (
+                float(f["residual"]) < 1e-14):
+            raise AssertionError(f"bench_cli hpl {args}: rc {rc}, line {line!r}")
+        print(f"[solvers] {line}", flush=True)
+        phases = ", ".join(f"{k} {float(v.rstrip('s')):.4f} s" for k, v in f.items()
+                           if k.endswith("_s"))
+        print(f"[time] {label}: {'ZHPL' if cx else 'HPL'} n={size} block=1024 {mode} "
+              f"panel={f['panel']}: factor {float(f['factor_time'].rstrip('s')):.4f} s, "
+              f"{f['gflops_x4' if cx else 'gflops']} effective FP64 GFLOPS at "
+              f"{'8/3' if cx else '2/3'} n^3, scaled residual {f['residual']}"
+              + (f"; instrumented pass: {phases}" if phases else "")
+              + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {got}", flush=True)
+        return got
+
+    n_hpl, n_zhpl = 16384, 8192
+    chunks = auto_n_chunks(n_hpl - 1024, n_hpl - 1024, 1024, NS, device="cuda")
+    if chunks != 1:
+        raise AssertionError(f"the first HPL update is planned in {chunks} column panels: the "
+                             f"step formula for the launches assumes 1")
+    counts["hpl"] = hpl("hpl", n_hpl, ["--warmup", "--profile"], False, 3)
+    hpl("hpl with host panels", n_hpl, ["--panel", "host", "--profile"], False, 2)
+    counts["zhpl"] = hpl("zhpl", n_zhpl, ["--dtype", "z", "--warmup", "--profile"], True, 3)
+
+    # the library's factorization of the same matrices, as a yardstick
+    for size, cx in ((n_hpl, False), (n_zhpl, True)):
+        a = bench_cli._hpl_matrix(size, 0, cx, torch.device("cuda"))
+        torch.linalg.lu_factor(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.linalg.lu_factor(a)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        print(f"[time] {label}: torch.linalg.lu_factor {a.dtype} {size}^2: {t:.4f} s, "
+              f"{(8 if cx else 2) / 3 * size**3 / t / 1e9:.4g} GFLOPS at "
+              f"{'8/3' if cx else '2/3'} n^3", flush=True)
+        del a
+
+    # both kernels at the shapes, strides and data of those two runs, bit
+    # for bit against their plain versions
+    for size, cx in ((n_zhpl, True), (n_hpl, False)):
+        done = first_step_kernel_checks(size, 1024, cx)
+        torch.cuda.empty_cache()
+        print(f"[solvers] {'ZHPL' if cx else 'HPL'} n={size} block=1024 {mode}: split (both "
+              f"operands) and recombine kernels == plain bitwise on {len(done)} products: "
+              + "; ".join(done), flush=True)
+
+    # the first panel of that HPL under torch's own choice of backend and
+    # with cuSOLVER preferred, as the resident path factors it
+    ops = first_step_operands(n_hpl, 1024, False)
+    factor_panel = lambda: torch.linalg.lu_factor_ex(ops["panel"])  # noqa: E731
+    ms_default = cuda_ms(factor_panel, iters=3)
+    with linalg._cusolver_preferred(torch.device("cuda")):
+        ms_cusolver = cuda_ms(factor_panel, iters=3)
+    print(f"[time] {label}: torch.linalg.lu_factor_ex of the first {n_hpl} x 1024 panel: "
+          f"{ms_default:.3f} ms with torch's default backend, {ms_cusolver:.3f} ms with cuSOLVER "
+          f"preferred (as linalg.lu_factor(panel='device') sets it)", flush=True)
+
+    # the first trailing update of that HPL, staged: m = n = 15360, k = 1024
+    l21, u12, c22 = ops["l21"], ops["u12"], ops["c22"]
+    m, k = l21.shape
+    h = ozt.create(device="cuda")
+    update = lambda: ozt.gemm(l21, u12, mode=mode, alpha=-1.0, beta=1.0, c=c22, handle=h)  # noqa: E731
+    torch.cuda.reset_peak_memory_stats()
+    update()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms_update = cuda_ms(update, iters=2, warmup=0)
+    ozt.enable_profiling(h)
+    for _ in range(2):
+        update()
+    ozt.disable_profiling(h)
+    staged = {name: ns_ / count / 1e6 for name, count, ns_, _ in h.profiler.result_rows()}
+    bb = bits_per_int8(k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    da, _ = split_f64(l21.contiguous(), NS, bb)
+    db, _ = split_f64_cols(u12, NS, bb)
+    ms_rec = cuda_ms(lambda: recombine_cuda.recombine(da, db, NS, bb, k), iters=3)
+    pairs = NS * (NS + 1) // 2
+    rec_bound = bound_ms(da.numel() + db.numel() + 12 * m * m, pairs * 2 * m * m * k,
+                         INT8_OPS_PER_S)
+    print(f"[time] {label}: the first HPL trailing update {m}x{m}x{k} {mode} alpha=-1 beta=1, c "
+          f"the matrix's own window: {ms_update:.3f} ms unstaged; staged " + ", ".join(
+              f"{name} {v:.3f} ms" for name, v in staged.items())
+          + f"; peak device memory {peak:.2f} GiB", flush=True)
+    print(f"[time] {label}: recombine at that shape (plan: tile class "
+          f"{recombine_cuda.launch_plan(m, m, k, NS, sms).tile}): kernel {ms_rec:.3f} ms, bound "
+          f"{rec_bound[0]:.3f} ms ({rec_bound[1]}), {pairs * 2 * m * m * k / ms_rec / 1e9:.1f} "
+          f"int8 TOPS", flush=True)
+    del ops, l21, u12, c22, da, db
+    torch.cuda.empty_cache()
+
+    # the device's busy share over one resident factorization
+    a = bench_cli._hpl_matrix(8192, 1, False, torch.device("cuda"))
+    linalg.lu_factor(a, mode=mode, block=1024, panel="device")  # warm
+    torch.cuda.synchronize()
+    log_dir = tempfile.mkdtemp(prefix="oz_trace_")
+    with ozt.device_trace(log_dir):
+        with torch.profiler.record_function("traced_lu"):
+            linalg.lu_factor(a, mode=mode, block=1024, panel="device")
+            torch.cuda.synchronize()
+    (path,) = glob.glob(os.path.join(log_dir, "*.json"))
+    with open(path) as f:
+        busy, window = busy_in_window(json.load(f)["traceEvents"], "traced_lu")
+    print(f"[trace] LU n=8192 block=1024 {mode} device panels: device busy {busy / 1e3:.3f} ms "
+          f"of a {window / 1e3:.3f} ms window = busy share {busy / window:.4f}", flush=True)
     return counts
 
 

@@ -27,8 +27,10 @@ complex128 matmuls (``intercept``: a dispatch mode over aten
 mm/bmm/addmm/baddbmm), the ``torch.compile`` surface (``traced``: custom
 ops), the bench CLI (``python -m ozimmu_tpu_torch.bench_cli``) with its
 timing helpers (``testing``) and the long-double oracle (``oracle``, built
-with g++ at first use).  Not ported yet: the solvers and the distributed
-layer.
+with g++ at first use); the HPL-class solvers (``linalg``: blocked LU and
+Cholesky on the host or resident on the device, real and complex, ``solve``
+with iterative refinement) and ``bench_cli hpl``.  Not ported yet: the
+distributed layer.
 """
 
 from .types import (
@@ -57,7 +59,7 @@ from .core.handle import (
     get_auto_mantissa_loss_threshold,
 )
 from .utils.profiling import device_trace
-from . import intercept, traced
+from . import intercept, linalg, traced
 
 __version__ = "0.1.0"
 
@@ -86,6 +88,7 @@ __all__ = [
     "enable_profiling",
     "device_trace",
     "intercept",
+    "linalg",
     "traced",
     "disable_profiling",
     "print_profiler_result",

@@ -10,6 +10,8 @@ Port of ``ozimmu_tpu.bench_cli``: the reference CLI semantics
     python -m ozimmu_tpu_torch.bench_cli power dgemm fp64_int8_9 8192 --min-seconds 10
     python -m ozimmu_tpu_torch.bench_cli matfile a.npy b.npy fp64_int8_9,fp64_int8_12
     python -m ozimmu_tpu_torch.bench_cli matfile_raw a.bin b.bin 1000 800 600 --dtype fp64
+    python -m ozimmu_tpu_torch.bench_cli hpl fp64_int8_9 16384 --block 1024 --warmup --profile
+    python -m ozimmu_tpu_torch.bench_cli hpl fp64_int8_9 8192 --dtype z --block 1024
 
 CSV columns: device,gemm,input,mode,opA,opB,m,n,k,residual,max_relative,tflops
 (the reference's ``gpu`` column is ``device``: ``torch.cuda.get_device_name``
@@ -20,8 +22,14 @@ complex — main_test.cu:134-141).  Every mode takes ``--device`` (default
 Residuals come from the long-double oracle (ozimmu_tpu_torch.oracle, built
 with g++ at first use).  Above 2^31 multiply-adds (about 1290^3) it scores
 a seeded 256 x 256 block of C instead of all of it: the oracle streams B by
-columns, so a full pass at 8192^3 would read B once per row of C.  The
-``hpl`` mode waits for the port of the solvers (ROADMAP.md queue 1, step 16).
+columns, so a full pass at 8192^3 would read B once per row of C.
+
+``hpl`` is the solver benchmark (blocked LU on the engine; ``--dtype z``
+is ZHPL).  It prints one line ``hpl,<device>,<mode>,n=..,block=..,
+factor_time=..s,gflops=..,refine=..,residual=..,resident=device|host,
+panel=host|device`` (``zhpl`` and ``gflops_x4`` for z; ``--profile`` appends
+the phases' seconds).  ``--resident auto|on|off`` is the JAX CLI's
+``--device auto|on|off``; here ``--device`` names the torch device.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 from . import oracle
 from .core.api import gemm
 from .testing import effective_tflops, generate_input, sustained_run
+from .utils.profiling import synchronize
 
 CSV_HEADER = "device,gemm,input,mode,opA,opB,m,n,k,residual,max_relative,tflops"
 
@@ -360,12 +369,117 @@ def run_power(gemm_kind: str, mode: str, size: int, min_seconds: float, device="
     return 0
 
 
-def run_hpl(*_args, **_kwargs) -> int:
-    """The HPL-class solver benchmark needs the port of ``linalg``."""
-    raise NotImplementedError(
-        "bench_cli hpl needs ozimmu_tpu_torch.linalg, which is not ported yet "
-        "(ROADMAP.md queue 1, step 16)"
+def _hpl_matrix(size: int, seed: int, complex_: bool, device: torch.device) -> torch.Tensor:
+    """The resident benchmark matrix, made on ``device`` from ``seed``:
+    float32 uniform [0, 1) widened exactly to float64 (for ``z`` an
+    imaginary part in [-0.5, 0.5) too), diagonal set to n (real) for a
+    refinement-friendly condition number."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    a = torch.rand((size, size), dtype=torch.float32, device=device, generator=g).double()
+    a.fill_diagonal_(float(size))
+    if not complex_:
+        return a
+    im = (torch.rand((size, size), dtype=torch.float32, device=device, generator=g) - 0.5).double()
+    im.fill_diagonal_(0.0)
+    return torch.complex(a, im)
+
+
+def run_hpl(
+    mode: str,
+    size: int,
+    block: int,
+    refine: int,
+    resident: str = "auto",
+    warmup: bool = False,
+    profile: bool = False,
+    panel: str = "auto",
+    seed: int = 0,
+    dtype: str = "d",
+    device="cuda",
+) -> int:
+    """HPL-class solver benchmark: blocked LU factor + solve on the engine
+    (the reference's motivating workload — its shim exists to accelerate
+    HPL's dgemm calls, src/cublas.cu:280-295).  Reports factorization
+    wall time, effective FP64 GFLOPS at the LU operation count (2/3 n^3;
+    for ``dtype="z"``, ZHPL, x4 as the harness counts complex GEMMs,
+    reference test/main_test.cu:140-141), and the final solve residual
+    (scaled, HPL-style).  Returns 0 iff the residual is below 1e-14.
+
+    ``resident`` = on|off|auto selects the resident factorization
+    (linalg.lu_factor on a tensor: the matrix stays on ``device``; auto =
+    on unless ``device`` is the CPU).  On that path the test matrix is
+    generated on the device and the right-hand side and residual matvecs
+    run through the engine — the matrix never crosses to the host.
+    ``panel`` = host|device|auto picks where the resident path factors its
+    panels (auto = device on a GPU, host on the CPU).  ``warmup`` runs the
+    factorization once untimed first.  ``profile`` adds a per-phase
+    breakdown from a second, instrumented pass (it waits for the device at
+    the phase edges; the headline time is always measured unprofiled).
+    """
+    from . import linalg
+
+    dev = torch.device(device)
+    is_resident = resident == "on" or (resident == "auto" and dev.type != "cpu")
+    if panel == "auto":
+        panel = "device" if is_resident and dev.type != "cpu" else "host"
+    complex_ = dtype == "z"
+    rng_b = np.random.default_rng(99 + seed)
+    x_true = rng_b.standard_normal(size)
+    if complex_:
+        x_true = x_true + 1j * rng_b.standard_normal(size)
+
+    if is_resident:
+        a = _hpl_matrix(size, seed, complex_, dev)
+        norm_a = float(torch.linalg.norm(a))
+        # b = A @ x_true through the engine (exact to one f64 rounding)
+        b = linalg.engine_matvec(a, x_true)
+
+        def factor(prof=None):
+            return linalg.lu_factor(a, mode=mode, block=block, profile=prof, panel=panel)
+    else:
+        if complex_:
+            rng_z = np.random.default_rng(7 + seed)
+            a = rng_z.uniform(size=(size, size)) + 1j * (rng_z.uniform(size=(size, size)) - 0.5)
+            a[np.arange(size), np.arange(size)] = size  # diag dominant
+        else:
+            a = generate_input("urand01", (size, size), seed=seed)
+            a = a + size * np.eye(size)  # diagonally dominant
+        norm_a = np.linalg.norm(a)
+        b = a @ x_true
+
+        def factor(prof=None):
+            return linalg.lu_factor(a, mode=mode, block=block, device=dev)
+
+    if warmup:
+        factor()
+    synchronize(dev)
+    t0 = time.perf_counter()
+    fac = factor()
+    synchronize(dev)
+    t_factor = time.perf_counter() - t0
+    phases = {}
+    if profile and is_resident:
+        factor(phases)  # second, instrumented pass (waits per phase)
+
+    x = linalg.solve(a, b, factor=fac, refine=refine)
+    if is_resident:
+        r_vec = linalg.engine_matvec(a, x, alpha=-1.0, beta=1.0, c=b)  # b - A @ x
+    else:
+        r_vec = b - a @ x
+    resid = np.linalg.norm(r_vec) / (norm_a * np.linalg.norm(x) + np.linalg.norm(b))
+    flops = (8.0 if complex_ else 2.0) / 3.0 * size**3
+    extra = "".join(f",{k}={v:.4e}s" for k, v in sorted(phases.items()))
+    print(
+        f"{'zhpl' if complex_ else 'hpl'},{_device_name(dev)},{mode},n={size},block={block},"
+        f"factor_time={t_factor:.4e}s,{'gflops_x4' if complex_ else 'gflops'}="
+        f"{flops / t_factor / 1e9:.4g},"
+        f"refine={refine},residual={resid:.4e},"
+        f"resident={'device' if is_resident else 'host'},"
+        f"panel={panel if is_resident else 'host'}{extra}",
+        flush=True,
     )
+    return 0 if resid < 1e-14 else 1
 
 
 def main(argv=None) -> int:
@@ -399,7 +513,25 @@ def main(argv=None) -> int:
             ar.modes.split(","), ar.test_count, ar.device,
         )
     if argv and argv[0] == "hpl":
-        return run_hpl(*argv[1:])
+        q = argparse.ArgumentParser()
+        q.add_argument("cmd")
+        q.add_argument("mode", nargs="?", default="fp64_int8_9")
+        q.add_argument("size", nargs="?", type=int, default=4096)
+        q.add_argument("--block", type=int, default=1024)
+        q.add_argument("--refine", type=int, default=0)
+        q.add_argument("--resident", default="auto", choices=["auto", "on", "off"])
+        q.add_argument("--panel", default="auto", choices=["auto", "host", "device"])
+        q.add_argument("--warmup", action="store_true")
+        q.add_argument("--profile", action="store_true")
+        q.add_argument("--seed", type=int, default=0)
+        q.add_argument("--dtype", default="d", choices=["d", "z"])
+        q.add_argument("--device", default="cuda")
+        ar = q.parse_args(argv)
+        return run_hpl(
+            ar.mode, ar.size, ar.block, ar.refine,
+            resident=ar.resident, warmup=ar.warmup, profile=ar.profile,
+            panel=ar.panel, seed=ar.seed, dtype=ar.dtype, device=ar.device,
+        )
     if argv and argv[0] == "power":
         q = argparse.ArgumentParser()
         q.add_argument("cmd")

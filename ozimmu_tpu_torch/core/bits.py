@@ -8,7 +8,10 @@ f64; nothing of that carriage is needed here.)
 
 :func:`from_f64x_planes` and :func:`to_f64x_planes` convert between the
 two carriages, so a test can feed both packages the same bits and compare
-their outputs bit for bit.
+their outputs bit for bit; :func:`from_zf64x_planes` and
+:func:`to_zf64x_planes` do the same for a complex operand or factor, which
+the JAX package carries as four planes (real hi, lo, imaginary hi, lo) and
+this one as one complex128 tensor.
 """
 
 from __future__ import annotations
@@ -62,3 +65,18 @@ def to_f64x_planes(x: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
     hi = (bits >> np.uint64(32)).astype(np.uint32)
     lo = (bits & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     return hi, lo
+
+
+def from_zf64x_planes(rhi: np.ndarray, rlo: np.ndarray, ihi: np.ndarray,
+                      ilo: np.ndarray) -> torch.Tensor:
+    """complex128 CPU tensor from the JAX package's four uint32 bit planes
+    (real hi, lo, imaginary hi, lo)."""
+    return torch.complex(from_f64x_planes(rhi, rlo), from_f64x_planes(ihi, ilo))
+
+
+def to_zf64x_planes(x: torch.Tensor) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """The JAX package's uint32 (real hi, lo, imaginary hi, lo) bit planes
+    of a complex128 tensor."""
+    if x.dtype != torch.complex128:
+        raise TypeError(f"expected a complex128 tensor, got {x.dtype}")
+    return (*to_f64x_planes(x.real), *to_f64x_planes(x.imag))

@@ -191,6 +191,64 @@ def test_timing_helpers_measure_the_call():
     np.testing.assert_allclose(tflops, 2 * 32 * 16 * 48 / avg / 1e12)
 
 
-def test_hpl_waits_for_the_solvers():
-    with pytest.raises(NotImplementedError, match="step 16"):
-        bench_cli.main(["hpl", "fp64_int8_9", "96", "--block", "48"])
+#: (dtype, resident, panel, block): real and complex, the host path and the
+#: resident path with both panel kinds, at n = 64.  Block 16 gives four
+#: steps; the complex resident cases take block 32 (two steps), because
+#: each of the JAX CLI's complex step programs compiles for several seconds
+HPL_CASES = [("d", "off", "host", 16), ("d", "on", "host", 16), ("d", "on", "device", 16),
+             ("z", "off", "host", 16), ("z", "on", "host", 32), ("z", "on", "device", 32)]
+
+
+@pytest.mark.parametrize("dtype,resident,panel,block", HPL_CASES)
+def test_hpl_line_equals_the_jax_clis(monkeypatch, dtype, resident, panel, block):
+    """``hpl`` and ``hpl --dtype z`` on the CPU return 0 and print the JAX
+    CLI's line, field for field, apart from the device name, the time and
+    the rate.  The residual is equal too on the host path, where both CLIs
+    build the same matrix; the resident path makes its matrix on the device
+    from each framework's own generator, so there the residuals only share
+    the 1e-14 gate."""
+    args = ["hpl", "fp64_int8_9", "64", "--block", str(block), "--panel", panel, "--dtype", dtype]
+    rc, out = _capture(bench_cli.main, args + ["--resident", resident, "--device", "cpu"])
+    monkeypatch.setenv("OZ_HPL_DEVICE_GEN", "1")  # the JAX CLI's on-device ZHPL matrix on the CPU
+    jrc, jout = _capture(jbench.main, args + ["--device", resident])
+    assert rc == jrc == 0
+    row, jrow = out.strip().splitlines()[-1].split(","), jout.strip().splitlines()[-1].split(",")
+    assert [f.split("=")[0] for f in row[2:]] == [f.split("=")[0] for f in jrow[2:]]
+    fields, jfields = (dict(f.split("=") for f in r if "=" in f) for r in (row, jrow))
+    rate = "gflops_x4" if dtype == "z" else "gflops"
+    assert row[0] == jrow[0] == ("zhpl" if dtype == "z" else "hpl") and row[1] == "cpu"
+    assert row[2] == jrow[2] == "fp64_int8_9"
+    assert fields["resident"] == ("device" if resident == "on" else "host")
+    assert fields["panel"] == (panel if resident == "on" else "host")
+    for key in fields:
+        if key not in ("factor_time", rate, "residual"):
+            assert fields[key] == jfields[key], key
+    assert float(fields["factor_time"].rstrip("s")) > 0 and float(fields[rate]) > 0
+    assert float(fields["residual"]) < 1e-14 and float(jfields["residual"]) < 1e-14
+    if resident == "off":
+        assert fields["residual"] == jfields["residual"]
+
+
+def test_hpl_options(monkeypatch):
+    """``--profile`` appends the phases of a second, instrumented pass;
+    ``--refine`` and ``--seed`` reach the solver; ``--resident auto`` is
+    the host path on the CPU; a residual over the gate returns 1."""
+    base = ["hpl", "fp64_int8_9", "64", "--block", "32", "--device", "cpu"]
+    rc, out = _capture(bench_cli.main, base + ["--resident", "on", "--panel", "host",
+                                               "--profile", "--warmup"])
+    keys = [f.split("=")[0] for f in out.strip().split(",")[3:]]
+    assert rc == 0 and keys[-3:] == ["device_update_s", "panel_host_s", "panel_pull_s"]
+    rc, out = _capture(bench_cli.main, base + ["--resident", "on", "--panel", "device",
+                                               "--profile", "--dtype", "z"])
+    keys = [f.split("=")[0] for f in out.strip().split(",")[3:]]
+    assert rc == 0 and keys[-2:] == ["device_update_s", "panel_device_s"]
+    rc, out = _capture(bench_cli.main, base)
+    assert rc == 0 and out.strip().endswith("resident=host,panel=host")
+    rc3, out3 = _capture(bench_cli.main, ["hpl", "fp64_int8_3", "64", "--block", "32", "--device",
+                                          "cpu", "--resident", "on", "--seed", "1"])
+    rc3r, out3r = _capture(bench_cli.main, ["hpl", "fp64_int8_3", "64", "--block", "32",
+                                            "--device", "cpu", "--resident", "on", "--seed", "1",
+                                            "--refine", "3"])
+    res = lambda o: float(dict(f.split("=") for f in o.strip().split(",")[3:])["residual"])  # noqa: E731
+    assert rc3 == 1 and res(out3) >= 1e-14  # three digits alone do not reach the gate
+    assert rc3r == 0 and res(out3r) < 1e-14 and "refine=3" in out3r

@@ -52,12 +52,16 @@ def test_split_kernel_equals_plain(dev, name, ns, b):
 @pytest.mark.parametrize(
     "m,n,k,ns",
     [(200, 136, 272, 6), (256, 128, 1024, 8), (1000, 1234, 777, 9), (64, 64, 16384, 9),
-     (17, 9, 32, 3), (1025, 1023, 1025, 16), (130, 260, 4096, 18), (512, 640, 32768, 12)],
+     (17, 9, 32, 3), (1025, 1023, 1025, 16), (130, 260, 4096, 18), (512, 640, 32768, 12),
+     (3072, 3072, 256, 9), (15360, 15360, 1024, 9), (1024, 15360, 1024, 9),
+     (7168, 7168, 1024, 9), (1024, 7168, 1024, 9)],
 )
 def test_recombine_kernel_equals_plain(dev, m, n, k, ns):
     """Bitwise on all three planes, in every tile class: ragged edges,
     k % 16 != 0 (zero-padded k), 171 pairs at ns = 18, int32 group splits
-    at k = 16384 and 32768."""
+    at k = 16384 and 32768, and the solvers' products (short k under a wide
+    m x n): a block of 256, and the first trailing update and U12 product
+    of HPL at n = 16384 and ZHPL at n = 8192 with block 1024."""
     b = bits_per_int8(k)
     a = torch.from_numpy(generate_input("normal01", (m, k), seed=m)).to(dev)
     bm = torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=n)).to(dev)
@@ -151,3 +155,47 @@ def test_compiled_traced_gemm_equals_eager(dev):
     got = f(a, b, c)
     want = ozt.gemm(a, b, mode="fp64_int8_9", alpha=2.0, beta=-0.5, c=c)
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.parametrize("kind", ["lu", "lu_device_panels", "zlu", "cholesky"])
+def test_resident_factorizations_equal_the_cpu_runs(dev, kind):
+    """n = 512, block 128 (k % 16 != 0 at block 100 for the real LU): with
+    host panels every device step is exact engine arithmetic around the
+    same LAPACK calls, so the factor on the card equals the CPU run's (the
+    plain versions) bit for bit; with device panels the pivots are equal
+    and the factorization meets the 1e-14 gate."""
+    from ozimmu_tpu_torch import linalg
+
+    n = 512
+    rng = np.random.default_rng(7)
+    a = rng.uniform(-1, 1, (n, n))
+    if kind == "zlu":
+        a = a + 1j * rng.uniform(-1, 1, (n, n))
+    if kind == "cholesky":
+        a = a @ a.T + n * np.eye(n)
+    cpu = torch.from_numpy(a)
+    as_real = torch.view_as_real if kind == "zlu" else (lambda t: t)
+    before = (split_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
+    if kind == "cholesky":
+        got = linalg.cholesky(cpu.to(dev), mode="fp64_int8_9", block=128)
+        want = linalg.cholesky(cpu, mode="fp64_int8_9", block=128)
+        steps, per_step = 3, (4, 2)
+    else:
+        block = 100 if kind == "lu" else 128
+        panel = "device" if kind == "lu_device_panels" else "host"
+        got, piv = linalg.lu_factor(cpu.to(dev), mode="fp64_int8_9", block=block, panel=panel)
+        want, piv_cpu = linalg.lu_factor(cpu, mode="fp64_int8_9", block=block)
+        np.testing.assert_array_equal(piv, piv_cpu)
+        steps, per_step = -(-n // block) - 1, ((8, 8) if kind == "zlu" else (4, 2))
+    torch.cuda.synchronize()
+    assert (split_cuda.LAUNCHES - before[0], recombine_cuda.LAUNCHES - before[1]) == (
+        steps * per_step[0], steps * per_step[1])
+    if kind == "lu_device_panels":
+        lu = got.cpu().numpy()
+        pa = a.copy()
+        for i in range(n):
+            pa[[i, piv[i]]] = pa[[piv[i], i]]
+        assert np.linalg.norm(pa - (np.tril(lu, -1) + np.eye(n)) @ np.triu(lu)) / np.linalg.norm(
+            a) < 1e-14
+    else:
+        assert torch.equal(as_real(got.cpu()).view(torch.int64), as_real(want).view(torch.int64))
