@@ -43,7 +43,17 @@ counts set to 0 just before it and read just after:
     then ``bench_cli hpl`` at n = 16384 and ``hpl --dtype z`` at n = 8192
     beside ``torch.linalg.lu_factor``, both kernels bit for bit against
     their plain versions on every engine product of those two runs' first
-    step, and the first HPL trailing update staged.
+    step, and the first HPL trailing update staged, its peak memory held
+    against the working-set model, also under a 12 GiB budget;
+  * the distributed layer (``parallel``), each rank a process of its own:
+    SUMMA at 8192^3 on a 1 x 1 mesh over NCCL, bitwise equal to ``gemm``
+    and timed beside it; then four ranks sharing the card over gloo (the
+    collectives staged through host memory): SUMMA at 8192^3, the ring,
+    streamed, k-sharded, complex SUMMA and complex ring variants, AUTO,
+    alpha / beta / c and the pre-sharded entry's budget re-check at 4096^3
+    or below, each bitwise equal to the one-device ``gemm`` on every rank,
+    with each rank's kernel launches; and the 8192^3 GEMM's peak memory
+    against the working-set model.
 
 Any failed phase raises, and the script exits non-zero without printing a
 result.  It needs a CUDA GPU: without one it exits non-zero at once.  The
@@ -422,6 +432,7 @@ def main() -> int:
     by_path["traced"] = walled(phase_traced, ozt, label)
     by_path["bench"] = walled(phase_bench, label)
     by_path.update(walled(phase_solvers, ozt, label))
+    by_path.update(walled(phase_parallel, ozt, label))
 
     kernels = [
         {"name": "split_digits", "route": "cuda", "source": "ozimmu_tpu_torch/csrc/split.cu",
@@ -1045,6 +1056,58 @@ def first_step_kernel_checks(size: int, blk: int, complex_: bool) -> list:
     return done
 
 
+def memory_against_model(what: str, call, a: torch.Tensor, b: torch.Tensor) -> int:
+    """Run ``call``, a GEMM of ``a`` [m, k] by ``b`` [k, n], and hold its
+    peak device memory against the working-set model
+    (``schedule.working_set_bytes_chunked`` at the planned column panels)
+    plus the epilogue's temporaries: ``_EPILOGUE_TEMP_BYTES`` per output
+    element, at most what the budget leaves (and at least
+    ``EPILOGUE_BLOCK_BYTES``), as ``schedule.epilogue_block_bytes`` sizes
+    the row blocks.  The measured peak is what the call allocated on top
+    of what was allocated before it, plus the two operands, which the
+    model counts.  Returns that peak."""
+    from ozimmu_tpu_torch.core.gemm import _EPILOGUE_TEMP_BYTES
+    from ozimmu_tpu_torch.schedule import (
+        EPILOGUE_BLOCK_BYTES, auto_n_chunks, hbm_budget_bytes, working_set_bytes_chunked,
+    )
+
+    (m, k), n = a.shape, b.shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + (a.numel() + b.numel()) * 8
+    chunks = auto_n_chunks(m, n, k, NS, device="cuda")
+    model = working_set_bytes_chunked(m, n, k, NS, chunks)
+    budget = hbm_budget_bytes("cuda")
+    temps = max(EPILOGUE_BLOCK_BYTES, min(_EPILOGUE_TEMP_BYTES * m * n, budget - before))
+    limit = 1.1 * (model + temps)
+    print(f"[memory] {what} {m}x{n}x{k} fp64_int8_{NS}: peak {peak / 2**30:.3f} GiB (allocated "
+          f"during the call + the operands); model {model / 2**30:.3f} GiB at {chunks} column "
+          f"panel(s) + the epilogue's temporaries {temps / 2**30:.3f} GiB (budget "
+          f"{budget / 2**30:.3f} GiB, {before / 2**30:.3f} GiB held before), limit +10 % = "
+          f"{limit / 2**30:.3f} GiB", flush=True)
+    if not peak <= limit:
+        raise AssertionError(f"{what}: peak {peak} B above the model's limit {limit:.0f} B")
+    return peak
+
+
+@contextlib.contextmanager
+def hbm_budget_mb(mb: int):
+    """``OZIMMU_HBM_BUDGET_MB`` set to ``mb`` inside the block."""
+    saved = os.environ.get("OZIMMU_HBM_BUDGET_MB")
+    os.environ["OZIMMU_HBM_BUDGET_MB"] = str(mb)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["OZIMMU_HBM_BUDGET_MB"]
+        else:
+            os.environ["OZIMMU_HBM_BUDGET_MB"] = saved
+
+
 def phase_solvers(ozt, label) -> dict:
     """17. The solvers.  Small sizes first, each path counted and held
     against the same call on CPU tensors (the plain versions) or against
@@ -1228,9 +1291,10 @@ def phase_solvers(ozt, label) -> dict:
     m, k = l21.shape
     h = ozt.create(device="cuda")
     update = lambda: ozt.gemm(l21, u12, mode=mode, alpha=-1.0, beta=1.0, c=c22, handle=h)  # noqa: E731
-    torch.cuda.reset_peak_memory_stats()
-    update()
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = memory_against_model("the first HPL trailing update", update, l21, u12) / 2**30
+    with hbm_budget_mb(12 << 10):  # a smaller card: the epilogue's row blocks shrink
+        peak_12 = memory_against_model("the first HPL trailing update under a 12 GiB budget",
+                                       update, l21, u12) / 2**30
     ms_update = cuda_ms(update, iters=2, warmup=0)
     ozt.enable_profiling(h)
     for _ in range(2):
@@ -1248,7 +1312,8 @@ def phase_solvers(ozt, label) -> dict:
     print(f"[time] {label}: the first HPL trailing update {m}x{m}x{k} {mode} alpha=-1 beta=1, c "
           f"the matrix's own window: {ms_update:.3f} ms unstaged; staged " + ", ".join(
               f"{name} {v:.3f} ms" for name, v in staged.items())
-          + f"; peak device memory {peak:.2f} GiB", flush=True)
+          + f"; peak device memory {peak:.2f} GiB ({peak_12:.2f} GiB under a 12 GiB budget)",
+          flush=True)
     print(f"[time] {label}: recombine at that shape (plan: tile class "
           f"{recombine_cuda.launch_plan(m, m, k, NS, sms).tile}): kernel {ms_rec:.3f} ms, bound "
           f"{rec_bound[0]:.3f} ms ({rec_bound[1]}), {pairs * 2 * m * m * k / ms_rec / 1e9:.1f} "
@@ -1271,6 +1336,281 @@ def phase_solvers(ozt, label) -> dict:
     print(f"[trace] LU n=8192 block=1024 {mode} device panels: device busy {busy / 1e3:.3f} ms "
           f"of a {window / 1e3:.3f} ms window = busy share {busy / window:.4f}", flush=True)
     return counts
+
+
+# -- 18. the distributed layer -------------------------------------------------
+#
+# The cases below run inside the rank processes that
+# ``ozimmu_tpu_torch.parallel.local`` starts (each loads this file as the
+# table's module); phase_parallel launches them and checks what they return.
+
+PAR_N = 4096  # the global size of the 4-rank variants but SUMMA's
+#: per-rank launches of each distributed path (split, recombine): a real
+#: variant splits its two operands, a complex one four planes; SUMMA
+#: recombines once per pass, the ring, stream and k variants sum int32
+#: group totals through torch._int_mm and launch no recombine kernel
+PAR_LAUNCHES = {"summa": (2, 1), "zsumma": (4, 4), "ring": (2, 0), "zring": (4, 0),
+                "stream": (2, 0), "k": (2, 0), "auto": (2, 1), "summa_epilogue": (2, 1),
+                "stream_1x4": (2, 0), "presharded_recheck": (2, 0)}
+#: 512 x 4096 @ 4096 x 512 at ns = 9 on a 1 x 4 mesh: the chooser says "k"
+#: (15.7 MB), which pre-sharded operands cannot use; summa needs 32.25 MB,
+#: stream 30.0 MB, so under 31 MB the entry must re-check and stream
+RECHECK = dict(shape=(512, 4096, 512), budget_mb=31)
+
+
+def _par_operands(n: int, seed: int, cx: bool = False, k: int = None):
+    from ozimmu_tpu_torch.testing import generate_input
+
+    k = k or n
+    return (generate_input("urand01", (n, k), seed=seed, complex_=cx),
+            generate_input("urand01", (k, n), seed=seed + 1, complex_=cx))
+
+
+def _par_call(call, want, gather=None) -> dict:
+    """One distributed call on every rank, between barriers: its seconds
+    and staged bytes, this rank's kernel launches, a digest of the global
+    result it returns (through ``gather``, untimed, where it returns
+    shards), and on rank 0 whether that equals ``want()`` (the one-device
+    result) bit for bit.  The operands' set-up and the reference stay out
+    of ``call_seconds``; the launcher's ``case_seconds`` has them."""
+    import hashlib
+
+    import torch.distributed as dist
+    from ozimmu_tpu_torch.parallel import comm
+
+    dist.barrier()
+    reset_launches()
+    comm.STAGED_BYTES = 0
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    dist.barrier()
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    out = np.ascontiguousarray(gather(out) if gather else out)
+    res = {"call_seconds": seconds, "split_digits": counts["split_digits"],
+           "recombine": counts["recombine"], "call_staged_bytes": comm.STAGED_BYTES,
+           "digest": hashlib.sha256(out.tobytes()).hexdigest()}
+    if dist.get_rank() == 0:
+        ref = np.ascontiguousarray(want())
+        res["equal"] = bool(ref.shape == out.shape and np.array_equal(
+            ref.view(np.uint64), out.view(np.uint64)) and np.isfinite(out).all())
+    return res
+
+
+def _one_device(a, b, **kw):
+    import ozimmu_tpu_torch as ozt
+
+    return lambda: ozt.gemm(a, b, mode=f"fp64_int8_{NS}", device="cuda", **kw)
+
+
+def par_nccl_summa(mesh) -> dict:
+    """(a) SUMMA 8192^3 on a 1 x 1 mesh over NCCL, on tensors on the card:
+    bits against ``gemm``, launches, and both timed (CUDA events)."""
+    import ozimmu_tpu_torch as ozt
+    from ozimmu_tpu_torch import parallel as par
+
+    a_np, b_np = _par_operands(N, 0)
+    a, b = torch.from_numpy(a_np).cuda(), torch.from_numpy(b_np).cuda()
+    mode = f"fp64_int8_{NS}"
+    want = ozt.gemm(a, b, mode=mode)
+    reset_launches()
+    got = par.sharded_gemm(a, b, NS, mesh)
+    counts = read_launches()
+    res = {"equal": bits_equal(got, want) and bool(torch.isfinite(got).all()),
+           "split_digits": counts["split_digits"], "recombine": counts["recombine"]}
+    del got, want
+    res["ms_sharded"] = cuda_ms(lambda: par.sharded_gemm(a, b, NS, mesh), iters=3)
+    res["ms_gemm"] = cuda_ms(lambda: ozt.gemm(a, b, mode=mode), iters=3)
+    return res
+
+
+def par_summa(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+
+    a, b = _par_operands(N, 0)
+    return _par_call(lambda: par.sharded_gemm(a, b, NS, mesh), _one_device(a, b))
+
+
+def _par_variant(variant: str, cx: bool = False):
+    def case(mesh) -> dict:
+        from ozimmu_tpu_torch import parallel as par
+
+        a, b = _par_operands(PAR_N, 10, cx)
+        return _par_call(lambda: par.sharded_gemm(a, b, NS, mesh, variant=variant),
+                         _one_device(a, b))
+    return case
+
+
+_MESHES = {}
+
+
+def _mesh(shape: tuple, names: tuple):
+    """A mesh of this rank process, made once, its groups connected by a
+    barrier each before any timed call uses them."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if shape not in _MESHES:
+        mesh = init_device_mesh("cuda", shape, mesh_dim_names=names)
+        for name in names:
+            dist.barrier(group=mesh.get_group(name))
+        _MESHES[shape] = mesh
+    return _MESHES[shape]
+
+
+def par_k(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+
+    kmesh = _mesh((4,), ("k",))
+    a, b = _par_operands(PAR_N, 10)
+    return _par_call(lambda: par.sharded_gemm_k(a, b, NS, kmesh), _one_device(a, b))
+
+
+def par_auto(mesh) -> dict:
+    import ozimmu_tpu_torch as ozt
+    from ozimmu_tpu_torch import parallel as par
+
+    a, b = _par_operands(PAR_N, 10)
+    res = _par_call(lambda: par.sharded_gemm_auto(a, b, "auto", mesh),
+                    lambda: ozt.gemm(a, b, mode="fp64_int8_auto", device="cuda"))
+    res["mode"] = par.sharded_auto_mode_select(a, b, mesh).value
+    return res
+
+
+def par_summa_epilogue(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+    from ozimmu_tpu_torch.testing import generate_input
+
+    a, b = _par_operands(PAR_N, 10)
+    c = generate_input("urand01", (PAR_N, PAR_N), seed=12)
+    kw = dict(alpha=2.0, beta=-0.5, c=c)
+    return _par_call(lambda: par.sharded_gemm(a, b, NS, mesh, **kw), _one_device(a, b, **kw))
+
+
+def par_stream_1x4(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+
+    mesh = _mesh((1, 4), ("x", "y"))
+    a, b = _par_operands(PAR_N, 10)
+    return _par_call(lambda: par.sharded_gemm(a, b, NS, mesh, variant="stream"),
+                     _one_device(a, b))
+
+
+def par_presharded_recheck(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+    from ozimmu_tpu_torch.parallel.gemm import _presharded_variant
+
+    mesh = _mesh((1, 4), ("x", "y"))
+    m, k, n = RECHECK["shape"]
+    a, b = _par_operands(m, 20, k=k)
+    sharded = [par.shard_local_f64x(x.shape, mesh, ("x", "y"), lambda i, x=x: x[i])
+               for x in (a, b)]
+    with hbm_budget_mb(RECHECK["budget_mb"]):
+        chosen = par.select_variant(m, n, k, NS, mesh)
+        variant = _presharded_variant(m, n, k, NS, mesh, "x", "y", False)
+        res = _par_call(lambda: par.sharded_gemm_presharded(*sharded, NS, mesh),
+                        _one_device(a, b), gather=par.allgather_f64x)
+    res.update(select_variant=chosen, variant=variant)
+    return res
+
+
+PARALLEL_NCCL = {"summa": par_nccl_summa}
+PARALLEL_GLOO = {
+    "summa": par_summa,
+    "ring": _par_variant("ring"),
+    "stream": _par_variant("stream"),
+    "k": par_k,
+    "zsumma": _par_variant("summa", cx=True),
+    "zring": _par_variant("ring", cx=True),
+    "auto": par_auto,
+    "summa_epilogue": par_summa_epilogue,
+    "stream_1x4": par_stream_1x4,
+    "presharded_recheck": par_presharded_recheck,
+}
+
+
+def _par_results(ranks: list, table: dict, what: str) -> dict:
+    """Per case, rank 0's results; raises if a rank failed a case."""
+    out = {}
+    for name in table:
+        for r, res in enumerate(ranks):
+            if f"{name}/error" in res:
+                raise AssertionError(f"{what} {name} failed on rank {r}:\n{res[f'{name}/error']}")
+        out[name] = [{k.split("/", 1)[1]: v.item() if v.ndim == 0 else v
+                      for k, v in res.items() if k.startswith(name + "/")} for res in ranks]
+    return out
+
+
+def phase_parallel(ozt, label) -> dict:
+    """18. The distributed layer, each rank a process started by
+    ``ozimmu_tpu_torch.parallel.local`` (killed if it fails or hangs):
+    (a) world size 1 over NCCL, (b) four ranks sharing the card over gloo,
+    every result bitwise equal to the one-device ``gemm`` and every rank's
+    launches equal to the table; then (c) the 8192^3 GEMM's peak memory
+    against the model."""
+    from ozimmu_tpu_torch.parallel import local
+
+    here = os.path.abspath(__file__)
+    by_path = {}
+    torch.cuda.empty_cache()
+
+    # (a) one rank, NCCL
+    t0 = time.perf_counter()
+    ranks = local.run(f"{here}:PARALLEL_NCCL", "1x1", nproc=1, device="cuda", timeout=300)
+    (res,) = _par_results(ranks, PARALLEL_NCCL, "NCCL 1x1")["summa"]
+    if not res["equal"] or (res["split_digits"], res["recombine"]) != PAR_LAUNCHES["summa"]:
+        raise AssertionError(f"NCCL 1x1 sharded_gemm {N}^3: {res}")
+    by_path["parallel_nccl_summa"] = {"split_digits": res["split_digits"],
+                                      "recombine": res["recombine"]}
+    print(f"[parallel] NCCL, world size 1, 1x1 mesh: sharded_gemm fp64_int8_{NS} {N}^3 == gemm "
+          f"bitwise; launches split {res['split_digits']}, recombine {res['recombine']} "
+          f"({time.perf_counter() - t0:.1f} s with the process start)", flush=True)
+    print(f"[time] {label}: sharded_gemm {N}^3 on a 1x1 NCCL mesh: {res['ms_sharded']:.3f} ms; "
+          f"gemm: {res['ms_gemm']:.3f} ms; the layer's overhead "
+          f"{res['ms_sharded'] - res['ms_gemm']:+.3f} ms", flush=True)
+
+    # (b) four ranks sharing the card, gloo
+    t0 = time.perf_counter()
+    ranks = local.run(f"{here}:PARALLEL_GLOO", "2x2", nproc=4, device="cuda", backend="gloo",
+                      timeout=600)
+    print(f"[parallel] 4 ranks over gloo on one card: {len(PARALLEL_GLOO)} cases in "
+          f"{time.perf_counter() - t0:.1f} s with the process start", flush=True)
+    results = _par_results(ranks, PARALLEL_GLOO, "gloo 4 ranks")
+    for name, per_rank in results.items():
+        r0 = per_rank[0]
+        counts = {(r["split_digits"], r["recombine"]) for r in per_rank}
+        digests = {r["digest"] for r in per_rank}
+        if not r0["equal"] or counts != {PAR_LAUNCHES[name]} or len(digests) != 1:
+            raise AssertionError(f"gloo {name}: equal {r0['equal']}, per-rank launches {counts} "
+                                 f"(expected {PAR_LAUNCHES[name]}), {len(digests)} digests")
+        by_path[f"parallel_gloo_{name}"] = {"split_digits": r0["split_digits"],
+                                            "recombine": r0["recombine"]}
+        extra = ""
+        if name == "auto":
+            extra = f"; AUTO chose {r0['mode']}"
+        if name == "presharded_recheck":
+            if (r0["select_variant"], r0["variant"]) != ("k", "stream"):
+                raise AssertionError(f"presharded re-check chose {r0['select_variant']} -> "
+                                     f"{r0['variant']}, expected k -> stream")
+            extra = (f"; {RECHECK['shape']} under {RECHECK['budget_mb']} MB: chooser "
+                     f"{r0['select_variant']} -> pre-sharded {r0['variant']}")
+        size = f"{N}^3" if name == "summa" else (
+            "x".join(map(str, RECHECK["shape"])) if name == "presharded_recheck" else f"{PAR_N}^3")
+        print(f"[parallel] gloo {name} {size}: == one-device gemm bitwise on rank 0, the same "
+              f"result on all 4 ranks; per-rank launches split {r0['split_digits']}, recombine "
+              f"{r0['recombine']}{extra}", flush=True)
+        print(f"[time] {label}: 4 ranks sharing one card, collectives through host memory, NOT a "
+              f"scaling figure: {name} {size}: {max(r['call_seconds'] for r in per_rank):.3f} s "
+              f"(one call, slowest rank; the whole case with its set-up and reference "
+              f"{per_rank[0]['case_seconds']:.3f} s on rank 0); staged "
+              f"{sum(r['call_staged_bytes'] for r in per_rank) / 2**20:.1f} MiB over the 4 ranks",
+              flush=True)
+
+    # (c) the main path's GEMM against the memory model
+    a, b = (torch.from_numpy(x).cuda() for x in _par_operands(N, 0))
+    memory_against_model(f"gemm {N}^3", lambda: ozt.gemm(a, b, mode=f"fp64_int8_{NS}"), a, b)
+    return by_path
 
 
 if __name__ == "__main__":

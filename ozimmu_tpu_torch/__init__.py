@@ -29,8 +29,13 @@ ops), the bench CLI (``python -m ozimmu_tpu_torch.bench_cli``) with its
 timing helpers (``testing``) and the long-double oracle (``oracle``, built
 with g++ at first use); the HPL-class solvers (``linalg``: blocked LU and
 Cholesky on the host or resident on the device, real and complex, ``solve``
-with iterative refinement) and ``bench_cli hpl``.  Not ported yet: the
-distributed layer.
+with iterative refinement) and ``bench_cli hpl``; the distributed layer
+(``parallel``: SUMMA, k-sharded, Cannon ring and streamed SUMMA, AUTO and
+pre-sharded entries on ``torch.distributed``, with the CUDA kernels in
+every rank).  The modules ``schedule``, ``testing`` and ``types`` are
+exported as the JAX package exports them.  ``ozimmu_tpu.hostref`` (a numpy
+model of the JAX engine that its tests compare with) is not ported: the
+port's tests compare with the JAX package itself.
 """
 
 from .types import (
@@ -59,7 +64,7 @@ from .core.handle import (
     get_auto_mantissa_loss_threshold,
 )
 from .utils.profiling import device_trace
-from . import intercept, linalg, traced
+from . import intercept, linalg, parallel, schedule, testing, traced, types
 
 __version__ = "0.1.0"
 
@@ -89,7 +94,11 @@ __all__ = [
     "device_trace",
     "intercept",
     "linalg",
+    "parallel",
+    "schedule",
+    "testing",
     "traced",
+    "types",
     "disable_profiling",
     "print_profiler_result",
     "clear_profiler_result",

@@ -30,20 +30,54 @@ from ..ops import tf32x3
 from ..ops.pack import aligned_add, pack_f64, scalar_triple, unpack_f64
 from ..ops.recombine import acc_shift, recombine
 from ..ops.split import split_f64, split_f64_cols
-from ..schedule import auto_n_chunks, bits_per_int8
+from ..schedule import auto_n_chunks, bits_per_int8, epilogue_block_bytes
+
+#: live temporaries per output element of one epilogue block, an upper
+#: estimate that sets the block height: HPL's first trailing update, with
+#: beta * c, peaked at 243.7 B per output element unblocked on an H100,
+#: the 24 B of S, E and the output included (tools/torch_ab.py, PERF.md);
+#: the complex fold keeps two accumulators and folds four passes
+_EPILOGUE_TEMP_BYTES = 256
+_ZFOLD_TEMP_BYTES = 512
+
+
+def _row_blocks(m: int, n: int, temp_bytes: int, device):
+    """Row ranges ``slice(r0, r1)`` covering an m x n output, each short
+    enough that ``temp_bytes`` per element stay within
+    :func:`~ozimmu_tpu_torch.schedule.epilogue_block_bytes` of ``device``."""
+    rows = max(1, epilogue_block_bytes(device) // max(1, temp_bytes * n))
+    return [slice(r0, min(r0 + rows, m)) for r0 in range(0, m, rows)]
 
 
 def _epilogue_SE(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) -> torch.Tensor:
     """``alpha * (S * 2^E) + beta * c`` in extended precision, rounded to
-    f64 once (reference axby, gemm.cu:124-158)."""
+    f64 once (reference axby, gemm.cu:124-158).
+
+    Where the eager passes' temporaries would not fit what the memory
+    budget leaves, runs over row blocks into one float64 output: every
+    pass is elementwise, so the blocking leaves the bits alone (the
+    working-set model counts the output, S and E)."""
+    if beta != 0.0 and c is None:
+        raise ValueError("beta != 0 requires c")
+    m, n = E.shape
+    blocks = _row_blocks(m, n, _EPILOGUE_TEMP_BYTES, E.device)
+    if len(blocks) == 1:
+        return _epilogue_block(S, E, alpha, beta, c)
+    out = torch.empty((m, n), dtype=torch.float64, device=E.device)
+    for rows in blocks:
+        out[rows] = _epilogue_block(tuple(s[rows] for s in S), E[rows], alpha, beta,
+                                    None if c is None else c[rows])
+    return out
+
+
+def _epilogue_block(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`_epilogue_SE` on one block of rows."""
     dev = E.device
     if alpha != 1.0:
         at, ae = scalar_triple(alpha, device=dev)
         S = tf32x3.mul(S, at)
         E = E + ae
     if beta != 0.0:
-        if c is None:
-            raise ValueError("beta != 0 requires c")
         ct, cE = unpack_f64(c)
         if beta != 1.0:
             bt, be = scalar_triple(beta, device=dev)
@@ -155,8 +189,24 @@ def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im
     ``SEs`` lists (S, E) per entry of :data:`ZGEMM_PASSES`.  Fold factors
     (reference gemm.cu:479-518): re*re -> +alpha, im*im -> -alpha, cross
     terms -> i*alpha; C is pre-scaled by beta (init_c_complex,
-    gemm.cu:199-239).  Returns the (re, im) float64 planes.
+    gemm.cu:199-239).  Returns the (re, im) float64 planes, written over
+    row blocks as :func:`_epilogue_SE` writes its output.
     """
+    blocks = _row_blocks(m, n, _ZFOLD_TEMP_BYTES, device)
+    if len(blocks) == 1:
+        return _zfold_block(SEs, m, n, alpha, beta, c_re, c_im, device)
+    out_re = torch.empty((m, n), dtype=torch.float64, device=device)
+    out_im = torch.empty((m, n), dtype=torch.float64, device=device)
+    for rows in blocks:
+        block = [(tuple(s[rows] for s in S), E[rows]) for S, E in SEs]
+        out_re[rows], out_im[rows] = _zfold_block(
+            block, rows.stop - rows.start, n, alpha, beta,
+            None if c_re is None else c_re[rows], None if c_im is None else c_im[rows], device)
+    return out_re, out_im
+
+
+def _zfold_block(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im, device):
+    """:func:`_zfold_passes` on one block of rows."""
 
     def empty():
         return (tf32x3.zeros((m, n), device=device),

@@ -415,8 +415,9 @@ def _resident_operand(a, name: str, resident: Optional[bool], mesh, handle, devi
     default the handle's)."""
     if mesh is not None:
         raise NotImplementedError(
-            f"{name}(mesh=...) needs the distributed layer, ozimmu_tpu_torch.parallel, which "
-            "is not ported yet (ROADMAP.md queue 1, step 17)"
+            f"{name}(mesh=...), the row-sharded resident factorization over "
+            "ozimmu_tpu_torch.parallel, is not ported yet: it is the next slice (ROADMAP.md "
+            "queue 1, step 17)"
         )
     is_tensor = isinstance(a, torch.Tensor)
     if resident is None:

@@ -17,9 +17,9 @@ Exactness identity:
 whenever ``ns*b >= 53 + (Erow - E)``.
 
 :func:`split_with_row_exp` is the plain PyTorch version of the CUDA kernel
-in :mod:`.split_cuda`.  :func:`split_f64` / :func:`split_f64_cols` pick by
-the operand's device alone: a CUDA tensor always goes through the kernel,
-a CPU tensor through the plain version.
+in :mod:`.split_cuda`.  :func:`split_with_exp`, :func:`split_f64` and
+:func:`split_f64_cols` pick by the operand's device alone: a CUDA tensor
+always goes through the kernel, a CPU tensor through the plain version.
 """
 
 from __future__ import annotations
@@ -80,15 +80,25 @@ def split_with_row_exp(
     return digits, pexp_from_row_exp(e_row)
 
 
-def _split(x: torch.Tensor, num_split: int, b: int, axis: int):
-    e_max = row_exponent(x, axis)
+def split_with_exp(
+    x: torch.Tensor, e_max: torch.Tensor, num_split: int, b: int, axis: int = 1
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`split_with_row_exp` on ``x``'s device: the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor.  ``e_max`` is the max
+    exponent field along ``axis`` (the distributed layer passes the max
+    over every rank's block)."""
     if x.device.type == "cuda":
         from .split_cuda import split_digits
 
+        e_max = e_max.to(torch.int32).contiguous()
         return split_digits(x, e_max, num_split, b, axis), pexp_from_row_exp(e_max)
     if x.device.type == "cpu":
         return split_with_row_exp(x, e_max, num_split, b, axis)
     raise ValueError(f"unsupported device {x.device}")
+
+
+def _split(x: torch.Tensor, num_split: int, b: int, axis: int):
+    return split_with_exp(x, row_exponent(x, axis), num_split, b, axis)
 
 
 def split_f64(x: torch.Tensor, num_split: int, b: int) -> Tuple[torch.Tensor, torch.Tensor]:

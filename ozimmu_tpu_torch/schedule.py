@@ -35,6 +35,22 @@ from .utils.log import error
 #: int32 magnitude budget for an accumulated dot product.
 _INT32_BUDGET = 2**31 - 1
 
+#: device bytes the engine holds per output element, besides the operands
+#: and their digit planes: the triple-f32 accumulator (12), its exponent
+#: plane (4), an int32 group total (4) and the packed f64 result (8).  The
+#: JAX package's models count the same 28 B; here they hold up to the
+#: eager epilogue's temporaries, which take what the budget leaves
+#: (:func:`epilogue_block_bytes`).
+BYTES_PER_OUTPUT_ELEMENT = 12 + 4 + 4 + 8
+
+#: the least device memory that the temporaries of one row block of the
+#: eager epilogue (core/gemm.py::_epilogue_SE, _zfold_passes: some 40
+#: unfused elementwise torch passes) may take where the budget leaves
+#: less: a block must give each pass tens of microseconds of work on the
+#: card, or the host's launches set the pace (1 GiB blocks made ZHPL
+#: 26-34 % slower on an H100, PERF.md)
+EPILOGUE_BLOCK_BYTES = 4 << 30
+
 
 def bits_per_int8(k: int) -> int:
     """Mantissa bits stored per int8 slice for contraction length ``k``.
@@ -165,7 +181,7 @@ def working_set_bytes_chunked(
     )
     per_chunk = factor * (
         num_split * k * w  # B panel int8 digit planes
-        + (12 + 4 + 4 + 8) * m * w  # triple-f32 + E + int32 partial + out
+        + BYTES_PER_OUTPUT_ELEMENT * m * w
     )
     if complex_:
         # the 4-pass engine holds all four (S, E) pass results of the
@@ -175,8 +191,7 @@ def working_set_bytes_chunked(
 
 
 #: share of the device's memory that auto-chunking plans to use; the rest
-#: is headroom for the caching allocator's slack and the epilogue's
-#: elementwise temporaries, which the working-set model does not count.
+#: is headroom for the caching allocator's slack.
 _BUDGET_SHARE = 0.6
 
 
@@ -195,6 +210,17 @@ def hbm_budget_bytes(device=None) -> int:
     else:
         total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
     return int(total * _BUDGET_SHARE)
+
+
+def epilogue_block_bytes(device) -> int:
+    """Bytes that the temporaries of one row block of the eager epilogue
+    may take on ``device``: what :func:`hbm_budget_bytes` leaves beside
+    what is allocated there now, and at least :data:`EPILOGUE_BLOCK_BYTES`.
+    An output whose temporaries fit runs as one block, exactly as
+    unblocked: row blocks cost a GEMM 2.5-6 % on an H100 (PERF.md)."""
+    device = torch.device(device)
+    held = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
+    return max(EPILOGUE_BLOCK_BYTES, hbm_budget_bytes(device) - held)
 
 
 def auto_n_chunks(

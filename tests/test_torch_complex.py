@@ -185,3 +185,29 @@ def test_real_a_with_complex_b_is_promoted():
     ar = a.real.T.copy()
     got = ozt.gemm(ar, b, handle=_cpu(), **kw)
     np.testing.assert_array_equal(_u64(got), _u64(oz.gemm(ar + 0j, b, **kw)))
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("alpha,beta", [(1.0, 0.0), (2 - 0.5j, 1.0), (1j, 0.25 + 1j)])
+def test_row_blocked_fold_is_bitwise(monkeypatch, rows, alpha, beta):
+    """The complex fold over blocks of ``rows`` rows equals one block over
+    the whole output, and the ZGEMM around it the JAX package's bits."""
+    from ozimmu_tpu_torch.core import gemm as core
+
+    a, b, c = _operands(seed=40)
+    planes = [torch.from_numpy(np.ascontiguousarray(p)) for p in (a.real, a.imag, b.real, b.imag)]
+    cr, ci = (torch.from_numpy(np.ascontiguousarray(p)) for p in (c.real, c.imag))
+    bb = ozt.bits_per_int8(K)
+    a_planes = {0: core.split_f64(planes[0], 9, bb), 1: core.split_f64(planes[1], 9, bb)}
+    b_planes = {0: core.split_f64_cols(planes[2], 9, bb), 1: core.split_f64_cols(planes[3], 9, bb)}
+    SEs = core._zpasses(a_planes, b_planes, 9, bb, K)
+    args = (SEs, M, N, complex(alpha), complex(beta), cr, ci, "cpu")
+    whole = core._zfold_block(*args)
+    block = rows * core._ZFOLD_TEMP_BYTES * N
+    monkeypatch.setattr(core, "epilogue_block_bytes", lambda device: block)
+    assert len(core._row_blocks(M, N, core._ZFOLD_TEMP_BYTES, "cpu")) == -(-M // rows)
+    for got, want in zip(core._zfold_passes(*args), whole):
+        np.testing.assert_array_equal(got.numpy().view(np.uint64), want.numpy().view(np.uint64))
+    kw = dict(mode="fp64_int8_9", alpha=alpha, beta=beta, c=c)
+    np.testing.assert_array_equal(_u64(ozt.gemm(a, b, handle=_cpu(), **kw)),
+                                  _u64(oz.gemm(a, b, **kw)))

@@ -225,6 +225,7 @@ def test_cuda_wrappers_raise_on_cpu_tensors():
 def test_port_never_imports_jax():
     code = (
         "import ozimmu_tpu_torch.intercept, ozimmu_tpu_torch.traced, ozimmu_tpu_torch.bench_cli\n"
+        "import ozimmu_tpu_torch.parallel, ozimmu_tpu_torch.parallel.local\n"
         "import importlib, pkgutil, sys, ozimmu_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'ozimmu_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -236,3 +237,49 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and "clean" in out.stdout, out.stderr
+
+
+def test_package_exports_its_modules():
+    """``schedule``, ``testing``, ``types`` and ``parallel`` resolve right
+    after ``import ozimmu_tpu_torch`` (a fresh process) and are listed."""
+    code = (
+        "import types, ozimmu_tpu_torch as ozt\n"
+        "for name in ('parallel', 'schedule', 'testing', 'types'):\n"
+        "    assert name in ozt.__all__, name\n"
+        "    assert isinstance(getattr(ozt, name), types.ModuleType), name\n"
+        "assert callable(ozt.testing.generate_input) and callable(ozt.parallel.sharded_gemm)\n"
+        "print('exported')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "exported" in out.stdout, out.stderr
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("alpha,beta", [(1.0, 0.0), (-1.5, 0.0), (1.0, 1.0), (-1.5, 0.25),
+                                        (2.0, 1.0)])
+def test_row_blocked_epilogue_is_bitwise(monkeypatch, rows, alpha, beta):
+    """The epilogue over blocks of ``rows`` rows (a strided c included)
+    equals one block over the whole output, and the GEMM around it the
+    JAX package's bits."""
+    from ozimmu_tpu_torch.core import gemm as core
+
+    a, b, c = _operands(dist="normal01", seed=30)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    cw = torch.from_numpy(np.ascontiguousarray(np.hstack([c, c])))[:, ::2]  # a strided window
+    bb = ozt.bits_per_int8(K)
+    da, pa = core.split_f64(ta, 9, bb)
+    db, pb = core.split_f64_cols(tb, 9, bb)
+    S = core.recombine(da, db, 9, bb, K)
+    E = core._exponent_plane(pa, pb, core.acc_shift(9, bb))
+    cc = cw if beta != 0.0 else None
+    whole = core._epilogue_block(S, E, alpha, beta, cc)
+    block = rows * core._EPILOGUE_TEMP_BYTES * N
+    monkeypatch.setattr(core, "epilogue_block_bytes", lambda device: block)
+    assert len(core._row_blocks(M, N, core._EPILOGUE_TEMP_BYTES, "cpu")) == -(-M // rows)
+    np.testing.assert_array_equal(_u64(core._epilogue_SE(S, E, alpha, beta, cc).numpy()),
+                                  _u64(whole.numpy()))
+    kw = dict(mode="fp64_int8_9", alpha=alpha, beta=beta, c=c if beta != 0.0 else None)
+    np.testing.assert_array_equal(_u64(ozt.gemm(a, b, device="cpu", **kw)),
+                                  _u64(oz.gemm(a, b, **kw)))

@@ -199,3 +199,26 @@ def test_resident_factorizations_equal_the_cpu_runs(dev, kind):
             a) < 1e-14
     else:
         assert torch.equal(as_real(got.cpu()).view(torch.int64), as_real(want).view(torch.int64))
+
+
+@pytest.mark.parametrize("mesh,nproc,backend", [("1x1", 1, "nccl"), ("2x2", 4, "gloo")])
+def test_distributed_layer_on_the_card_equals_gemm(dev, mesh, nproc, backend):
+    """The 2x2 wrapper cases of tests/torch_parallel_cases.py (SUMMA, ring,
+    stream, k-sharded through AUTO, real and complex, alpha / beta / c,
+    padded), run by ranks on the card (one over NCCL, or four sharing it
+    over gloo), equal the one-device gemm on CPU tensors bit for bit."""
+    import os
+
+    import torch_parallel_cases as cases
+    from ozimmu_tpu_torch.parallel import local
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_cases.py")
+    ranks = local.run(f"{path}:CASES_CARD", mesh, nproc=nproc, device="cuda", backend=backend,
+                      timeout=600)
+    for name, s in cases.SPECS_2x2.items():
+        errors = [str(r[f"{name}/error"]) for r in ranks if f"{name}/error" in r]
+        assert not errors, errors[0]
+        if s["local"] == "bits":
+            got = np.ascontiguousarray(ranks[0][f"{name}/out"])
+            want = np.ascontiguousarray(cases.run_local(s))
+            assert np.array_equal(got.view(np.uint64), want.view(np.uint64)), name

@@ -18,6 +18,13 @@ kernel:
     alpha, beta and c as ``chip_smoke.py`` times it, each also as the
     host's time to issue it (``_host_ms``, no wait for the card) and the
     card's busy time in one call (``_device_busy_ms``, ``torch.profiler``);
+  * the two products where the eager epilogue takes most of the time:
+    ``gemm`` ZGEMM 8192^3 ``fp64_int8_9`` (complex urand01, as
+    ``chip_smoke.py`` phase 9), and HPL's first trailing update, 15360^2 x
+    1024 ``fp64_int8_9`` with alpha = -1, beta = 1 and c the matrix's own
+    strided window (the operands of ``chip_smoke.py`` phase 17), also as
+    its peak device memory per output element (allocated during the call,
+    over m * n);
   * with ``--ci-test``, the wall time of the bench CLI's 72-case
     ``ci_test`` at 1025 (host-bound: the long-double oracle).
 
@@ -100,6 +107,26 @@ for tag, kw in (("", {}), ("_with_c", dict(alpha=1.5, beta=-0.5, c=c))):
         e.time_range.end - e.time_range.start for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
 del x, y, c
+a = torch.from_numpy(generate_input("urand01", (8192, 8192), seed=40, complex_=True)).to(dev)
+bm = torch.from_numpy(generate_input("urand01", (8192, 8192), seed=41, complex_=True)).to(dev)
+out["zgemm_8192_fp64_int8_9_ms"] = cuda_ms(lambda: ozt.gemm(a, bm, mode="fp64_int8_9"), 3)
+del a, bm
+import chip_smoke
+ops = chip_smoke.first_step_operands(16384, 1024, False)
+l21, u12, c22 = ops["l21"], ops["u12"], ops["c22"]
+del ops
+update = lambda: ozt.gemm(l21, u12, mode="fp64_int8_9", alpha=-1.0, beta=1.0, c=c22)
+out["hpl_update_15360x15360x1024_ms"] = cuda_ms(update, 3)
+torch.cuda.synchronize()
+torch.cuda.empty_cache()
+before = torch.cuda.memory_allocated()
+torch.cuda.reset_peak_memory_stats()
+update()
+torch.cuda.synchronize()
+out["hpl_update_peak_bytes_per_output_element"] = (
+    torch.cuda.max_memory_allocated() - before) / c22.numel()
+del l21, u12, c22
+torch.cuda.empty_cache()
 if with_ci:
     from ozimmu_tpu_torch import oracle
     oracle.lib()  # built before the clock starts
