@@ -53,7 +53,15 @@ counts set to 0 just before it and read just after:
     alpha / beta / c and the pre-sharded entry's budget re-check at 4096^3
     or below, each bitwise equal to the one-device ``gemm`` on every rank,
     with each rank's kernel launches; and the 8192^3 GEMM's peak memory
-    against the working-set model.
+    against the working-set model;
+  * the solvers' ``mesh=`` (row-sharded, each rank a process): HPL at
+    n = 16384 on a 1 x 1 mesh over NCCL with device and host panels,
+    bitwise equal to the one-device ``lu_factor`` and timed beside it;
+    then both kernels against their plain versions on the first step's
+    products at the shapes of each of four ranks, and real LU (host and
+    device panels), complex LU and Cholesky at n = 4096 on four ranks
+    sharing the card over gloo, against the one-device factor on the
+    card, with each rank's seconds, staged bytes and kernel launches.
 
 Any failed phase raises, and the script exits non-zero without printing a
 result.  It needs a CUDA GPU: without one it exits non-zero at once.  The
@@ -417,7 +425,7 @@ def main() -> int:
     print(f"[time] {label}: torch.matmul float64 {N}^3: {ms_dgemm:.3f} ms, "
           f"{2 * N**3 / ms_dgemm / 1e9:.3f} TFLOPS", flush=True)
 
-    # 8.-17. the rest of the public surface, each path counted on its own
+    # 8.-19. the rest of the public surface, each path counted on its own
     print(f"[wall] phases 1-7 (build, kernels vs plain, main path, timing): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     by_path = {"main": launches}
@@ -433,6 +441,7 @@ def main() -> int:
     by_path["bench"] = walled(phase_bench, label)
     by_path.update(walled(phase_solvers, ozt, label))
     by_path.update(walled(phase_parallel, ozt, label))
+    by_path.update(walled(phase_mesh_solvers, ozt, label))
 
     kernels = [
         {"name": "split_digits", "route": "cuda", "source": "ozimmu_tpu_torch/csrc/split.cu",
@@ -1043,9 +1052,15 @@ def first_step_kernel_checks(size: int, blk: int, complex_: bool) -> list:
     square), through :func:`kernels_equal_plain_on`; a complex product is
     four real ones on the planes."""
     ops = first_step_operands(size, blk, complex_)
-    products = (("U12 = L11inv @ A12", ops["l11inv"], ops["a12"]),
-                ("A22 -= L21 @ U12", ops["l21"], ops["u12"]),
-                ("last A22 -= L21 @ U12", ops["l21"][-blk:], ops["u12"][:, -blk:]))
+    return products_equal_plain((("U12 = L11inv @ A12", ops["l11inv"], ops["a12"]),
+                                 ("A22 -= L21 @ U12", ops["l21"], ops["u12"]),
+                                 ("last A22 -= L21 @ U12", ops["l21"][-blk:],
+                                  ops["u12"][:, -blk:])), complex_)
+
+
+def products_equal_plain(products, complex_: bool) -> list:
+    """:func:`kernels_equal_plain_on` for each ``(name, a, b)`` engine
+    product; a complex product is four real ones on the planes."""
     parts = (lambda t: (("re", t.real), ("im", t.imag))) if complex_ else (lambda t: (("", t),))
     done = []
     for name, x, y in products:
@@ -1610,6 +1625,291 @@ def phase_parallel(ozt, label) -> dict:
     # (c) the main path's GEMM against the memory model
     a, b = (torch.from_numpy(x).cuda() for x in _par_operands(N, 0))
     memory_against_model(f"gemm {N}^3", lambda: ozt.gemm(a, b, mode=f"fp64_int8_{NS}"), a, b)
+    return by_path
+
+
+# -- 19. the row-sharded solvers -----------------------------------------------
+#
+# ``linalg.lu_factor`` / ``cholesky`` with ``mesh=``, in rank processes of
+# ``ozimmu_tpu_torch.parallel.local`` as in phase 18: HPL at full size on a
+# 1 x 1 NCCL mesh, and real LU, complex LU and Cholesky on four ranks
+# sharing the card over gloo (rows over dim "x" of a 4 x 1 mesh).
+
+MESH_HPL = (16384, 1024)  # n, block
+MESH_GLOO = (4096, 512)
+
+
+def sharded_launches(n: int, block: int, p: int, rank: int, kind: str) -> dict:
+    """One rank's launches in a row-sharded factorization of an n x n
+    matrix over p ranks (blocks of ceil(n / p) rows): in every step that
+    has a trailing block, the step's root (the owner of its first row)
+    runs the U12 GEMM of LU, and a rank that owns trailing rows runs their
+    update (and for Cholesky, their panel solve first).  A real GEMM
+    launches split twice and recombine once, a complex one four times
+    each; at p = 1 this is :func:`step_launches`."""
+    h = -(-n // p)
+    hi = min((rank + 1) * h, n)
+    gemms = 0
+    for j in range(0, n - block, block):
+        owns_trailing = hi > j + block
+        gemms += 2 * owns_trailing if kind == "cholesky" else (j // h == rank) + owns_trailing
+    return {"split_digits": gemms * (4 if kind == "zlu" else 2),
+            "recombine": gemms * (4 if kind == "zlu" else 1)}
+
+
+def _timed(call):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def mesh_hpl_nccl(mesh) -> dict:
+    """(a) HPL n = 16384, block 1024, on a 1 x 1 mesh over NCCL, device and
+    host panels: the one-device and the sharded ``lu_factor`` of the same
+    matrix in turns (one-device, sharded, sharded, one-device), every
+    factor's bits and pivots against the first, the seconds of each and
+    the sharded call's launches."""
+    from ozimmu_tpu_torch import bench_cli, linalg
+
+    mode = f"fp64_int8_{NS}"
+    n, blk = MESH_HPL
+    warm = bench_cli._hpl_matrix(2048, 1, False, torch.device("cuda"))
+    for kw in ({}, {"mesh": mesh}):  # the engine's, cuSOLVER's and NCCL's set-up, untimed
+        linalg.lu_factor(warm, mode=mode, block=512, panel="device", **kw)
+    del warm
+    a = bench_cli._hpl_matrix(n, 0, False, torch.device("cuda"))
+    res = {}
+    for panel in ("device", "host"):
+        first, equal, seconds = None, True, {"one_device": [], "sharded": []}
+        for which in ("one_device", "sharded", "sharded", "one_device"):
+            kw = {"mesh": mesh, "mesh_axis": "x"} if which == "sharded" else {}
+            reset_launches()
+            t, (lu, piv) = _timed(lambda: linalg.lu_factor(a, mode=mode, block=blk, panel=panel,
+                                                           **kw))
+            seconds[which].append(t)
+            if which == "sharded":
+                res.update({f"{panel}_{k}": v for k, v in read_launches().items()})
+                res[f"{panel}_residual"] = pa_lu_residual(a, lu, piv)
+            if first is None:
+                first = (lu, piv)
+            else:
+                equal = equal and bits_equal(lu, first[0]) and bool(np.array_equal(piv, first[1]))
+            del lu
+        res.update({f"{panel}_equal": equal, f"{panel}_seconds_one_device": seconds["one_device"],
+                    f"{panel}_seconds_sharded": seconds["sharded"]})
+        del first
+        torch.cuda.empty_cache()
+    return res
+
+
+def _mesh_matrix(kind: str) -> torch.Tensor:
+    """The 4-rank cases' matrix, made alike on every rank from a seed:
+    uniform [-1, 1) (complex for "zlu"), for Cholesky made symmetric and
+    strictly diagonally dominant (SPD)."""
+    n = MESH_GLOO[0]
+    rng = np.random.default_rng(130)
+    a = rng.uniform(-1, 1, (n, n))
+    if kind == "zlu":
+        a = a + 1j * rng.uniform(-1, 1, (n, n))
+    if kind == "cholesky":
+        a = (a + a.T) / 2 + n * np.eye(n)
+    return torch.from_numpy(a).cuda()
+
+
+def mesh_step_kernel_checks() -> list:
+    """Both kernels against their plain versions, bit for bit, on the
+    engine products that the four ranks of (b) run in their first step
+    (n = 4096, block 512, blocks of 1024 rows), with the solver's own
+    operands (the cases' matrices, the first panel factored and swapped as
+    the step does it): LU's U12 = L11inv @ A12 on the root and the
+    trailing L21 @ U12 of rank 0's rows (512) and of rank 1's (1024), and
+    the last step's one-block update (rank 3), real and complex;
+    Cholesky's panel solve A21 @ inv(L11)^T and trailing L21 @ L21^T on
+    the rows of ranks 0 and 1."""
+    from ozimmu_tpu_torch import linalg
+
+    n, blk = MESH_GLOO
+    h = -(-n // 4)
+    done = []
+    for kind in ("lu", "zlu"):
+        a = _mesh_matrix(kind)
+        lu_p, p_loc, l11inv = linalg._factor_panel(a[:, :blk], 0, True, "host",
+                                                   linalg._Clock(None, a.device))
+        linalg._apply_panel_pivots(a, 0, p_loc, np.arange(n))
+        a[:, :blk] = lu_p
+        a12, l21 = a[:blk, blk:], a[blk:, :blk]
+        u12 = linalg._engine(l11inv, a12, NS)
+        done += products_equal_plain((
+            (f"{kind} U12 = L11inv @ A12", l11inv, a12),
+            (f"{kind} A22 -= L21 @ U12 rank 0", l21[:h - blk], u12),
+            (f"{kind} A22 -= L21 @ U12 rank 1", l21[h - blk:2 * h - blk], u12),
+            (f"{kind} last A22 -= L21 @ U12 rank 3", l21[-blk:], u12[:, -blk:])), kind == "zlu")
+    a = _mesh_matrix("cholesky")
+    _, inv_t = linalg._cholesky_diagonal(np.ascontiguousarray(a[:blk, :blk].cpu().numpy()), 0)
+    inv_t = torch.from_numpy(inv_t).cuda()
+    l21 = linalg.gemm_f64(a[blk:, :blk], inv_t, NS)
+    done += products_equal_plain((
+        ("cholesky L21 = A21 @ inv(L11)^T rank 0", a[blk:h, :blk], inv_t),
+        ("cholesky L21 = A21 @ inv(L11)^T rank 1", a[h:2 * h, :blk], inv_t),
+        ("cholesky A22 -= L21 @ L21^T rank 0", l21[:h - blk], l21.T),
+        ("cholesky A22 -= L21 @ L21^T rank 1", l21[h - blk:2 * h - blk], l21.T)), False)
+    return done
+
+
+def _mesh_gloo_case(kind: str, panel: str = "host"):
+    def case(mesh) -> dict:
+        """(b) One factorization on four ranks sharing the card: this rank's
+        seconds, staged bytes and launches, a digest of the factor, and
+        on rank 0 its pivots, bits and relative difference against the
+        one-device factor of the same matrix on the card, its residual and
+        a solve's scaled residual through it."""
+        import hashlib
+
+        import torch.distributed as dist
+        from ozimmu_tpu_torch import linalg
+        from ozimmu_tpu_torch.parallel import comm
+
+        mode, blk = f"fp64_int8_{NS}", MESH_GLOO[1]
+        a = _mesh_matrix(kind)
+        if kind == "cholesky":
+            def factor(**kw):
+                return linalg.cholesky(a, mode=mode, block=blk, **kw), None
+        else:
+            def factor(**kw):
+                return linalg.lu_factor(a, mode=mode, block=blk, panel=panel, **kw)
+        dist.barrier()
+        reset_launches()
+        comm.STAGED_BYTES = 0
+        t0 = time.perf_counter()
+        lu, piv = factor(mesh=mesh, mesh_axis="x")
+        torch.cuda.synchronize()
+        dist.barrier()
+        res = {"call_seconds": time.perf_counter() - t0, "call_staged_bytes": comm.STAGED_BYTES,
+               **read_launches()}
+        flat = torch.view_as_real(lu) if lu.is_complex() else lu
+        res["digest"] = hashlib.sha256(flat.cpu().numpy().tobytes() + (
+            b"" if piv is None else np.asarray(piv).tobytes())).hexdigest()
+        if dist.get_rank() == 0:
+            want, want_piv = factor()
+            res.update(same_piv=piv is None or bool(np.array_equal(piv, want_piv)),
+                       same_bits=bits_equal(flat, torch.view_as_real(want) if want.is_complex()
+                                            else want),
+                       rel=float((lu - want).abs().max() / want.abs().max()))
+            if kind == "cholesky":
+                res["residual"] = float(torch.linalg.norm(a - lu @ lu.T) / torch.linalg.norm(a))
+                x_true = torch.from_numpy(np.random.default_rng(131).standard_normal(a.shape[0]))
+                b = a @ x_true.cuda()
+                x = linalg.cho_solve(lu, b)
+            else:
+                res["residual"] = pa_lu_residual(a, lu, piv)
+                x_true = torch.from_numpy(np.random.default_rng(131).standard_normal(a.shape[0]))
+                b = a @ x_true.to(a.dtype).cuda()
+                x = linalg.lu_solve((lu, piv), b)
+            res["scaled_residual"] = float(torch.linalg.norm(b - a @ x) / (
+                torch.linalg.norm(a) * torch.linalg.norm(x) + torch.linalg.norm(b)))
+        return res
+    return case
+
+
+MESH_NCCL = {"hpl": mesh_hpl_nccl}
+MESH_GLOO_CASES = {
+    "lu": _mesh_gloo_case("lu"),
+    "lu_device_panels": _mesh_gloo_case("lu", "device"),
+    "zlu": _mesh_gloo_case("zlu"),
+    "cholesky": _mesh_gloo_case("cholesky"),
+}
+
+
+def phase_mesh_solvers(ozt, label) -> dict:
+    """19. The solvers' ``mesh=``: (a) HPL n = 16384 on a 1 x 1 mesh over
+    NCCL, bitwise equal to the one-device factor with device and with host
+    panels; (b) both kernels == plain bitwise on the engine products of
+    the first step of the 4-rank cases, at each rank's shapes
+    (:func:`mesh_step_kernel_checks`), then real LU (host and device
+    panels), complex LU and Cholesky at n = 4096 on four ranks sharing
+    the card over gloo, each held
+    against the one-device factor on the card (host panels and Cholesky
+    bitwise; device panels the same pivots and relative difference
+    < 1e-13), a solve through each factor to a scaled residual < 1e-14,
+    the same factor on every rank, every rank's launches equal to
+    :func:`sharded_launches`."""
+    from ozimmu_tpu_torch.parallel import local
+
+    here = os.path.abspath(__file__)
+    by_path = {}
+    torch.cuda.empty_cache()
+
+    # (a) HPL on one rank, NCCL
+    t0 = time.perf_counter()
+    ranks = local.run(f"{here}:MESH_NCCL", "1x1", nproc=1, device="cuda", timeout=600)
+    (res,) = _par_results(ranks, MESH_NCCL, "NCCL 1x1")["hpl"]
+    n, blk = MESH_HPL
+    want = sharded_launches(n, blk, 1, 0, "lu")
+    if want != step_launches(n, blk):
+        raise AssertionError(f"sharded_launches at p = 1 {want} != step_launches")
+    for panel in ("device", "host"):
+        got = {"split_digits": res[f"{panel}_split_digits"], "recombine": res[f"{panel}_recombine"]}
+        if not res[f"{panel}_equal"] or got != want or not res[f"{panel}_residual"] < 1e-14:
+            raise AssertionError(f"NCCL 1x1 HPL n={n} {panel} panels: equal "
+                                 f"{res[f'{panel}_equal']}, launches {got} (expected {want}), "
+                                 f"||PA-LU||/||A|| {res[f'{panel}_residual']:.3e}")
+        by_path[f"mesh_nccl_hpl_{panel}_panels"] = got
+        print(f"[mesh] NCCL, world size 1, 1x1 mesh: lu_factor(mesh=) HPL n={n} block={blk} "
+              f"fp64_int8_{NS} {panel} panels == one-device lu_factor bitwise (factor and "
+              f"pivots, both runs of each), ||PA-LU||/||A|| {res[f'{panel}_residual']:.3e}; "
+              f"launches {got}", flush=True)
+        sec = {k: list(res[f"{panel}_seconds_{k}"]) for k in ("one_device", "sharded")}
+        print(f"[time] {label}: HPL n={n} block={blk} {panel} panels, factor seconds in turns "
+              f"(one-device, sharded, sharded, one-device): one-device "
+              + ", ".join(f"{t:.4f}" for t in sec["one_device"]) + " s; row-sharded on a 1x1 "
+              "NCCL mesh " + ", ".join(f"{t:.4f}" for t in sec["sharded"]) + " s; sharded - "
+              f"one-device {sum(sec['sharded']) / 2 - sum(sec['one_device']) / 2:+.4f} s on the "
+              "means", flush=True)
+    print(f"[mesh] NCCL phase {time.perf_counter() - t0:.1f} s with the process start", flush=True)
+
+    # (b) four ranks sharing the card, gloo; first both kernels at their
+    # products' shapes and data, against the plain versions
+    done = mesh_step_kernel_checks()
+    torch.cuda.empty_cache()
+    print(f"[mesh] n={MESH_GLOO[0]} block={MESH_GLOO[1]} fp64_int8_{NS}, the 4-rank cases' "
+          f"first step: split (both operands) and recombine kernels == plain bitwise on "
+          f"{len(done)} products: " + "; ".join(done), flush=True)
+    t0 = time.perf_counter()
+    ranks = local.run(f"{here}:MESH_GLOO_CASES", "4x1", nproc=4, device="cuda", backend="gloo",
+                      timeout=600)
+    print(f"[mesh] 4 ranks over gloo on one card: {len(MESH_GLOO_CASES)} cases in "
+          f"{time.perf_counter() - t0:.1f} s with the process start", flush=True)
+    n, blk = MESH_GLOO
+    for name, per_rank in _par_results(ranks, MESH_GLOO_CASES, "gloo 4 ranks").items():
+        r0 = per_rank[0]
+        kind = name.split("_")[0]
+        wants = [sharded_launches(n, blk, 4, r, kind) for r in range(4)]
+        gots = [{"split_digits": r["split_digits"], "recombine": r["recombine"]} for r in per_rank]
+        exact = name != "lu_device_panels"
+        ok = (r0["same_piv"] and (r0["same_bits"] if exact else r0["rel"] < 1e-13)
+              and r0["scaled_residual"] < 1e-14
+              and len({r["digest"] for r in per_rank}) == 1 and gots == wants
+              and min(g["recombine"] for g in gots) > 0)
+        if not ok:
+            raise AssertionError(f"gloo {name} n={n}: {r0}, per-rank launches {gots} (expected "
+                                 f"{wants}), {len({r['digest'] for r in per_rank})} digests")
+        by_path[f"mesh_gloo_{name}"] = gots[0]
+        bits = "equal" if r0["same_bits"] else "differ"
+        print(f"[mesh] gloo {name} n={n} block={blk}: "
+              + ("== one-device factor on the card bitwise" if exact else
+                 f"same pivots as the one-device factor, bits {bits}")
+              + f", max rel diff {r0['rel']:.3e}, ||PA-LU||/||A|| (||A-LL^T||/||A||) "
+              f"{r0['residual']:.3e}, a solve's scaled residual {r0['scaled_residual']:.3e} "
+              f"(< 1e-14); the same factor on all 4 ranks; per-rank "
+              f"launches (split, recombine) "
+              + ", ".join(f"({g['split_digits']}, {g['recombine']})" for g in gots), flush=True)
+        print(f"[time] {label}: 4 ranks sharing one card, collectives through host memory, NOT a "
+              f"scaling figure: {name} n={n}: per-rank seconds "
+              + ", ".join(f"{r['call_seconds']:.3f}" for r in per_rank)
+              + "; staged MiB per rank " + ", ".join(
+                  f"{r['call_staged_bytes'] / 2**20:.1f}" for r in per_rank), flush=True)
     return by_path
 
 

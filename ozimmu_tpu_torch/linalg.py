@@ -28,7 +28,9 @@ Two paths, chosen by ``resident=`` (default: by the container of ``a``):
     the recombine kernel.  ``panel="host"`` pulls each pivot panel to the
     host for LAPACK ``getrf``; ``panel="device"`` factors it where it lies
     with ``torch.linalg.lu_factor_ex``.  Needs a fixed ``fp64_int8_<ns>``
-    mode.
+    mode.  With ``mesh=`` it runs row-sharded over a ``DeviceMesh``
+    dim, every rank updating its own rows
+    (:mod:`ozimmu_tpu_torch.parallel.linalg`).
 
 The JAX package's ``device=`` flag is ``resident=`` here: in this package
 ``device=`` names the torch device that numpy inputs are placed on.
@@ -213,23 +215,28 @@ def _engine(a: torch.Tensor, b: torch.Tensor, num_split: int, alpha: float = 1.0
     return gemm_f64(a, b, num_split, alpha=alpha, beta=beta, c=c)
 
 
-def _apply_panel_pivots(A: torch.Tensor, j: int, p_loc: np.ndarray, piv: np.ndarray) -> None:
-    """Record a panel's getrf pivots in ``piv`` and apply its sequential
-    row swaps ``j+i <-> j+p_loc[i]`` across the FULL width of ``A`` (getrf
-    convention: the already-computed L history and the trailing columns
-    swap together).  Only the rows that move are gathered and written."""
-    rows = A.shape[0] - j
-    perm = np.arange(rows)
+def _panel_moves(j: int, n: int, p_loc: np.ndarray, piv: np.ndarray):
+    """Record a panel's getrf pivots in ``piv`` and return the rows its
+    sequential swaps ``j+i <-> j+p_loc[i]`` move, as ``(dst, src)``: row
+    ``dst[t]`` of the n-row matrix takes what row ``src[t]`` held."""
+    perm = np.arange(n - j)
     for i, p in enumerate(p_loc):
         p = int(p)
         piv[j + i] = j + p
         if p != i:
             perm[[i, p]] = perm[[p, i]]
-    moved = np.flatnonzero(perm != np.arange(rows))
-    if moved.size:
-        dst = torch.from_numpy(j + moved).to(A.device)
-        src = torch.from_numpy(j + perm[moved]).to(A.device)
-        A[dst] = A[src]  # the gather is materialised before the write
+    moved = np.flatnonzero(perm != np.arange(n - j))
+    return j + moved, j + perm[moved]
+
+
+def _apply_panel_pivots(A: torch.Tensor, j: int, p_loc: np.ndarray, piv: np.ndarray) -> None:
+    """Record a panel's getrf pivots in ``piv`` and apply its row swaps
+    across the FULL width of ``A`` (getrf convention: the already-computed
+    L history and the trailing columns swap together).  Only the rows that
+    move are gathered and written."""
+    dst, src = _panel_moves(j, A.shape[0], p_loc, piv)
+    if dst.size:
+        A[torch.from_numpy(dst).to(A.device)] = A[torch.from_numpy(src).to(A.device)]
 
 
 @contextlib.contextmanager
@@ -290,10 +297,60 @@ def _lu_step_device(A: torch.Tensor, j: int, jb: int, num_split: int, lu_panel: 
         A[rest:, rest:] = _engine(A[rest:, j:rest], u12, num_split, -1.0, 1.0, A[rest:, rest:])
 
 
-def _add_seconds(profile: dict, key: str, t0: float) -> float:
-    now = time.perf_counter()
-    profile[key] = profile.get(key, 0.0) + (now - t0)
-    return now
+class _Clock:
+    """Per-phase seconds into ``profile`` (a dict that accumulates them;
+    None: no timing and no waits for the device)."""
+
+    def __init__(self, profile, device: torch.device):
+        self.profile, self.device, self.t = profile, device, 0.0
+
+    def start(self) -> None:
+        if self.profile is not None:
+            synchronize(self.device)
+            self.t = time.perf_counter()
+
+    def lap(self, key: str, wait: bool = False) -> None:
+        """Add the seconds since the last start or lap to ``key``, after
+        waiting for the device if ``wait``."""
+        if self.profile is not None:
+            if wait:
+                synchronize(self.device)
+            now = time.perf_counter()
+            self.profile[key] = self.profile.get(key, 0.0) + (now - self.t)
+            self.t = now
+
+
+def _factor_panel(pnl: torch.Tensor, j: int, inverse: bool, panel: str, clock: _Clock):
+    """Partial-pivot LU of the (rows x jb) panel ``pnl`` whose first column
+    is column ``j`` of the matrix; ``pnl`` is left untouched.  Returns
+    ``(lu_p, p_loc, l11inv)``: the factored panel on ``pnl``'s device, the
+    0-based LOCAL getrf pivots as a numpy array, and, if ``inverse``, the
+    inverse of the unit-lower diagonal block L11 there (else None).
+    ``panel="host"`` pulls the panel to the host for LAPACK ``getrf``
+    (phases ``panel_pull_s``, ``panel_host_s``); ``"device"`` factors it
+    where it lies (``panel_device_s``).  Raises ``LinAlgError`` on an
+    exactly zero pivot."""
+    dev = pnl.device
+    jb = pnl.shape[1]
+    if panel == "host":
+        host = np.ascontiguousarray(pnl.cpu().numpy())
+        clock.lap("panel_pull_s")
+        lu_p, p_loc = _panel_factor_local(host, col_offset=j)
+        l11inv = None
+        if inverse:
+            l11inv = torch.from_numpy(
+                _unit_lower_solve(lu_p[:jb, :jb], np.eye(jb, dtype=lu_p.dtype))).to(dev)
+        lu_p = torch.from_numpy(lu_p).to(dev)
+        clock.lap("panel_host_s")
+        return lu_p, p_loc, l11inv
+    lu_p, p_dev, info = _panel_factor_device(pnl)
+    # one read per step: the jb pivots and getrf's info
+    head = torch.cat([p_dev, info.reshape(1).to(torch.int64)]).cpu().numpy()
+    if head[-1] != 0:
+        raise np.linalg.LinAlgError("singular matrix: zero pivot")
+    l11inv = _unit_lower_inverse_device(lu_p[:jb]) if inverse else None
+    clock.lap("panel_device_s", wait=True)
+    return lu_p, head[:jb], l11inv
 
 
 def _lu_factor_device(a: torch.Tensor, num_split: int, block: int, profile=None,
@@ -305,11 +362,19 @@ def _lu_factor_device(a: torch.Tensor, num_split: int, block: int, profile=None,
     ``panel_device_s`` and ``device_update_s`` with device panels.
     Profiling waits for the device at the phase edges, so leave it None
     for wall timing."""
+    _check_panel(panel)
+    with _panel_backend(a.device, panel):
+        return _lu_factor_steps(a, num_split, block, profile, panel)
+
+
+def _check_panel(panel: str) -> None:
     if panel not in ("host", "device"):
         raise ValueError(f"panel must be 'host' or 'device', got {panel!r}")
-    backend = _cusolver_preferred(a.device) if panel == "device" else contextlib.nullcontext()
-    with backend:
-        return _lu_factor_steps(a, num_split, block, profile, panel)
+
+
+def _panel_backend(device: torch.device, panel: str):
+    """The context of a whole factorization with ``panel`` panels."""
+    return _cusolver_preferred(device) if panel == "device" else contextlib.nullcontext()
 
 
 def _lu_factor_steps(a: torch.Tensor, num_split: int, block: int, profile, panel: str):
@@ -317,43 +382,28 @@ def _lu_factor_steps(a: torch.Tensor, num_split: int, block: int, profile, panel
     n = a.shape[0]
     nb = max(1, min(int(block), n))
     A = a.clone(memory_format=torch.contiguous_format)
-    dev = A.device
+    clock = _Clock(profile, A.device)
     piv = np.arange(n)
     for j in range(0, n, nb):
         jb = min(nb, n - j)
-        rest = j + jb
-        if profile is not None:
-            synchronize(dev)
-            t = time.perf_counter()
-        if panel == "host":
-            pnl = np.ascontiguousarray(A[j:, j:rest].cpu().numpy())
-            if profile is not None:
-                t = _add_seconds(profile, "panel_pull_s", t)
-            lu_p, p_loc = _panel_factor_local(pnl, col_offset=j)
-            l11inv = None
-            if rest < n:
-                l11inv = torch.from_numpy(
-                    _unit_lower_solve(lu_p[:jb, :jb], np.eye(jb, dtype=lu_p.dtype))).to(dev)
-            lu_p = torch.from_numpy(lu_p).to(dev)
-            if profile is not None:
-                t = _add_seconds(profile, "panel_host_s", t)
-        else:
-            lu_p, p_dev, info = _panel_factor_device(A[j:, j:rest])
-            # one read per step: the jb pivots and getrf's info
-            head = torch.cat([p_dev, info.reshape(1).to(torch.int64)]).cpu().numpy()
-            if head[-1] != 0:
-                raise np.linalg.LinAlgError("singular matrix: zero pivot")
-            p_loc = head[:jb]
-            l11inv = _unit_lower_inverse_device(lu_p[:jb]) if rest < n else None
-            if profile is not None:
-                synchronize(dev)
-                t = _add_seconds(profile, "panel_device_s", t)
+        clock.start()
+        lu_p, p_loc, l11inv = _factor_panel(A[j:, j:j + jb], j, j + jb < n, panel, clock)
         _apply_panel_pivots(A, j, p_loc, piv)
         _lu_step_device(A, j, jb, num_split, lu_p, l11inv)
-        if profile is not None:
-            synchronize(dev)
-            _add_seconds(profile, "device_update_s", t)
+        clock.lap("device_update_s", wait=True)
     return A, piv
+
+
+def _cholesky_diagonal(d: np.ndarray, j: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``(L11, inv(L11)^T)`` of the diagonal block ``d`` at column ``j``,
+    in host f64; raises ``LinAlgError`` if it is not positive definite."""
+    try:
+        l11 = np.linalg.cholesky(d)
+    except np.linalg.LinAlgError as e:
+        raise np.linalg.LinAlgError(
+            f"matrix is not positive definite (diagonal block at {j})"
+        ) from e
+    return l11, np.ascontiguousarray(_lower_inverse(l11).T)
 
 
 def _cholesky_device(a: torch.Tensor, num_split: int, block: int, profile=None) -> torch.Tensor:
@@ -366,31 +416,20 @@ def _cholesky_device(a: torch.Tensor, num_split: int, block: int, profile=None) 
     nb = max(1, min(int(block), n))
     A = a.clone(memory_format=torch.contiguous_format)
     dev = A.device
+    clock = _Clock(profile, dev)
     for j in range(0, n, nb):
         jb = min(nb, n - j)
         rest = j + jb
-        if profile is not None:
-            synchronize(dev)
-            t = time.perf_counter()
-        d = np.ascontiguousarray(A[j:rest, j:rest].cpu().numpy())
-        try:
-            l11 = np.linalg.cholesky(d)
-        except np.linalg.LinAlgError as e:
-            raise np.linalg.LinAlgError(
-                f"matrix is not positive definite (diagonal block at {j})"
-            ) from e
-        inv_t = np.ascontiguousarray(_lower_inverse(l11).T)
-        if profile is not None:
-            t = _add_seconds(profile, "panel_host_s", t)
+        clock.start()
+        l11, inv_t = _cholesky_diagonal(np.ascontiguousarray(A[j:rest, j:rest].cpu().numpy()), j)
+        clock.lap("panel_host_s")
         A[j:rest, j:rest] = torch.from_numpy(l11).to(dev)
         if rest < n:
             l21 = gemm_f64(A[rest:, j:rest], torch.from_numpy(inv_t).to(dev), num_split)
             A[rest:, j:rest] = l21
             A[rest:, rest:] = gemm_f64(l21, l21.T, num_split, alpha=-1.0, beta=1.0,
                                        c=A[rest:, rest:])
-        if profile is not None:
-            synchronize(dev)
-            _add_seconds(profile, "device_update_s", t)
+        clock.lap("device_update_s", wait=True)
     return torch.tril(A)
 
 
@@ -411,18 +450,15 @@ def _resolve_int8_num_split(mode, handle) -> int:
 def _resident_operand(a, name: str, resident: Optional[bool], mesh, handle, device):
     """Shared front door of :func:`lu_factor` and :func:`cholesky`:
     ``(resident, a)`` where ``a`` is, on the resident path, a square
-    float64 or complex128 tensor (a numpy ``a`` placed on ``device``,
-    default the handle's)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{name}(mesh=...), the row-sharded resident factorization over "
-            "ozimmu_tpu_torch.parallel, is not ported yet: it is the next slice (ROADMAP.md "
-            "queue 1, step 17)"
-        )
+    float64 or complex128 tensor: a numpy ``a`` placed on ``device``
+    (default the handle's), or left in host memory with a ``mesh``, whose
+    ranks each take their rows to the mesh's device."""
     is_tensor = isinstance(a, torch.Tensor)
     if resident is None:
-        resident = is_tensor
+        resident = is_tensor or mesh is not None
     if not resident:
+        if mesh is not None:
+            raise ValueError(f"{name}: a mesh requires the resident path (resident=True)")
         if is_tensor:
             raise ValueError(
                 f"{name}: a tensor is factored where it lies (resident=True); pass a numpy "
@@ -440,8 +476,10 @@ def _resident_operand(a, name: str, resident: Optional[bool], mesh, handle, devi
         raise ValueError(f"{name} needs a square 2D matrix, got {shape}")
     if not is_tensor:
         dt = np.complex128 if np.iscomplexobj(a) else np.float64
-        dev = torch.device(device if device is not None else (handle or default_handle()).device)
-        a = torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).to(dev)
+        a = torch.from_numpy(np.ascontiguousarray(a, dtype=dt))
+        if mesh is None:
+            a = a.to(torch.device(device if device is not None else
+                                  (handle or default_handle()).device))
     return True, a
 
 
@@ -493,16 +531,27 @@ def lu_factor(
     reaches the host; ``"host"`` (default) keeps LAPACK panels.
     ``profile`` (dict) collects per-phase seconds on the resident path.
 
-    ``mesh`` / ``mesh_axis`` (the row-sharded factorization) belong to the
-    distributed layer, which is not ported yet: a mesh raises
-    ``NotImplementedError``.
+    ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``) row-shards
+    the resident factorization over its dim ``mesh_axis``
+    (:mod:`ozimmu_tpu_torch.parallel.linalg`): every rank of the mesh
+    calls this with the same matrix and gets the same result; each holds
+    a block of rows on the mesh's device and runs the trailing updates of
+    its rows.  With host panels the factor is bitwise the one-device one;
+    with device panels one rank factors each panel as the one-device run
+    does, so the pivots are the same (and so are the bits wherever the
+    panel library is deterministic, as on the CPU and an H100).  Implies
+    ``resident=True``; ``device`` is then the mesh's.
     """
-    del mesh_axis  # only meaningful with a mesh
     is_tensor = isinstance(a, torch.Tensor)
     resident, a = _resident_operand(a, "lu_factor", resident, mesh, handle, device)
     if resident:
-        lu, piv = _lu_factor_device(a, _resolve_int8_num_split(mode, handle), block, profile,
-                                    panel)
+        num_split = _resolve_int8_num_split(mode, handle)
+        if mesh is not None:
+            from .parallel.linalg import lu_factor_sharded
+
+            lu, piv = lu_factor_sharded(a, num_split, block, mesh, mesh_axis, panel, profile)
+        else:
+            lu, piv = _lu_factor_device(a, num_split, block, profile, panel)
         return (lu, piv) if is_tensor else (_to_numpy(lu), piv)
 
     a = np.array(a, order="C", copy=True)
@@ -565,10 +614,10 @@ def cholesky(
     ``torch.Tensor``; tensor in -> tensor out): real SPD only, a fixed
     int8 mode, only the jb x jb diagonal block crosses to the host per
     step, and the panel solve is an engine GEMM too.  ``device`` places
-    numpy inputs as in :func:`lu_factor`; a ``mesh`` raises
-    ``NotImplementedError`` until the distributed layer is ported.
+    numpy inputs as in :func:`lu_factor`; ``mesh`` / ``mesh_axis``
+    row-shard the resident factorization as there (bitwise the one-device
+    factor).
     """
-    del mesh_axis  # only meaningful with a mesh
     is_tensor = isinstance(a, torch.Tensor)
     resident, a = _resident_operand(a, "cholesky", resident, mesh, handle, device)
     if resident:
@@ -578,7 +627,12 @@ def cholesky(
                 "resident cholesky is real-only; complex HPD "
                 "input runs the host path (resident=False)"
             )
-        l = _cholesky_device(a, num_split, block, profile)
+        if mesh is not None:
+            from .parallel.linalg import cholesky_sharded
+
+            l = cholesky_sharded(a, num_split, block, mesh, mesh_axis, profile)
+        else:
+            l = _cholesky_device(a, num_split, block, profile)
         return l if is_tensor else _to_numpy(l)
 
     a = np.array(a, order="C", copy=True)
@@ -754,7 +808,8 @@ def solve(
     rounding floor and ``refine=0`` suffices.
 
     Pass ``factor=(lu, piv)`` (from :func:`lu_factor`) to reuse an
-    existing factorization across solves.
+    existing factorization across solves, a row-sharded one
+    (``lu_factor(a, mesh=...)``) included.
 
     With a tensor ``a`` (float64 or complex128) the factorization runs
     resident and the refinement residual is computed through the engine at

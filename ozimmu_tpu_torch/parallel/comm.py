@@ -15,6 +15,10 @@ The port's counterparts of the ``jax.lax`` collectives that
   ``lax.axis_index``                   :func:`axis_index`
   ===================================  ======================================
 
+and :func:`broadcast` and :func:`exchange` (point-to-point messages of
+any shape, for the row-sharded solvers of :mod:`.linalg`, whose
+collectives XLA's partitioner inserts in the JAX package).
+
 Every rank of the mesh dim's process group calls each of them, as every
 device runs a ``shard_map`` body.  A mesh dim is named as in the JAX
 package (``"x"``, ``"y"``, ``"k"``).
@@ -28,7 +32,7 @@ backend, never taken because NCCL failed.
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -154,3 +158,29 @@ def ppermute(x: torch.Tensor, mesh, axis: str, perm: Sequence[Tuple[int, int]]) 
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return _back(recv, x) if staged else recv
+
+
+def exchange(sends: Dict[int, torch.Tensor], recv_shapes: Dict[int, Tuple[int, ...]],
+             like: torch.Tensor, mesh, axis: str) -> Dict[int, torch.Tensor]:
+    """Point-to-point messages along ``axis``: this rank sends
+    ``sends[d]`` to coordinate ``d`` and receives from each coordinate
+    ``s`` of ``recv_shapes`` a tensor of that shape, with the dtype and on
+    the device of ``like``; returns ``{s: received}``.  Both ends of a
+    message take part in the same call, a rank with nothing to send or
+    receive may skip it, and no rank messages itself."""
+    if not sends and not recv_shapes:
+        return {}
+    group = mesh.get_group(axis)
+    staged = _staged(group, like)
+    ops: List[dist.P2POp] = []
+    for d, x in sends.items():
+        x = x.contiguous()
+        ops.append(dist.P2POp(dist.isend, _host(x) if staged else x,
+                              dist.get_global_rank(group, d), group=group))
+    got = {}
+    for s, shape in recv_shapes.items():
+        got[s] = torch.empty(shape, dtype=like.dtype, device="cpu" if staged else like.device)
+        ops.append(dist.P2POp(dist.irecv, got[s], dist.get_global_rank(group, s), group=group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return {s: _back(x, like) if staged else x for s, x in got.items()}

@@ -30,7 +30,10 @@ call of :mod:`.comm` on one mesh dim's process group.  The host wrappers
 (:func:`sharded_gemm`, :func:`sharded_gemm_k`, :func:`sharded_gemm_auto`)
 are called by every rank with the same global operands; each rank takes
 its block, and every rank returns the same global result.  The
-pre-sharded entries take and return ``DTensor`` s.
+pre-sharded entries take and return ``DTensor`` s.  Every host wrapper
+and pre-sharded entry plans inside :func:`device_share`: where ranks
+share a card (or the host's memory), each sizes its variant, column
+panels and epilogue blocks from its share of it.
 
 The epilogue is ``core.gemm._epilogue_SE`` itself (and the complex fold
 ``_zfold_passes``): elementwise, so applying it per block keeps every
@@ -43,7 +46,9 @@ recombine kernel folds straight to the triple and keeps no int32 totals.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -55,7 +60,7 @@ from ..core.gemm import ZGEMM_PASSES, _epilogue_SE, _exponent_plane, _zfold_pass
 from ..ops.mantissa_loss import loss_totals_with_group_exp, select_mode_from_totals
 from ..ops.recombine import acc_shift, fold_group_totals, group_totals, recombine
 from ..ops.split import row_exponent, split_with_exp
-from ..schedule import BYTES_PER_OUTPUT_ELEMENT, bits_per_int8, hbm_budget_bytes
+from ..schedule import BYTES_PER_OUTPUT_ELEMENT, bits_per_int8, hbm_budget_bytes, shared_device
 from ..types import ComputeMode, Operation
 from . import comm
 
@@ -506,6 +511,47 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+#: (the mesh's process groups, this rank's memory) -> ranks_sharing_device
+_SHARER_COUNTS = {}
+
+
+def ranks_sharing_device(mesh) -> int:
+    """How many ranks of ``mesh`` keep their blocks in the memory that this
+    rank uses: those on this host with the same card, or all of this
+    host's ranks for host memory.  Collective over every mesh dim the
+    first time a mesh's groups are seen, then cached."""
+    import socket
+
+    import torch.distributed as dist
+
+    dev = mesh_device(mesh)
+    card = str(getattr(torch.cuda.get_device_properties(dev), "uuid", dev.index)) if (
+        dev.type == "cuda") else dev.type
+    me = (socket.gethostname(), card)
+    key = (tuple(mesh.get_group(name) for name in mesh.mesh_dim_names), me)
+    if key not in _SHARER_COUNTS:
+        seen = [me]
+        for name in mesh.mesh_dim_names:
+            parts = [None] * comm.axis_size(mesh, name)
+            dist.all_gather_object(parts, seen, group=mesh.get_group(name))
+            seen = [x for part in parts for x in part]
+        _SHARER_COUNTS[key] = seen.count(me)
+    return _SHARER_COUNTS[key]
+
+
+def device_share(mesh):
+    """The context of this rank's part of a call on ``mesh``: inside it
+    the default memory budget (``schedule.hbm_budget_bytes``, which sizes
+    the variant, the column panels and the epilogue's row blocks) is this
+    rank's share of the memory that ranks of the mesh share
+    (``schedule.shared_device``).  Every entry of the layer that plans
+    with the budget runs in it.  ``OZIMMU_HBM_BUDGET_MB`` is a budget per
+    process already: under it nothing is counted."""
+    if os.environ.get("OZIMMU_HBM_BUDGET_MB"):
+        return contextlib.nullcontext()
+    return shared_device(ranks_sharing_device(mesh))
+
+
 def _block(x: torch.Tensor, mesh, row_axis: Optional[str], col_axis: Optional[str]):
     """This rank's block of the global ``x``: rows split along
     ``row_axis``, columns along ``col_axis`` (None: not split), on the
@@ -629,8 +675,9 @@ def sharded_gemm(a, b, num_split: int, mesh, axis_x: str = "x", axis_y: str = "y
     padded k (what the engine contracts over)."""
     if variant is None:
         variant = "ring" if ring else "summa"
-    return _sharded_2d(*_global_operands(a, b, c, op_a, op_b), num_split, mesh, axis_x, axis_y,
-                       variant, alpha, beta)
+    with device_share(mesh):
+        return _sharded_2d(*_global_operands(a, b, c, op_a, op_b), num_split, mesh, axis_x,
+                           axis_y, variant, alpha, beta)
 
 
 def _sharded_2d(is_np: bool, a, b, c, complex_: bool, num_split: int, mesh, axis_x: str,
@@ -657,7 +704,9 @@ def sharded_gemm_k(a, b, num_split: int, mesh=None, axis_k: str = "k", alpha=1.0
     :func:`sharded_zgemm_k_fn`."""
     if mesh is None:
         mesh = _mesh_1d("cuda", axis_k)
-    return _sharded_k(*_global_operands(a, b, c, "N", "N"), num_split, mesh, axis_k, alpha, beta)
+    with device_share(mesh):
+        return _sharded_k(*_global_operands(a, b, c, "N", "N"), num_split, mesh, axis_k, alpha,
+                          beta)
 
 
 def _sharded_k(is_np: bool, a, b, c, complex_: bool, num_split: int, mesh, axis_k: str, alpha,
@@ -766,29 +815,31 @@ def sharded_gemm_auto(a, b, num_split="auto", mesh=None, axis_x: str = "x", axis
 
     if mesh is None:
         mesh = make_mesh_2d()
-    is_np, a, b, c, complex_ = _global_operands(a, b, c, op_a, op_b)
-    (m, k), n = a.shape, b.shape[1]
-    if isinstance(num_split, str):
-        num_split = ComputeMode(num_split if "_" in num_split else f"fp64_int8_{num_split}")
-    if num_split is ComputeMode.FP64_INT8_AUTO:
-        sel = sharded_auto_mode_select(a, b, mesh, threshold, axis_x, axis_y)
-        log(f"AUTO selected mode = {sel.value} (distributed)")
-        if sel is ComputeMode.DGEMM:
-            if beta != 0 and c is None:
-                raise ValueError("beta != 0 requires c")
-            return _sharded_dgemm_native(is_np, a, b, c, mesh, axis_x, axis_y, alpha, beta)
-        num_split = sel.num_split
-    elif isinstance(num_split, ComputeMode):
-        num_split = num_split.num_split
+    with device_share(mesh):
+        is_np, a, b, c, complex_ = _global_operands(a, b, c, op_a, op_b)
+        (m, k), n = a.shape, b.shape[1]
+        if isinstance(num_split, str):
+            num_split = ComputeMode(num_split if "_" in num_split else f"fp64_int8_{num_split}")
+        if num_split is ComputeMode.FP64_INT8_AUTO:
+            sel = sharded_auto_mode_select(a, b, mesh, threshold, axis_x, axis_y)
+            log(f"AUTO selected mode = {sel.value} (distributed)")
+            if sel is ComputeMode.DGEMM:
+                if beta != 0 and c is None:
+                    raise ValueError("beta != 0 requires c")
+                return _sharded_dgemm_native(is_np, a, b, c, mesh, axis_x, axis_y, alpha, beta)
+            num_split = sel.num_split
+        elif isinstance(num_split, ComputeMode):
+            num_split = num_split.num_split
 
-    budget = hbm_budget_bytes(mesh_device(mesh))
-    if not is_np:
-        budget -= _result_device_bytes(m, n, complex_)
-    v = select_variant(m, n, k, num_split, mesh, axis_x, axis_y, complex_, budget)
-    if v == "k":
-        kmesh = _mesh_1d(mesh.device_type, "k", mesh.mesh)
-        return _sharded_k(is_np, a, b, c, complex_, num_split, kmesh, "k", alpha, beta)
-    return _sharded_2d(is_np, a, b, c, complex_, num_split, mesh, axis_x, axis_y, v, alpha, beta)
+        budget = hbm_budget_bytes(mesh_device(mesh))
+        if not is_np:
+            budget -= _result_device_bytes(m, n, complex_)
+        v = select_variant(m, n, k, num_split, mesh, axis_x, axis_y, complex_, budget)
+        if v == "k":
+            kmesh = _mesh_1d(mesh.device_type, "k", mesh.mesh)
+            return _sharded_k(is_np, a, b, c, complex_, num_split, kmesh, "k", alpha, beta)
+        return _sharded_2d(is_np, a, b, c, complex_, num_split, mesh, axis_x, axis_y, v, alpha,
+                           beta)
 
 
 #: variant name -> (real body factory, complex body factory); every entry
@@ -890,14 +941,15 @@ def sharded_gemm_presharded(a, b, num_split: int, mesh, axis_x: str = "x", axis_
     if beta != 0 and c is None:
         raise ValueError("beta != 0 requires c")
     _check_presharded_divisible(m, n, k, comm.axis_size(mesh, axis_x), comm.axis_size(mesh, axis_y))
-    if variant is None:
-        variant = _presharded_variant(m, n, k, num_split, mesh, axis_x, axis_y, False)
-    if variant not in _VARIANT_FNS:
-        raise ValueError(f"variant must be one of {sorted(_VARIANT_FNS)}, got {variant!r}")
-    local = lambda x, nm: _presharded_local(x, nm, mesh, axis_x, axis_y)  # noqa: E731
-    fn = _VARIANT_FNS[variant][0](mesh, num_split, k, axis_x, axis_y, float(alpha), float(beta))
-    out = fn(local(a, "a"), local(b, "b"), local(c, "c") if beta != 0 else None)
-    return _as_dtensor(out, mesh, axis_x, axis_y, (m, n))
+    with device_share(mesh):
+        if variant is None:
+            variant = _presharded_variant(m, n, k, num_split, mesh, axis_x, axis_y, False)
+        if variant not in _VARIANT_FNS:
+            raise ValueError(f"variant must be one of {sorted(_VARIANT_FNS)}, got {variant!r}")
+        local = lambda x, nm: _presharded_local(x, nm, mesh, axis_x, axis_y)  # noqa: E731
+        fn = _VARIANT_FNS[variant][0](mesh, num_split, k, axis_x, axis_y, float(alpha), float(beta))
+        out = fn(local(a, "a"), local(b, "b"), local(c, "c") if beta != 0 else None)
+        return _as_dtensor(out, mesh, axis_x, axis_y, (m, n))
 
 
 def sharded_zgemm_presharded(a_re, a_im, b_re, b_im, num_split: int, mesh, axis_x: str = "x",
@@ -917,20 +969,22 @@ def sharded_zgemm_presharded(a_re, a_im, b_re, b_im, num_split: int, mesh, axis_
     if beta != 0 and c_re is None:
         raise ValueError("beta != 0 requires c")
     _check_presharded_divisible(m, n, k, comm.axis_size(mesh, axis_x), comm.axis_size(mesh, axis_y))
-    if variant is None:
-        variant = _presharded_variant(m, n, k, num_split, mesh, axis_x, axis_y, True)
-    if variant not in _VARIANT_FNS:
-        raise ValueError(f"variant must be one of {sorted(_VARIANT_FNS)}, got {variant!r}")
-    local = lambda x, nm: _presharded_local(x, nm, mesh, axis_x, axis_y)  # noqa: E731
-    ops = [local(a_re, "a_re"), local(a_im, "a_im"), local(b_re, "b_re"), local(b_im, "b_im")]
-    if conj_a:
-        ops[1] = torch.neg(ops[1])
-    if conj_b:
-        ops[3] = torch.neg(ops[3])
-    if beta != 0:
-        ops += [local(c_re, "c_re"), local(c_im, "c_im")]
-    fn = _VARIANT_FNS[variant][1](mesh, num_split, k, axis_x, axis_y, complex(alpha), complex(beta))
-    re, im = fn(*ops)
+    with device_share(mesh):
+        if variant is None:
+            variant = _presharded_variant(m, n, k, num_split, mesh, axis_x, axis_y, True)
+        if variant not in _VARIANT_FNS:
+            raise ValueError(f"variant must be one of {sorted(_VARIANT_FNS)}, got {variant!r}")
+        local = lambda x, nm: _presharded_local(x, nm, mesh, axis_x, axis_y)  # noqa: E731
+        ops = [local(a_re, "a_re"), local(a_im, "a_im"), local(b_re, "b_re"), local(b_im, "b_im")]
+        if conj_a:
+            ops[1] = torch.neg(ops[1])
+        if conj_b:
+            ops[3] = torch.neg(ops[3])
+        if beta != 0:
+            ops += [local(c_re, "c_re"), local(c_im, "c_im")]
+        fn = _VARIANT_FNS[variant][1](mesh, num_split, k, axis_x, axis_y, complex(alpha),
+                                      complex(beta))
+        re, im = fn(*ops)
     return (_as_dtensor(re, mesh, axis_x, axis_y, (m, n)),
             _as_dtensor(im, mesh, axis_x, axis_y, (m, n)))
 

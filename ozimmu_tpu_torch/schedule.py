@@ -23,6 +23,7 @@ order, which is what keeps them bitwise equal.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -194,13 +195,33 @@ def working_set_bytes_chunked(
 #: is headroom for the caching allocator's slack.
 _BUDGET_SHARE = 0.6
 
+#: processes that hold their data in this process's device memory, set
+#: for the length of a call by :func:`shared_device`
+_SHARERS = 1
+
+
+@contextlib.contextmanager
+def shared_device(count: int):
+    """Inside the block the default budget of :func:`hbm_budget_bytes` is
+    this process's share of the device: 1 / ``count`` of it.  Several rank
+    processes of a mesh can share one card (over gloo) or the host's
+    memory; each sizes its working sets and epilogue blocks from its
+    share.  Process-wide, as the device memory it divides."""
+    global _SHARERS
+    saved, _SHARERS = _SHARERS, max(1, int(count))
+    try:
+        yield
+    finally:
+        _SHARERS = saved
+
 
 def hbm_budget_bytes(device=None) -> int:
     """Memory budget for :func:`auto_n_chunks`.
 
     ``OZIMMU_HBM_BUDGET_MB`` overrides; otherwise a share of the total
     memory of ``device`` (a CUDA device's ``total_memory``, or the host's
-    physical memory for the CPU)."""
+    physical memory for the CPU), divided among the processes that share
+    it (:func:`shared_device`)."""
     mb = os.environ.get("OZIMMU_HBM_BUDGET_MB")
     if mb:
         return int(mb) * (1 << 20)
@@ -209,7 +230,7 @@ def hbm_budget_bytes(device=None) -> int:
         total = torch.cuda.get_device_properties(device).total_memory
     else:
         total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
-    return int(total * _BUDGET_SHARE)
+    return int(total * _BUDGET_SHARE) // _SHARERS
 
 
 def epilogue_block_bytes(device) -> int:

@@ -222,3 +222,27 @@ def test_distributed_layer_on_the_card_equals_gemm(dev, mesh, nproc, backend):
             got = np.ascontiguousarray(ranks[0][f"{name}/out"])
             want = np.ascontiguousarray(cases.run_local(s))
             assert np.array_equal(got.view(np.uint64), want.view(np.uint64)), name
+
+
+@pytest.mark.parametrize("mesh,nproc,backend", [("1x1", 1, "nccl"), ("4x1", 4, "gloo")])
+def test_sharded_solvers_on_the_card_equal_one_device(dev, mesh, nproc, backend):
+    """The factorizations of tests/torch_linalg_mesh_cases.py row-sharded by
+    ranks on the card (one over NCCL, or four sharing it over gloo) against
+    the one-device call on the card: host panels and Cholesky bit for bit,
+    device panels with the same pivots and within 1e-13."""
+    import os
+
+    import torch_linalg_mesh_cases as cases
+    from ozimmu_tpu_torch.parallel import local
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_linalg_mesh_cases.py")
+    ranks = local.run(f"{path}:CASES_CARD", mesh, nproc=nproc, device="cuda", backend=backend,
+                      timeout=600)
+    for name, (_, _, _, _, panel, _) in cases.SPECS.items():
+        for r in ranks:
+            assert f"{name}/error" not in r, str(r[f"{name}/error"])
+            assert bool(r[f"{name}/same_piv"]), name
+            if panel == "device":
+                assert float(r[f"{name}/rel"]) < 1e-13, name
+            else:
+                assert bool(r[f"{name}/same_bits"]), name

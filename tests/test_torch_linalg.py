@@ -332,8 +332,8 @@ def test_front_doors_reject_bad_calls():
             f(np.eye(16), mode="dgemm", resident=True, **CPU)
         with pytest.raises(ValueError, match="fixed fp64_int8"):
             f(torch.eye(16, dtype=torch.float64), mode="fp64_int8_auto")
-        with pytest.raises(NotImplementedError, match="step 17"):
-            f(np.eye(16), mode="fp64_int8_9", mesh=object())
+        with pytest.raises(ValueError, match="mesh requires the resident path"):
+            f(np.eye(16), mode="fp64_int8_9", mesh=object(), resident=False)
         with pytest.raises(ValueError, match="host path"):
             f(torch.eye(16, dtype=torch.float64), mode="fp64_int8_9", resident=False)
         with pytest.raises(TypeError, match="float64 or complex128"):

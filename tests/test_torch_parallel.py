@@ -230,3 +230,15 @@ def test_presharded_rechecks_the_budget(launches, monkeypatch):
     np.testing.assert_array_equal(_u64(got["out"]), _u64(want.to_numpy().reshape(m, n)))
     np.testing.assert_array_equal(_u64(got["out"]),
                                   _u64(ozt.gemm(fa, fb, mode="fp64_int8_9", device="cpu")))
+
+
+def test_each_rank_plans_with_its_share_of_the_memory(launches):
+    """Four ranks on one host share its memory: ``sharded_gemm``,
+    ``sharded_gemm_auto`` and the pre-sharded entry each plan with a
+    quarter of the budget on every rank (the variant, the column panels
+    and the epilogue's row blocks alike)."""
+    for r in launches("2x2"):
+        assert int(r["budget_share/count"]) == 4
+        quarter = int(r["budget_share/whole"]) // 4
+        assert list(r["budget_share/read"]) == [quarter, quarter]  # auto, pre-sharded
+        assert list(r["budget_share/sharers"]) == [4, 4]  # sharded_gemm, auto

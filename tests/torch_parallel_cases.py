@@ -215,6 +215,38 @@ def case_presharded_rechecks_budget(mesh):
     return {"out": par.allgather_f64x(out), "select_variant": chosen, "variant": variant}
 
 
+def case_budget_share(mesh):
+    """The four ranks share the host's memory: every entry plans with a
+    quarter of the budget (the budget that ``sharded_gemm_auto`` and the
+    pre-sharded chooser read, and the share in force while the local
+    engine runs), and the whole budget is back after each call."""
+    from ozimmu_tpu_torch import schedule
+    from ozimmu_tpu_torch.parallel import gemm as pg
+
+    dev = pg.mesh_device(mesh)
+    read, sharers = [], []
+    real_budget, real_2d = pg.hbm_budget_bytes, pg._sharded_2d
+
+    def budget(device=None):
+        read.append(real_budget(device))
+        return read[-1]
+
+    def run_2d(*args):
+        sharers.append(schedule._SHARERS)
+        return real_2d(*args)
+
+    pg.hbm_budget_bytes, pg._sharded_2d = budget, run_2d
+    try:
+        fa, fb, _ = presharded_inputs(95, 16, 32, 16)
+        par.sharded_gemm(fa, fb, 9, mesh)
+        par.sharded_gemm_auto(fa, fb, 9, mesh)
+        par.sharded_gemm_presharded(_sharded(mesh, fa), _sharded(mesh, fb), 9, mesh)
+    finally:
+        pg.hbm_budget_bytes, pg._sharded_2d = real_budget, real_2d
+    return {"count": pg.ranks_sharing_device(mesh), "whole": schedule.hbm_budget_bytes(dev),
+            "read": np.array(read), "sharers": np.array(sharers)}
+
+
 def _from_spec(s):
     return lambda mesh: {"out": run_port(s, mesh)}
 
@@ -288,6 +320,7 @@ MESHES = {
         "presharded_epilogue": case_presharded_epilogue,
         "presharded_rejects_indivisible": case_presharded_rejects_indivisible,
         "presharded_zgemm_conj": case_presharded_zgemm_conj,
+        "budget_share": case_budget_share,
     }),
     "1x4": (SPECS_1x4, {
         "ring_rejects_rectangular": case_ring_rejects,
