@@ -61,7 +61,21 @@ counts set to 0 just before it and read just after:
     products at the shapes of each of four ranks, and real LU (host and
     device panels), complex LU and Cholesky at n = 4096 on four ranks
     sharing the card over gloo, against the one-device factor on the
-    card, with each rank's seconds, staged bytes and kernel launches.
+    card, with each rank's seconds, staged bytes and kernel launches;
+  * the examples (``examples/torch_0*.py``): the six single-process ones
+    through ``main(device="cuda")`` at the JAX examples' sizes, each with
+    its launch counts, "bitwise ==" values and residual gates, and both
+    kernels against their plain versions on 05's matvec and 08's first
+    trailing update; 03's case table on four gloo ranks sharing the card
+    and 07 through its ``main`` (2 "hosts" x 2 gloo ranks on the hybrid
+    mesh); 09 at m = n = k = 16384 on a 1 x 1 NCCL mesh, the pre-sharded
+    result bitwise equal to the dense-fed ``gemm``, both kernels against
+    their plain versions on its operands, residual against
+    ``torch.matmul`` (summed over k-panels) and a sampled oracle block,
+    both calls' peak memory against the model and their times beside
+    ``torch.matmul``; and the split kernel bitwise against
+    ``hostref.split_fp64``, the card's ``gemm`` within 2 ulp of
+    ``hostref.gemm_fp64``.
 
 Any failed phase raises, and the script exits non-zero without printing a
 result.  It needs a CUDA GPU: without one it exits non-zero at once.  The
@@ -442,6 +456,7 @@ def main() -> int:
     by_path.update(walled(phase_solvers, ozt, label))
     by_path.update(walled(phase_parallel, ozt, label))
     by_path.update(walled(phase_mesh_solvers, ozt, label))
+    by_path.update(walled(phase_examples, ozt, label))
 
     kernels = [
         {"name": "split_digits", "route": "cuda", "source": "ozimmu_tpu_torch/csrc/split.cu",
@@ -1910,6 +1925,324 @@ def phase_mesh_solvers(ozt, label) -> dict:
               + ", ".join(f"{r['call_seconds']:.3f}" for r in per_rank)
               + "; staged MiB per rank " + ", ".join(
                   f"{r['call_staged_bytes'] / 2**20:.1f}" for r in per_rank), flush=True)
+    return by_path
+
+
+# -- 20. the examples ------------------------------------------------------------
+#
+# Each ``examples/torch_0*.py`` through its ``main(device="cuda")`` at the JAX
+# example's own size (the distributed ones through their case tables), with
+# the launch counts read around it; example 09 at the north-star operand size
+# on a 1 x 1 NCCL mesh; and the split kernel and the card's ``gemm`` against
+# ``hostref``, the numpy model that shares no code with either.
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+NORTH_STAR = 16384  # m = n = k of example 09 on the card
+SOLVE_GATE = 1e-14
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``__main__`` block does not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_example_{name}",
+                                                  os.path.join(EXAMPLES, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def under_gate(what: str, value: float, gate: float) -> float:
+    if not value < gate:
+        raise AssertionError(f"{what}: {value:.3e} >= {gate}")
+    return value
+
+
+def hostref_checks(ozt) -> list:
+    """The split kernel's planes against ``hostref.split_fp64``'s digits,
+    bitwise (exp_rand-3 at 1000 x 1234 with a zero row and a subnormal, ns
+    3, 9, 18, A by rows and B = its transpose by columns; the exponents
+    compared by meaning, the null-row sentinels being different numbers),
+    and the card's ``gemm`` at 1025 x 777 x 513 within 2 ulp (rtol 5e-16)
+    of ``hostref.gemm_fp64``."""
+    from ozimmu_tpu_torch import hostref
+    from ozimmu_tpu_torch.ops.split import ZERO_ROW_PEXP, row_exponent, split_with_exp
+    from ozimmu_tpu_torch.schedule import bits_per_int8
+    from ozimmu_tpu_torch.testing import generate_input
+
+    x = generate_input("exp_rand-3", (1000, 1234), seed=41)
+    x[0, :] = 0.0
+    x[3, 0] = 2.0**-1070
+    b = bits_per_int8(1234)
+    done = []
+    for axis, operand in ((1, x), (0, np.ascontiguousarray(x.T))):
+        t = torch.from_numpy(operand).cuda()
+        for ns in (3, 9, 18):
+            planes, pexp = split_with_exp(t, row_exponent(t, axis), ns, b, axis)  # the kernel
+            pexp = pexp.cpu().numpy().astype(np.int64)
+            dh, ph = hostref.split_fp64(x, ns, b)
+            want = dh if axis == 1 else np.swapaxes(dh, 1, 2)
+            live = ph != hostref.ZERO_ROW_PEXP
+            if not (np.array_equal(planes.cpu().numpy(), want)
+                    and np.array_equal(pexp == ZERO_ROW_PEXP, ~live)
+                    and np.array_equal(pexp[live], ph[live])):
+                raise AssertionError(f"split kernel != hostref.split_fp64 (axis {axis}, ns {ns})")
+            done.append(f"{'A by rows' if axis == 1 else 'B by columns'} ns={ns}")
+    m, n, k = 1025, 777, 513
+    a = generate_input("normal01", (m, k), seed=42)
+    bm = generate_input("normal01", (k, n), seed=43)
+    got = ozt.gemm(a, bm, mode=f"fp64_int8_{NS}", device="cuda")
+    want = hostref.gemm_fp64(a, bm, NS)
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if not np.allclose(got, want, rtol=5e-16, atol=0):
+        raise AssertionError(f"gemm {m}x{n}x{k} differs from hostref.gemm_fp64 by rel {rel:.3e}")
+    done.append(f"gemm {m}x{n}x{k} fp64_int8_{NS} within rtol 5e-16 (max rel {rel:.3e})")
+    return done
+
+
+def _single_example_checks(name: str, r: dict) -> str:
+    """The gates of what one single-process example returns: every
+    "bitwise ==" / "ok" value true, every GEMM residual < 1e-15, every
+    solve's < 1e-14 (example 08's unrefined fp64_int8_5 solve is the cheap
+    factor's own, which refinement is there to fix, and its unscaled
+    multi-RHS figure is the matrix's condition, ~7e3, times LAPACK's;
+    both are printed, not gated)."""
+    if name == "torch_01_basic_gemm":
+        if not r["epilogue_ok"]:
+            raise AssertionError("01: epilogue not ok")
+        return f"residual {under_gate('01 residual', r['residual'], RESIDUAL_GATE):.3e}"
+    if name == "torch_02_interception":
+        if not r["small_native"]:
+            raise AssertionError("02: the 64^3 product was not native")
+        worst = max(r["eager_residual"], r["linear_residual"], r["env_residual"])
+        return f"residuals <= {under_gate('02 residual', worst, RESIDUAL_GATE):.3e}"
+    if name == "torch_04_profiling":
+        if not any(f.endswith(".json") for f in r["trace_files"]) or not r["phases"]:
+            raise AssertionError(f"04: phases {r['phases']}, trace files {r['trace_files']}")
+        return f"phases {r['phases']}, trace {r['trace_files']}"
+    if name == "torch_05_iterative_refinement":
+        if not r["converged"]:
+            raise AssertionError(f"05: not converged: {r['errors']}")
+        under_gate("05 error", r["errors"][-1], SOLVE_GATE)
+        return f"errors {[f'{e:.3e}' for e in r['errors']]}"
+    if name == "torch_06_compiled":
+        if not (r["bitwise"] and r["trace_ok"]):
+            raise AssertionError(f"06: bitwise {r['bitwise']}, trace {r['trace_ok']}")
+        return (f"compiled == host API bitwise; residual "
+                f"{under_gate('06 residual', r['residual'], RESIDUAL_GATE):.3e}")
+    if name == "torch_08_hpl_lu":
+        gated = {"fp64_int8_9": r["residual_9"], "multi-rhs scaled": r["multi_rhs_scaled_residual"],
+                 **{f"fp64_int8_5 + {k} refinement": v for k, v in r["residual_refined"].items()}}
+        for what, v in gated.items():
+            under_gate(f"08 {what}", v, SOLVE_GATE)
+        return "scaled residuals " + ", ".join(f"{w} {v:.3e}" for w, v in gated.items())
+    raise ValueError(name)
+
+
+def example_kernel_checks(name: str, r: dict) -> list:
+    """Both kernels against their plain versions, bit for bit, on the
+    engine products of an example's path whose shapes no other check has,
+    with the example's own operands: 05's first residual matvec A @ x
+    (n = 1) and 08's first trailing update A22 -= L21 @ U12 of the host
+    path (768 x 768 x 256, after the example's panel factor and U12
+    solve) at fp64_int8_9 and fp64_int8_5."""
+    from ozimmu_tpu_torch import linalg
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).cuda()
+
+    if name == "torch_05_iterative_refinement":
+        a32 = r["A"].astype(np.float32)
+        x0 = np.linalg.solve(a32, r["b"].astype(np.float32)).astype(np.float64)
+        return [kernels_equal_plain_on("05 r = b - A @ x", cuda(r["A"]), cuda(x0), NS)]
+    if name == "torch_08_hpl_lu":
+        a, blk = r["A"].copy(), 256
+        linalg._panel_factor(a, 0, blk, np.arange(a.shape[0]))
+        linalg._unit_lower_solve(a[:blk, :blk], a[:blk, blk:])
+        l21, u12 = cuda(a[blk:, :blk]), cuda(a[:blk, blk:])
+        return [kernels_equal_plain_on(f"08 A22 -= L21 @ U12 fp64_int8_{ns}", l21, u12, ns)
+                for ns in (NS, 5)]
+    return []
+
+
+#: launches (split, recombine) of each single-process example at its own
+#: size: a real GEMM splits twice and recombines once, a complex one four
+#: times each.  01: matmul, the op_a=T gemm, a 512^2 ZGEMM (AUTO's two
+#: queries run no kernel); 02: three routed products, the 64^3 one below
+#: the threshold adds nothing; 04: two profiled gemms and the traced
+#: matmul; 05: one residual per refinement step (one step converges);
+#: 06: the compiled gemm and matmul, the host gemm, the second compiled
+#: gemm, two batched matrices; 08: three factorizations of n = 1024 in
+#: blocks of 256, three trailing updates each (the refinement's residuals
+#: are host matvecs)
+EXAMPLE_LAUNCHES = {"torch_01_basic_gemm": (8, 6), "torch_02_interception": (6, 3),
+                    "torch_04_profiling": (6, 3), "torch_05_iterative_refinement": (2, 1),
+                    "torch_06_compiled": (12, 6), "torch_08_hpl_lu": (18, 9)}
+#: per-rank launches of each case of example 03 on 4 ranks, the
+#: one-device reference included (2, 1 real; 4, 4 complex): SUMMA and its
+#: epilogue 2 + 1, complex SUMMA 4 + 4, AUTO's choice (an int8 mode) by
+#: SUMMA 2 + 1; the ring and the k-sharded complex product sum int32 group
+#: totals through torch._int_mm and launch no recombine (2 + 0, 4 + 0);
+#: the AUTO queries none
+EX03_LAUNCHES = {"summa": (4, 2), "epilogue": (4, 2), "zgemm": (8, 8), "ring": (4, 1),
+                 "auto_select": (0, 0), "auto_gemm": (4, 2), "tall_k": (8, 4)}
+#: 07's body (SUMMA + ``gemm_f64``) and 09's run (pre-sharded + dense gemm)
+EX_PAIR_LAUNCHES = (4, 2)
+
+
+def ex09_north_star(mesh) -> dict:
+    """Example 09 at m = n = k = 16384 on this rank: the example's own run
+    (pre-sharded GEMM, dense-fed ``gemm``, the checks) with its launches;
+    both calls' peak memory against the model and their times (CUDA
+    events) beside ``torch.matmul`` float64; then both kernels against
+    their plain versions on the dense operands (the int32 group split
+    that k = 16384 makes, over many tiles per persistent block)."""
+    import ozimmu_tpu_torch as ozt
+
+    ex = load_example("torch_09_north_star_feeding")
+    t0 = time.perf_counter()
+    reset_launches()
+    res, ops = ex.run(mesh, NORTH_STAR)
+    res.update(read_launches())
+    res["run_seconds"] = time.perf_counter() - t0
+    del ops["out"]
+    ax, bx, a, b = ops["ax"], ops["bx"], ops["a"], ops["b"]
+    mode = f"fp64_int8_{NS}"
+    pre = lambda: ex.sharded_gemm_presharded(ax, bx, NS, mesh)  # noqa: E731
+    dense = lambda: ozt.gemm(a, b, mode=mode)  # noqa: E731
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res["peak_presharded"] = memory_against_model(
+            f"pre-sharded sharded_gemm_presharded on a {tuple(mesh.mesh.shape)} mesh", pre,
+            ax.to_local(), bx.to_local())
+        res["peak_dense"] = memory_against_model("dense-fed gemm", dense, a, b)
+    res["memory_lines"] = buf.getvalue()
+    res["ms_presharded"] = cuda_ms(pre, iters=3)
+    res["ms_dense"] = cuda_ms(dense, iters=3)
+    res["ms_matmul"] = cuda_ms(lambda: torch.matmul(a, b), iters=3)
+    t0 = time.perf_counter()
+    res["kernel_check"] = kernels_equal_plain_on(f"example 09 {NORTH_STAR}^3", a, b, NS)
+    res["kernel_check_seconds"] = time.perf_counter() - t0
+    res.pop("c", None)
+    return res
+
+
+EXAMPLES_NCCL = {"north_star": ex09_north_star}
+
+
+def phase_examples(ozt, label) -> dict:
+    """20. The examples on the card: (a) the six single-process ones
+    through ``main(device="cuda")``, each counted on its own; (b) 03's case
+    table on four gloo ranks sharing the card and 07 through its ``main``
+    (2 "hosts" x 2 gloo ranks on the hybrid mesh); (c) 09 at 16384^3 on a
+    1 x 1 NCCL mesh; (d) the split kernel and ``gemm`` against
+    ``hostref``.  Both kernels are also held against their plain versions
+    on 05's and 08's engine products and on 09's operands."""
+    from ozimmu_tpu_torch.parallel import local
+
+    here = os.path.abspath(__file__)
+    by_path = {}
+    torch.cuda.empty_cache()
+
+    # (a) single process, at the JAX examples' sizes
+    for name in EXAMPLE_LAUNCHES:
+        ex = load_example(name)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="oz_ex_") as tmp:
+            kw = {"trace_dir": tmp} if name == "torch_04_profiling" else {}
+            reset_launches()
+            r = ex.main(device="cuda", **kw)
+            counts = read_launches()
+            checked = _single_example_checks(name, r)
+        kernels = example_kernel_checks(name, r)
+        del r
+        if (counts["split_digits"], counts["recombine"]) != EXAMPLE_LAUNCHES[name]:
+            raise AssertionError(f"{name}: launches {counts}, expected {EXAMPLE_LAUNCHES[name]}")
+        by_path[f"examples/{name}"] = counts
+        print(f"[examples] {name} on cuda: launches {counts}; {checked} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if kernels:
+            print(f"[examples] {name}: both kernels == plain bitwise on " + "; ".join(kernels),
+                  flush=True)
+        torch.cuda.empty_cache()
+
+    # (b) the distributed examples on four ranks sharing the card, gloo
+    ex03 = load_example("torch_03_distributed")
+    t0 = time.perf_counter()
+    ranks = local.run(f"{ex03.HERE}:CASES", "2x2", nproc=4, device="cuda", backend="gloo",
+                      timeout=300)
+    results = _par_results(ranks, ex03.CASES, "example 03")
+    for name, per_rank in results.items():
+        r0 = per_rank[0]
+        counts = [(r["case_launches_split_digits"], r["case_launches_recombine"])
+                  for r in per_rank]
+        ok = r0["same"] if name == "auto_select" else (r0["bitwise"] and r0.get("ran", True))
+        if not ok or set(counts) != {EX03_LAUNCHES[name]}:
+            raise AssertionError(f"example 03 {name}: {r0}, per-rank launches {counts}, expected "
+                                 f"{EX03_LAUNCHES[name]}")
+        by_path[f"examples/torch_03_distributed/{name}"] = {
+            "split_digits": counts[0][0], "recombine": counts[0][1]}
+        what = (f"AUTO chose {r0['mode']} == single-device {r0['single_device_mode']}"
+                if name == "auto_select" else "bitwise == one-device gemm")
+        print(f"[examples] torch_03_distributed {name}, 4 gloo ranks on one card: {what}; "
+              f"launches (split, recombine) {counts[0]} on every rank (the case with its "
+              "one-device reference)", flush=True)
+    print(f"[examples] torch_03_distributed: {len(results)} cases in "
+          f"{time.perf_counter() - t0:.1f} s with the process start", flush=True)
+
+    t0 = time.perf_counter()
+    res = load_example("torch_07_multiprocess").main(device="cuda", backend="gloo")
+    counts = [(r["case_launches_split_digits"], r["case_launches_recombine"])
+              for r in res["results"]]
+    if set(counts) != {EX_PAIR_LAUNCHES} or not all(
+            ln.endswith("bitwise == single-device") for ln in res["lines"]):
+        raise AssertionError(f"example 07: {res['lines']}, per-rank launches {counts}")
+    by_path["examples/torch_07_multiprocess"] = {"split_digits": counts[0][0],
+                                                 "recombine": counts[0][1]}
+    print(f"[examples] torch_07_multiprocess, 2 hosts x 2 gloo ranks on the hybrid mesh: "
+          f"bitwise == gemm_f64 on every rank; per-rank launches (split, recombine) {counts[0]} "
+          f"(SUMMA body and the one-device reference) ({time.perf_counter() - t0:.1f} s with "
+          "the process start)", flush=True)
+
+    # (c) example 09 at the north-star operand size, world size 1, NCCL
+    t0 = time.perf_counter()
+    ranks = local.run(f"{here}:EXAMPLES_NCCL", "1x1", nproc=1, device="cuda", timeout=420)
+    (r,) = _par_results(ranks, EXAMPLES_NCCL, "example 09")["north_star"]
+    counts = {"split_digits": r["split_digits"], "recombine": r["recombine"]}
+    if not r["bitwise"] or (r["split_digits"], r["recombine"]) != EX_PAIR_LAUNCHES:
+        raise AssertionError(f"example 09 at {NORTH_STAR}^3: {r}")
+    # the full-matrix reference is torch.matmul float64 summed over k-panels
+    # of 1024: one call's own accumulation over k = 16384 is off by ~3e-15
+    # (reported beside it, with its oracle block)
+    under_gate("example 09 residual against torch.matmul over k-panels", r["residual"],
+               RESIDUAL_GATE)
+    under_gate("example 09 sampled oracle block", r["oracle_residual"], RESIDUAL_GATE)
+    by_path["examples/torch_09_north_star_feeding"] = counts
+    ns3 = f"{NORTH_STAR}^3"
+    print(f"[examples] torch_09_north_star_feeding {ns3} on a 1x1 NCCL mesh: pre-sharded == "
+          f"dense-fed gemm bitwise; residual against torch.matmul float64 summed over k-panels "
+          f"of 1024 {r['residual']:.3e} (against one torch.matmul call "
+          f"{r['residual_one_matmul']:.3e}); sampled 256x256 block against the long-double "
+          f"oracle {r['oracle_residual']:.3e} (one torch.matmul call: "
+          f"{r['one_matmul_oracle_residual']:.3e}); launches {counts} (both calls); the "
+          f"example's run {r['run_seconds']:.1f} s, the phase {time.perf_counter() - t0:.1f} s "
+          "with the process start", flush=True)
+    print(f"[examples] torch_09_north_star_feeding: both kernels == plain bitwise on "
+          f"{r['kernel_check']} ({r['kernel_check_seconds']:.1f} s)", flush=True)
+    for line in r["memory_lines"].splitlines():
+        print(line, flush=True)
+    print(f"[time] {label}: {ns3} fp64_int8_{NS}: sharded_gemm_presharded on a 1x1 NCCL mesh "
+          f"{r['ms_presharded']:.3f} ms ({2 * NORTH_STAR**3 / r['ms_presharded'] / 1e9:.3f} "
+          f"effective FP64 TFLOPS); dense-fed gemm {r['ms_dense']:.3f} ms "
+          f"({2 * NORTH_STAR**3 / r['ms_dense'] / 1e9:.3f}); torch.matmul float64 "
+          f"{r['ms_matmul']:.3f} ms ({2 * NORTH_STAR**3 / r['ms_matmul'] / 1e9:.3f} TFLOPS); "
+          f"peak {r['peak_presharded'] / 2**30:.3f} / {r['peak_dense'] / 2**30:.3f} GiB",
+          flush=True)
+
+    # (d) the kernels against the numpy model
+    done = hostref_checks(ozt)
+    print("[examples] hostref: split kernel == hostref.split_fp64 bitwise (exp_rand-3 "
+          "1000x1234, a zero row and a subnormal): " + ", ".join(done), flush=True)
     return by_path
 
 

@@ -32,10 +32,10 @@ Cholesky on the host or resident on the device, real and complex, ``solve``
 with iterative refinement) and ``bench_cli hpl``; the distributed layer
 (``parallel``: SUMMA, k-sharded, Cannon ring and streamed SUMMA, AUTO and
 pre-sharded entries on ``torch.distributed``, with the CUDA kernels in
-every rank).  The modules ``schedule``, ``testing`` and ``types`` are
-exported as the JAX package exports them.  ``ozimmu_tpu.hostref`` (a numpy
-model of the JAX engine that its tests compare with) is not ported: the
-port's tests compare with the JAX package itself.
+every rank).  The modules ``hostref`` (the numpy model of the engine,
+independent of torch, that the kernels are held against), ``schedule``,
+``testing`` and ``types`` are exported as the JAX package exports them.
+Runnable examples: ``examples/torch_0*.py``.
 """
 
 from .types import (
@@ -64,7 +64,7 @@ from .core.handle import (
     get_auto_mantissa_loss_threshold,
 )
 from .utils.profiling import device_trace
-from . import intercept, linalg, parallel, schedule, testing, traced, types
+from . import hostref, intercept, linalg, parallel, schedule, testing, traced, types
 
 __version__ = "0.1.0"
 
@@ -92,6 +92,7 @@ __all__ = [
     "default_handle",
     "enable_profiling",
     "device_trace",
+    "hostref",
     "intercept",
     "linalg",
     "parallel",

@@ -226,9 +226,14 @@ def test_port_never_imports_jax():
     code = (
         "import ozimmu_tpu_torch.intercept, ozimmu_tpu_torch.traced, ozimmu_tpu_torch.bench_cli\n"
         "import ozimmu_tpu_torch.parallel, ozimmu_tpu_torch.parallel.local\n"
-        "import importlib, pkgutil, sys, ozimmu_tpu_torch as p\n"
+        "import glob, importlib, importlib.util, pkgutil, sys, ozimmu_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'ozimmu_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "examples = sorted(glob.glob('examples/torch_*.py'))\n"
+        "assert len(examples) == 9, examples\n"
+        "for path in examples:  # each runs only under __main__\n"
+        "    spec = importlib.util.spec_from_file_location(path[:-3].replace('/', '_'), path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'ozimmu_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
@@ -240,14 +245,16 @@ def test_port_never_imports_jax():
 
 
 def test_package_exports_its_modules():
-    """``schedule``, ``testing``, ``types`` and ``parallel`` resolve right
-    after ``import ozimmu_tpu_torch`` (a fresh process) and are listed."""
+    """``hostref``, ``schedule``, ``testing``, ``types`` and ``parallel``
+    resolve right after ``import ozimmu_tpu_torch`` (a fresh process) and
+    are listed."""
     code = (
         "import types, ozimmu_tpu_torch as ozt\n"
-        "for name in ('parallel', 'schedule', 'testing', 'types'):\n"
+        "for name in ('hostref', 'parallel', 'schedule', 'testing', 'types'):\n"
         "    assert name in ozt.__all__, name\n"
         "    assert isinstance(getattr(ozt, name), types.ModuleType), name\n"
         "assert callable(ozt.testing.generate_input) and callable(ozt.parallel.sharded_gemm)\n"
+        "assert callable(ozt.hostref.gemm_fp64)\n"
         "print('exported')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
