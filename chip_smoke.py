@@ -23,8 +23,11 @@ counts set to 0 just before it and read just after:
     op_a="C" / complex alpha, beta, c probe;
   * sgemm at 4096^3: demoted operands, an f32 error bound, the caller's
     TF32 setting kept out and restored; one complex probe;
-  * ``gemm_batched``: 8 x 1024^3, real and complex, bits against a loop,
-    and timed;
+  * ``gemm_batched`` (one launch of each kernel per sub-batch): 8 x 1024^3
+    real and complex, 64 x 256^3, an odd 5 x 1000 x 777 x 513 batch and
+    4 x 4096^3, also in sub-batches under a 12 GiB budget; bits against a
+    loop of 2-D ``gemm``, both kernels bitwise against their plain versions
+    on each batch, and timed beside the loop and batched ``torch.matmul``;
   * ``device_trace`` of one 4096^3 GEMM: kernel names and the device's
     busy share over the traced window;
   * ``warmup`` and ``reallocate_working_memory``;
@@ -447,7 +450,8 @@ def main() -> int:
     del a, b
     by_path["zgemm"] = walled(phase_zgemm, ozt, label, rng)
     walled(phase_sgemm, ozt)
-    by_path.update(walled(phase_batched, ozt, label))
+    batched_counts, batched_figs = walled(phase_batched, ozt, label)
+    by_path.update(batched_counts)
     walled(phase_trace, ozt)
     walled(phase_warmup, ozt)
     by_path["intercept"] = walled(phase_intercept, ozt, label)
@@ -471,6 +475,17 @@ def main() -> int:
                     ms=ms[name], plain_ms=plain_ms[name], bound_ms=bounds[name][0],
                     bound_by=bounds[name][1], library_ms=None,
                     launches_by_path={p: c[name] for p, c in by_path.items()})
+    # the same two kernels in their batched form (one launch over a whole
+    # batch, as the TPU kernels run under jax.vmap): launches in phase 11's
+    # real 8 x 1024^3 run, times and bounds at that shape
+    main_batch = by_path["batched_real_8x1024"]
+    for kern in kernels[:2]:
+        name = kern["name"]
+        k_ms, p_ms, (b_ms, b_by), err, _ = batched_figs[name]
+        kernels.append(dict(
+            kern, name=f"{name}_batched", launches=main_batch[name], max_abs_err=err, ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            launches_by_path={p: c[name] for p, c in by_path.items() if p.startswith("batched")}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -677,36 +692,183 @@ def phase_sgemm(ozt) -> None:
           f"(bound 4*k*2^-24*((|ar|+|ai|)@(|br|+|bi|)))", flush=True)
 
 
-def phase_batched(ozt, label) -> dict:
-    """11. gemm_batched: 8 x 1024^3, real and complex, fp64_int8_9, with c,
-    bits against a loop of 2-D gemm calls, and its time."""
+#: phase 11's batches: (B, m, k, n, kind, budget MiB or None for the
+#: default).  8 x 1024^3 as before; 64 x 256^3, products too small to fill
+#: the card one at a time; an odd batch (m, k and n off every tile and
+#: k % 16 != 0), so that a tile reaching past one matrix's last row reads
+#: zeros and not the next matrix's rows; 4 x 4096^3, also under a 12 GiB
+#: budget, where the batch runs in sub-batches
+BATCH_CASES = ((8, 1024, 1024, 1024, "real", None), (8, 1024, 1024, 1024, "complex", None),
+               (64, 256, 256, 256, "real", None), (5, 1000, 777, 513, "real", None),
+               (4, 4096, 4096, 4096, "real", None), (4, 4096, 4096, 4096, "real", 12288))
+
+
+def wall_ms(fn, iters: int = 3) -> float:
+    """Mean host milliseconds of ``fn`` over ``iters`` calls after one
+    warm-up call, the device's work included (synchronised)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def busy_ms(ozt, fn, name: str):
+    """(busy ms, window ms, device kernels) of one traced call of ``fn``:
+    the union of the device's spans inside it (``busy_in_window``) and the
+    kernels that ran in it."""
+    torch.cuda.synchronize()
+    log_dir = tempfile.mkdtemp(prefix="oz_trace_")
+    with ozt.device_trace(log_dir):
+        with torch.profiler.record_function(name):
+            fn()
+            torch.cuda.synchronize()
+    (path,) = glob.glob(os.path.join(log_dir, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    busy, window = busy_in_window(events, name)
+    (win,) = [e for e in events if e.get("name") == name and e.get("cat") == "user_annotation"]
+    t0 = float(win["ts"])
+    kernels = sum(1 for e in events
+                  if e.get("cat") == "kernel" and t0 <= float(e["ts"]) <= t0 + window)
+    return busy / 1e3, window / 1e3, kernels
+
+
+def batched_kernels_equal_plain(a: torch.Tensor, b: torch.Tensor, ns: int) -> dict:
+    """Both kernels, one launch each over the batch a [B, m, k] @ b [B, k, n]
+    (A by rows, B by columns), bitwise against their plain versions on the
+    same inputs; returns each kernel's (ms, the plain version's ms (CUDA
+    events), the bound, max |kernel - plain|, the ms of one 2-D launch per
+    matrix) and the tile class."""
+    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops.recombine import fold_group_totals, group_totals
+    from ozimmu_tpu_torch.ops.split import row_exponent, split_with_row_exp
+    from ozimmu_tpu_torch.schedule import bits_per_int8
+
+    bsz, m, k = a.shape
+    n = b.shape[2]
+    bb = bits_per_int8(k)
+    planes, err = [], {"split_digits": 0.0}
+    for x, axis in ((a, 1), (b, 0)):
+        e = row_exponent(x, axis).contiguous()
+        want, _ = split_with_row_exp(x, e, ns, bb, axis)
+        got = split_cuda.split_digits(x, e, ns, bb, axis)
+        err["split_digits"] = max(err["split_digits"], float(
+            (want.to(torch.int16) - got.to(torch.int16)).abs().max().item()))
+        if not bits_equal(want, got):
+            raise AssertionError(f"batched split kernel != plain: {bsz} x {m}x{k}x{n} axis={axis}")
+        planes.append(got)
+    da, db = planes
+    want = fold_group_totals(group_totals(da, db, ns, k, bb), ns, k, bb)
+    got = recombine_cuda.recombine(da, db, ns, bb, k)
+    err["recombine"] = max(float((w - g).abs().max().item()) for w, g in zip(want, got))
+    if not all(bits_equal(w, g) for w, g in zip(want, got)):
+        raise AssertionError(f"batched recombine kernel != plain: {bsz} x {m}x{k}x{n}")
+    del want, got
+    e_a = row_exponent(a, 1).contiguous()
+    pairs = ns * (ns + 1) // 2
+    one = [(da[:, i].contiguous(), db[:, i].contiguous()) for i in range(bsz)]
+    loops = {
+        "split_digits": cuda_ms(lambda: [split_cuda.split_digits(a[i], e_a[i], ns, bb, 1)
+                                         for i in range(bsz)], iters=3),
+        "recombine": cuda_ms(lambda: [recombine_cuda.recombine(x, y, ns, bb, k) for x, y in one],
+                             iters=3),
+    }
+    del one
+    return {
+        "split_digits": (
+            cuda_ms(lambda: split_cuda.split_digits(a, e_a, ns, bb, 1), iters=5),
+            cuda_ms(lambda: split_with_row_exp(a, e_a, ns, bb, 1), iters=3),
+            bound_ms(a.numel() * (8 + ns) + e_a.numel() * 4, 0, INT8_OPS_PER_S),
+            err["split_digits"], loops["split_digits"]),
+        "recombine": (
+            cuda_ms(lambda: recombine_cuda.recombine(da, db, ns, bb, k), iters=3),
+            cuda_ms(lambda: fold_group_totals(group_totals(da, db, ns, k, bb), ns, k, bb), iters=3),
+            bound_ms(da.numel() + db.numel() + 12 * bsz * m * n, pairs * 2 * bsz * m * n * k,
+                     INT8_OPS_PER_S),
+            err["recombine"], loops["recombine"]),
+        "tile": recombine_cuda.launch_plan(
+            m, n, k, ns, torch.cuda.get_device_properties(0).multi_processor_count,
+            batch=bsz).tile,
+    }
+
+
+def phase_batched(ozt, label):
+    """11. gemm_batched, fp64_int8_9 with alpha, beta and c, at each of
+    :data:`BATCH_CASES`: one split launch per operand and one recombine
+    launch per sub-batch (4 + 4 complex), the result bitwise equal to a
+    loop of 2-D ``gemm`` calls (the batch matrix by matrix), both kernels
+    bitwise equal to their plain versions on the batch; wall ms, the
+    card's busy ms and device kernels in one traced call of the batch and
+    of the loop, the loop's ms and batched ``torch.matmul``'s ms.  Returns the launches by case and the batched
+    kernels' figures at 8 x 1024^3."""
+    from ozimmu_tpu_torch.core.gemm import _sub_batches
     from ozimmu_tpu_torch.testing import generate_input
 
-    B, n = 8, 1024
-    counts = {}
-    for kind in ("real", "complex"):
+    mode = f"fp64_int8_{NS}"
+    counts, kernel_figs = {}, None
+    for bsz, m, k, n, kind, budget in BATCH_CASES:
         cx = kind == "complex"
-        a = torch.from_numpy(generate_input("normal01", (B, n, n), seed=60, complex_=cx)).cuda()
-        b = torch.from_numpy(generate_input("exp_rand-8", (B, n, n), seed=61, complex_=cx)).cuda()
-        c = torch.from_numpy(generate_input("normal01", (B, n, n), seed=62, complex_=cx)).cuda()
+        what = f"{bsz} x {m}x{k}x{n} {kind}" + (f" under a {budget} MiB budget" if budget else "")
+        seed = 60 + m % 97
+        a = torch.from_numpy(generate_input("normal01", (bsz, m, k), seed=seed, complex_=cx)).cuda()
+        b = torch.from_numpy(generate_input("exp_rand-8", (bsz, k, n), seed=seed + 1,
+                                            complex_=cx)).cuda()
+        c = torch.from_numpy(generate_input("normal01", (bsz, m, n), seed=seed + 2,
+                                            complex_=cx)).cuda()
         alpha, beta = (1.5 - 0.5j, 0.5 + 0.25j) if cx else (1.5, -0.5)
-        reset_launches()
-        out = ozt.gemm_batched(a, b, mode=f"fp64_int8_{NS}", alpha=alpha, beta=beta, c=c)
-        got = counts[f"batched_{kind}"] = read_launches()
-        if got != {"split_digits": (4 if cx else 2) * B, "recombine": (4 if cx else 1) * B}:
-            raise AssertionError(f"batched {kind} launches {got}")
-        as_real = torch.view_as_real if cx else (lambda x: x)
-        for i in range(B):
-            want = ozt.gemm(a[i], b[i], mode=f"fp64_int8_{NS}", alpha=alpha, beta=beta, c=c[i])
-            if not bits_equal(as_real(out[i]), as_real(want)):
-                raise AssertionError(f"batched {kind} matrix {i} differs from the 2-D gemm")
-        ms_b = cuda_ms(lambda: ozt.gemm_batched(a, b, mode=f"fp64_int8_{NS}", alpha=alpha,
-                                                beta=beta, c=c), iters=3)
-        print(f"[batched] {B} x {n}^3 {kind} fp64_int8_{NS} with c: bits == loop of 2-D gemm; "
-              f"launches {got}", flush=True)
-        print(f"[time] {label}: gemm_batched {B} x {n}^3 {kind} fp64_int8_{NS} with c: "
-              f"{ms_b:.3f} ms", flush=True)
-    return counts
+        batched = lambda: ozt.gemm_batched(a, b, mode=mode, alpha=alpha, beta=beta, c=c)  # noqa: E731
+        loop = lambda: [ozt.gemm(a[i], b[i], mode=mode, alpha=alpha, beta=beta, c=c[i])  # noqa: E731
+                        for i in range(bsz)]
+        with hbm_budget_mb(budget) if budget else contextlib.nullcontext():
+            parts = _sub_batches(bsz, m, n, k, NS, cx, "cuda")
+            if parts is None or (budget is None) != (len(parts) == 1):
+                raise AssertionError(f"batched {what}: sub-batches {parts}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            reset_launches()
+            out = batched()
+            got = counts[f"batched_{kind}_{bsz}x{m}" + ("_budget" if budget else "")] = read_launches()
+            peak = torch.cuda.max_memory_allocated() - before
+            per = (4, 4) if cx else (2, 1)
+            if got != {"split_digits": per[0] * len(parts), "recombine": per[1] * len(parts)}:
+                raise AssertionError(f"batched {what}: launches {got} for {len(parts)} sub-batch(es)")
+            as_real = torch.view_as_real if cx else (lambda x: x)
+            for i, want in enumerate(loop()):
+                if not bits_equal(as_real(out[i]), as_real(want)):
+                    raise AssertionError(f"batched {what}: matrix {i} differs from the 2-D gemm")
+            del out
+            ms_b = wall_ms(batched)
+            busy, window, n_kernels = busy_ms(ozt, batched, "batched_gemm")
+            ms_loop = wall_ms(loop)
+            busy_loop, _, n_loop = busy_ms(ozt, loop, "loop_of_gemm")
+        ms_mm = cuda_ms(lambda: torch.matmul(a, b), iters=3)
+        print(f"[batched] {what} {mode} with c: bits == loop of 2-D gemm; launches {got} in "
+              f"{len(parts)} sub-batch(es); peak {peak / 2**30:.3f} GiB allocated during the call",
+              flush=True)
+        print(f"[time] {label}: gemm_batched {what} {mode} with c: wall {ms_b:.3f} ms, card busy "
+              f"{busy:.3f} ms of a {window:.3f} ms traced call, {n_kernels} device kernels; loop "
+              f"of {bsz} 2-D gemm {ms_loop:.3f} ms, card busy {busy_loop:.3f} ms, {n_loop} device "
+              f"kernels; batched torch.matmul {'complex128' if cx else 'float64'} {ms_mm:.3f} ms",
+              flush=True)
+        if budget is None:
+            figs = batched_kernels_equal_plain(a.real.contiguous() if cx else a,
+                                               b.real.contiguous() if cx else b, NS)
+            print(f"[batched] {what}: split and recombine kernels == plain bitwise, one launch "
+                  f"each over the batch (recombine tile class {figs['tile']})", flush=True)
+            for name in ("split_digits", "recombine"):
+                k_ms, p_ms, (b_ms, b_by), _, loop_ms = figs[name]
+                print(f"[time] {label}: batched {name} at {what}: kernel {k_ms:.3f} ms (one 2-D "
+                      f"launch per matrix: {loop_ms:.3f} ms), plain PyTorch {p_ms:.3f} ms, bound "
+                      f"{b_ms:.3f} ms ({b_by})", flush=True)
+            if kernel_figs is None:
+                kernel_figs = figs
+        del a, b, c
+        torch.cuda.empty_cache()
+    return counts, kernel_figs
 
 
 def busy_in_window(events, name: str):
@@ -815,7 +977,7 @@ def phase_intercept(ozt, label) -> dict:
     with ozi.intercept(mode=mode):
         got = torch.einsum("bik,bkj->bij", a3, b3)
     c3 = read_launches()
-    if c3 != {"split_digits": 2 * B, "recombine": B}:
+    if c3 != {"split_digits": 2, "recombine": 1}:
         raise AssertionError(f"intercepted einsum launches {c3}")
     if not bits_equal(got, ozt.gemm_batched(a3, b3, mode=mode)):
         raise AssertionError("intercepted einsum differs from gemm_batched")
@@ -2072,12 +2234,12 @@ def example_kernel_checks(name: str, r: dict) -> list:
 #: the threshold adds nothing; 04: two profiled gemms and the traced
 #: matmul; 05: one residual per refinement step (one step converges);
 #: 06: the compiled gemm and matmul, the host gemm, the second compiled
-#: gemm, two batched matrices; 08: three factorizations of n = 1024 in
+#: gemm, a batch of two matrices (one launch of each kernel); 08: three factorizations of n = 1024 in
 #: blocks of 256, three trailing updates each (the refinement's residuals
 #: are host matvecs)
 EXAMPLE_LAUNCHES = {"torch_01_basic_gemm": (8, 6), "torch_02_interception": (6, 3),
                     "torch_04_profiling": (6, 3), "torch_05_iterative_refinement": (2, 1),
-                    "torch_06_compiled": (12, 6), "torch_08_hpl_lu": (18, 9)}
+                    "torch_06_compiled": (10, 5), "torch_08_hpl_lu": (18, 9)}
 #: per-rank launches of each case of example 03 on 4 ranks, the
 #: one-device reference included (2, 1 real; 4, 4 complex): SUMMA and its
 #: epilogue 2 + 1, complex SUMMA 4 + 4, AUTO's choice (an int8 mode) by

@@ -35,7 +35,8 @@ from ..utils.env import env_flag
 from ..utils.log import log
 from ..utils.profiling import culip_timer, synchronize
 from .gemm import (
-    _epilogue_SE, _exponent_plane, _zfold_passes, _zpasses, gemm_f64, zgemm_f64,
+    _epilogue_SE, _exponent_plane, _zfold_passes, _zpasses, gemm_f64, gemm_f64_batched,
+    zgemm_f64, zgemm_f64_batched,
 )
 from .handle import Handle, default_handle
 
@@ -370,9 +371,11 @@ def gemm_batched(
 ):
     """Batched GEMM ``alpha * a[i] @ b[i] + beta * c[i]`` for a [B, m, k],
     b [B, k, n] and c [B, m, n] (strided-batched parity, reference
-    cublas.cu:380-406, which loops over the batch as this does).  Real and
-    complex batches; one AUTO mode for the whole batch.  Numpy or tensor
-    inputs, placed and returned as :func:`gemm` does."""
+    cublas.cu:380-406).  The int8 modes run the batched engine
+    (``core.gemm.gemm_f64_batched``): each kernel launches once per
+    sub-batch, as the JAX package's ``vmap`` makes one call of each.  Real
+    and complex batches; one AUTO mode for the whole batch.  Numpy or
+    tensor inputs, placed and returned as :func:`gemm` does."""
     handle = handle or default_handle()
     mode_r = handle.resolve_mode(mode)
     is_np, at, bt, ct = _operands(a, b, c, handle, device)
@@ -402,11 +405,7 @@ def gemm_batched(
         out = torch.matmul(at, bt) * alpha
     else:
         _check_k_supported(k)
-        at, bt = at.contiguous(), bt.contiguous()
-        out = torch.empty((B, m, n), dtype=torch.float64, device=at.device)
-        for i in range(B):
-            out[i] = gemm_f64(at[i], bt[i], mode_r.num_split, alpha=float(alpha),
-                              beta=float(beta), c=ct[i] if ct is not None else None)
+        out = gemm_f64_batched(at, bt, mode_r.num_split, float(alpha), float(beta), ct)
         return out.cpu().numpy() if is_np else out
     if beta != 0:
         out = out + beta * ct
@@ -418,7 +417,7 @@ def _gemm_batched_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha
     """Complex batch (reference ZgemmStridedBatched shim parity)."""
     at, bt = at.to(torch.complex128), bt.to(torch.complex128)
     ct = ct.to(torch.complex128) if ct is not None else None
-    B, m, k = at.shape
+    k = at.shape[2]
     a_re, a_im = _planes(at)
     b_re, b_im = _planes(bt)
     c_re, c_im = _planes(ct) if ct is not None else (None, None)
@@ -443,12 +442,7 @@ def _gemm_batched_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha
             out = out + be * ct
         return out.cpu().numpy() if is_np else out
     _check_k_supported(k)
-    re = torch.empty((B, m, bt.shape[2]), dtype=torch.float64, device=at.device)
-    im = torch.empty_like(re)
-    for i in range(B):
-        cp = (c_re[i], c_im[i]) if ct is not None else (None, None)
-        re[i], im[i] = zgemm_f64(a_re[i], a_im[i], b_re[i], b_im[i], mode_r.num_split,
-                                 al, be, *cp)
+    re, im = zgemm_f64_batched(a_re, a_im, b_re, b_im, mode_r.num_split, al, be, c_re, c_im)
     return _complex_result(re, im, is_np)
 
 

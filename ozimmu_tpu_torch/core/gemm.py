@@ -17,7 +17,11 @@ plain PyTorch versions.
 Layout contract: row-major logical matrices.  ``gemm_f64(a, b)`` computes
 ``alpha * (a @ b) + beta * c`` for a [m, k] and b [k, n]; ``zgemm_f64``
 does the same on the real and imaginary float64 planes of complex
-operands.  Transpose flags are applied by the public API (core/api.py).
+operands.  ``gemm_f64_batched`` and ``zgemm_f64_batched`` take batches
+[B, m, k] @ [B, k, n], each matrix with its own scales (the JAX package's
+``vmap`` of the cores), and launch each kernel once for as many matrices
+as the memory budget holds.  Transpose flags are applied by the public
+API (core/api.py).
 """
 
 from __future__ import annotations
@@ -30,7 +34,10 @@ from ..ops import tf32x3
 from ..ops.pack import aligned_add, pack_f64, scalar_triple, unpack_f64
 from ..ops.recombine import acc_shift, recombine
 from ..ops.split import split_f64, split_f64_cols
-from ..schedule import auto_n_chunks, bits_per_int8, epilogue_block_bytes
+from ..schedule import (
+    auto_n_chunks, bits_per_int8, epilogue_block_bytes, hbm_budget_bytes,
+    working_set_bytes_chunked,
+)
 
 #: live temporaries per output element of one epilogue block, an upper
 #: estimate that sets the block height: HPL's first trailing update, with
@@ -56,9 +63,15 @@ def _epilogue_SE(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) -> 
     Where the eager passes' temporaries would not fit what the memory
     budget leaves, runs over row blocks into one float64 output: every
     pass is elementwise, so the blocking leaves the bits alone (the
-    working-set model counts the output, S and E)."""
+    working-set model counts the output, S and E).  A batch [B, m, n] runs
+    as its [B*m, n] view, for the same reason."""
     if beta != 0.0 and c is None:
         raise ValueError("beta != 0 requires c")
+    if E.dim() != 2:
+        rows = lambda x: x.reshape(-1, E.shape[-1])  # noqa: E731
+        out = _epilogue_SE(tuple(map(rows, S)), rows(E), alpha, beta,
+                           None if c is None else rows(c))
+        return out.reshape(E.shape)
     m, n = E.shape
     blocks = _row_blocks(m, n, _EPILOGUE_TEMP_BYTES, E.device)
     if len(blocks) == 1:
@@ -88,14 +101,17 @@ def _epilogue_block(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) 
 
 
 def _exponent_plane(pa: torch.Tensor, pb: torch.Tensor, shift: int) -> torch.Tensor:
-    """int32 ``pa[:, None] + pb[None, :] - shift`` (int32 so that the
-    ZERO_ROW_PEXP sentinel arithmetic matches the JAX package's)."""
-    return (pa[:, None] + pb[None, :] - shift).to(torch.int32)
+    """int32 ``pa[:, None] + pb[None, :] - shift``, matrix by matrix for a
+    batch pa [B, m], pb [B, n] (int32 so that the ZERO_ROW_PEXP sentinel
+    arithmetic matches the JAX package's)."""
+    return (pa[..., :, None] + pb[..., None, :] - shift).to(torch.int32)
 
 
 def _gemm_core(a, b, num_split: int, alpha: float, beta: float, c=None) -> torch.Tensor:
-    """Real-valued engine core on one device."""
-    k = a.shape[1]
+    """Real-valued engine core on one device: [m, k] @ [k, n], or a batch
+    [B, m, k] @ [B, k, n] with one split per operand, one recombination
+    and one epilogue for the whole batch."""
+    k = a.shape[-1]
     bb = bits_per_int8(k)
     da, pa = split_f64(a, num_split, bb)
     db, pb = split_f64_cols(b, num_split, bb)
@@ -267,14 +283,20 @@ def _zpasses(a_planes, b_planes, num_split: int, bb: int, k: int):
 def _zgemm_core(a_re, a_im, b_re, b_im, num_split: int, alpha: complex, beta: complex,
                 c_re=None, c_im=None):
     """Complex engine core on one device: four plane splits, four
-    recombinations, one fold."""
-    m, k = a_re.shape
-    n = b_re.shape[1]
+    recombinations, one fold; on a batch [B, m, k] @ [B, k, n] as many
+    launches, the fold running over the [B*m, n] view (it is elementwise)."""
+    k = a_re.shape[-1]
+    shape = (*a_re.shape[:-1], b_re.shape[-1])
     bb = bits_per_int8(k)
     a_planes = {0: split_f64(a_re, num_split, bb), 1: split_f64(a_im, num_split, bb)}
     b_planes = {0: split_f64_cols(b_re, num_split, bb), 1: split_f64_cols(b_im, num_split, bb)}
     SEs = _zpasses(a_planes, b_planes, num_split, bb, k)
-    return _zfold_passes(SEs, m, n, alpha, beta, c_re, c_im, a_re.device)
+    n = shape[-1]
+    rows = lambda x: None if x is None else x.reshape(-1, n)  # noqa: E731
+    SEs = [(tuple(map(rows, S)), rows(E)) for S, E in SEs]
+    re, im = _zfold_passes(SEs, SEs[0][1].shape[0], n, alpha, beta, rows(c_re), rows(c_im),
+                           a_re.device)
+    return re.reshape(shape), im.reshape(shape)
 
 
 def _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split: int, n_chunks: int,
@@ -345,3 +367,116 @@ def zgemm_f64(
     if n_chunks > 1:
         return _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split, n_chunks, *args)
     return _zgemm_core(a_re, a_im, b_re, b_im, num_split, *args)
+
+
+# ---------------------------------------------------------------------------
+# Batched engine: one launch of each kernel per sub-batch.
+# ---------------------------------------------------------------------------
+
+
+def _sub_batches(bsz: int, m: int, n: int, k: int, num_split: int, complex_: bool, device):
+    """Slices of a batch of ``bsz`` products, each run as one launch of each
+    kernel: as many matrices as :func:`~ozimmu_tpu_torch.schedule.hbm_budget_bytes`
+    holds at one matrix's working set (the 2-D engine's model at one
+    panel) plus its epilogue's temporaries (at least one matrix).  None
+    where a single matrix needs column panels: that batch runs matrix by
+    matrix through the 2-D engine and its panels."""
+    if auto_n_chunks(m, n, k, num_split, complex_, device=device) > 1:
+        return None
+    temps = (_ZFOLD_TEMP_BYTES if complex_ else _EPILOGUE_TEMP_BYTES) * m * n
+    per = working_set_bytes_chunked(m, n, k, num_split, 1, complex_) + temps
+    step = max(1, min(bsz, hbm_budget_bytes(device) // per))
+    return [slice(i, min(i + step, bsz)) for i in range(0, bsz, step)]
+
+
+def _check_batch(ops, cs, what: str) -> None:
+    """Operands [B, m, k] and [B, k, n] (``ops``: the A's then the B's, two
+    for complex planes), ``cs`` [B, m, n] or None, float64 on one device."""
+    a, b = ops[0], ops[-1]
+    if any(x.dim() != 3 for x in ops) or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1] \
+            or any(x.shape != ops[0].shape for x in ops[:len(ops) // 2]) \
+            or any(x.shape != b.shape for x in ops[len(ops) // 2:]):
+        raise ValueError(f"{what}: batched shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+    want = (a.shape[0], a.shape[1], b.shape[2])
+    if any(x is not None and tuple(x.shape) != want for x in cs):
+        raise ValueError(f"{what}: c must have shape {want}")
+    if any(x.dtype != torch.float64 for x in (*ops, *(c for c in cs if c is not None))):
+        raise TypeError(f"{what} takes float64 tensors")
+    if any(x.device != a.device for x in (*ops, *(c for c in cs if c is not None))):
+        raise ValueError(f"{what}: all operands must lie on one device")
+    if bits_per_int8(a.shape[2]) <= 0:
+        raise ValueError(f"k={a.shape[2]} too large for int8 emulation")
+
+
+def gemm_f64_batched(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    num_split: int,
+    alpha: float = 1.0,
+    beta: float = 0.0,
+    c: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``alpha * (a[i] @ b[i]) + beta * c[i]`` for float64 a [B, m, k],
+    b [B, k, n] and c [B, m, n] on one device, each matrix bitwise equal to
+    :func:`gemm_f64` on it alone.
+
+    One split of each operand, one recombination and one epilogue for as
+    many matrices as the memory budget holds (:func:`_sub_batches`): on a
+    CUDA device each kernel launches once per sub-batch.  A batch whose
+    single matrix needs column panels runs matrix by matrix."""
+    _check_batch((a, b), (c,), "gemm_f64_batched")
+    if beta != 0.0 and c is None:
+        raise ValueError("beta != 0 requires c")
+    a, b = a.contiguous(), b.contiguous()
+    bsz, m, k = a.shape
+    n = b.shape[2]
+    alpha, beta = float(alpha), float(beta)
+    parts = _sub_batches(bsz, m, n, k, num_split, False, a.device)
+
+    def one(s, core):
+        return core(a[s], b[s], num_split, alpha, beta, None if c is None else c[s])
+
+    if parts is not None and len(parts) == 1:
+        return one(parts[0], _gemm_core)
+    out = torch.empty((bsz, m, n), dtype=torch.float64, device=a.device)
+    core = gemm_f64 if parts is None else _gemm_core
+    for s in range(bsz) if parts is None else parts:
+        out[s] = one(s, core)
+    return out
+
+
+def zgemm_f64_batched(
+    a_re: torch.Tensor,
+    a_im: torch.Tensor,
+    b_re: torch.Tensor,
+    b_im: torch.Tensor,
+    num_split: int,
+    alpha: complex = 1.0 + 0j,
+    beta: complex = 0.0 + 0j,
+    c_re: Optional[torch.Tensor] = None,
+    c_im: Optional[torch.Tensor] = None,
+):
+    """The complex batch of :func:`gemm_f64_batched` on float64 planes
+    [B, m, k], [B, k, n] (and c [B, m, n]), each matrix bitwise equal to
+    :func:`zgemm_f64` on it alone: four plane splits and four
+    recombinations (one per entry of :data:`ZGEMM_PASSES`) per sub-batch.
+    Returns the (re, im) float64 planes [B, m, n]."""
+    _check_batch((a_re, a_im, b_re, b_im), (c_re, c_im), "zgemm_f64_batched")
+    a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
+    bsz, m, k = a_re.shape
+    n = b_re.shape[2]
+    alpha, beta = complex(alpha), complex(beta)
+    parts = _sub_batches(bsz, m, n, k, num_split, True, a_re.device)
+
+    def one(s, core):
+        cs = [None if x is None else x[s] for x in (c_re, c_im)]
+        return core(a_re[s], a_im[s], b_re[s], b_im[s], num_split, alpha, beta, *cs)
+
+    if parts is not None and len(parts) == 1:
+        return one(parts[0], _zgemm_core)
+    out_re = torch.empty((bsz, m, n), dtype=torch.float64, device=a_re.device)
+    out_im = torch.empty_like(out_re)
+    core = zgemm_f64 if parts is None else _zgemm_core
+    for s in range(bsz) if parts is None else parts:
+        out_re[s], out_im[s] = one(s, core)
+    return out_re, out_im

@@ -55,6 +55,17 @@
 // The wrapper zero-pads k to a multiple of 16 (TMA's stride rule); zero
 // digits add zero products, and TMA fills the rest of the last k tile and
 // the rows beyond m or n with zeros.
+//
+// A batch (the TPU kernel under jax.vmap, one call with a leading grid
+// axis) is one launch, and a 2-D call is its batch-1 case.  The planes are
+// [ns, batch, rows, k_pad]; the tensor maps see them as [ns * batch] planes
+// of [rows, k_pad], plane p of matrix i being plane p * batch + i, so that
+// every matrix keeps its own row bound and TMA's zero fill beyond m (or n)
+// applies per matrix: no tile reads a neighbouring matrix's rows.  The
+// persistent walk covers batch x units_m x tiles_n units, matrix by
+// matrix, its bands of kGroupM inside one matrix; a cluster's stacked
+// tiles belong to one matrix.  The output planes are [batch, m, n], each
+// matrix at a 64-bit offset.
 
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and the encoder's types; libcuda is reached at run time
@@ -272,11 +283,13 @@ struct Wgmma<128> {
 #undef OZ_D32
 #undef OZ_D8
 
-// Unit `t` of a tiles_m x tiles_n grid (cluster tile rows x tile columns)
-// in the persistent order: bands of kGroupM rows, column-major inside a
-// band.
+// Unit `t` of `batch` grids of tiles_m x tiles_n (cluster tile rows x tile
+// columns) in the persistent order: matrix by matrix, bands of kGroupM
+// rows inside one matrix, column-major inside a band.
 __device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n,
-                                            int& tm, int& tn) {
+                                            int& mat, int& tm, int& tn) {
+  mat = t / (tiles_m * tiles_n);
+  t -= mat * tiles_m * tiles_n;
   const int per_band = kGroupM * tiles_n;
   const int band = t / per_band;
   const int first = band * kGroupM;
@@ -357,7 +370,7 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
                      const __grid_constant__ CUtensorMap map_b,
                      float* __restrict__ o0, float* __restrict__ o1,
                      float* __restrict__ o2, int m, int n, int k_tiles,
-                     const Schedule sch) {
+                     int batch, const Schedule sch) {
   using T = Tile<NC, BN, STAGES, CM>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -370,7 +383,7 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
   // the cluster's unit of work: CM tiles stacked along m
   const int units_m = ((m + T::BM - 1) / T::BM + CM - 1) / CM;
   const int tiles_n = (n + BN - 1) / BN;
-  const int units = units_m * tiles_n;
+  const int units = batch * units_m * tiles_n;
   const int unit0 = blockIdx.x / CM, units_step = gridDim.x / CM;
   const int n_pairs = sch.start[sch.n_groups];
 
@@ -393,11 +406,11 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
       int stage = 0;
       uint32_t phase = 0;
       for (int u = unit0; u < units; u += units_step) {
-        int um, tn;
-        tile_coords(u, units_m, tiles_n, um, tn);
+        int mat, um, tn;
+        tile_coords(u, units_m, tiles_n, mat, um, tn);
         const int tm = um * CM + rank;
         for (int p = 0; p < n_pairs; ++p) {
-          const int pa = sch.pi[p], pb = sch.pj[p];
+          const int pa = sch.pi[p] * batch + mat, pb = sch.pj[p] * batch + mat;
           for (int kt = 0; kt < k_tiles; ++kt) {
             mbar_wait(empty0 + 8 * stage, phase ^ 1);
             const uint32_t full = full0 + 8 * stage;
@@ -446,9 +459,10 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
       }
     };
     for (int u = unit0; u < units; u += units_step) {
-      int um, tn;
-      tile_coords(u, units_m, tiles_n, um, tn);
+      int mat, um, tn;
+      tile_coords(u, units_m, tiles_n, mat, um, tn);
       const int tm = um * CM + rank;
+      const int64_t out0 = (int64_t)mat * m * n;  // this matrix's output
       const int row0 = tm * T::BM + wg * 64 + warp * 16 + (lane >> 2);
       const int col0 = tn * BN + (lane & 3) * 2;
       int p = 0;
@@ -480,7 +494,8 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
         wgmma_wait<0>();
         fence_regs(d);
         release(prev);
-        fold_group(d, o0, o1, o2, row0, col0, m, n, sch.scale_hi[g], sch.scale_lo[g],
+        fold_group(d, o0 + out0, o1 + out0, o2 + out0, row0, col0, m, n, sch.scale_hi[g],
+                   sch.scale_lo[g],
                    g == 0, g == sch.n_groups - 1);
       }
     }
@@ -511,14 +526,14 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// Tensor map of int8 planes [ns, rows, k_pad] (k contiguous), boxes of
+// Tensor map of int8 planes [planes, rows, k_pad] (k contiguous), boxes of
 // BK bytes of k by box_rows rows of one plane, 128-byte swizzle, zeros
-// outside the planes.
-bool plane_map(CUtensorMap* map, const void* planes, int ns, int rows, int k_pad,
+// outside each plane's rows and k.
+bool plane_map(CUtensorMap* map, const void* planes, int n_planes, int rows, int k_pad,
                int box_rows) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)k_pad, (cuuint64_t)rows, (cuuint64_t)ns};
+  const cuuint64_t dims[3] = {(cuuint64_t)k_pad, (cuuint64_t)rows, (cuuint64_t)n_planes};
   const cuuint64_t strides[2] = {(cuuint64_t)k_pad, (cuuint64_t)rows * k_pad};
   const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
@@ -530,13 +545,13 @@ bool plane_map(CUtensorMap* map, const void* planes, int ns, int rows, int k_pad
 
 template <int NC, int BN, int STAGES, int CM>
 int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int m,
-           int n, int ns, int k_pad, const Schedule& sch, int grid, int smem_bytes,
-           cudaStream_t stream) {
+           int n, int ns, int k_pad, int batch, const Schedule& sch, int grid,
+           int smem_bytes, cudaStream_t stream) {
   using T = Tile<NC, BN, STAGES, CM>;
   if (smem_bytes != T::SMEM_BYTES || grid % CM != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
-  if (!plane_map(&map_a, da, ns, m, k_pad, T::BM) ||
-      !plane_map(&map_b, dbt, ns, n, k_pad, BN / CM))
+  if (!plane_map(&map_a, da, ns * batch, m, k_pad, T::BM) ||
+      !plane_map(&map_b, dbt, ns * batch, n, k_pad, BN / CM))
     return (int)cudaErrorInvalidValue;
   auto kernel = recombine_kernel<NC, BN, STAGES, CM>;
   cudaError_t e =
@@ -563,14 +578,16 @@ int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int
     if (grid > fit * CM) cfg.gridDim = dim3(fit * CM);
   }
   e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, o0, o1, o2, m, n,
-                         (k_pad + BK - 1) / BK, sch);
+                         (k_pad + BK - 1) / BK, batch, sch);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// da: [ns, m, k_pad]; dbt: B's planes transposed to [ns, n, k_pad]; both
-// 16-byte aligned, k_pad a multiple of 16, zero beyond the true k.
+// da: [ns, batch, m, k_pad]; dbt: B's planes transposed to
+// [ns, batch, n, k_pad]; both 16-byte aligned, k_pad a multiple of 16, zero
+// beyond the true k; o0, o1, o2: [batch, m, n]; batch x (cluster units of
+// one matrix) below 2^31 (the launch plan checks).
 // group_start: n_groups + 1 pair offsets; pair_i / pair_j: 0-based planes
 // of each pair; scale_hi / scale_lo: the two f32 factors of each group.
 // All five are host arrays.  tile: 0 = 128x256 in clusters of 2 (4
@@ -580,13 +597,14 @@ int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int
 // (ops/recombine_cuda.py::launch_plan).
 // Returns a cudaError_t code (0 = launched).
 extern "C" int oz_recombine(const void* da, const void* dbt, void* o0, void* o1,
-                            void* o2, int m, int n, int ns, int k_pad, int n_groups,
+                            void* o2, int m, int n, int ns, int k_pad, int batch,
+                            int n_groups,
                             const int32_t* group_start, const int32_t* pair_i,
                             const int32_t* pair_j, const float* scale_hi,
                             const float* scale_lo, int tile, int grid, int smem_bytes,
                             void* stream) {
   if (n_groups < 1 || n_groups > kMaxGroups || group_start[n_groups] > kMaxPairs ||
-      k_pad < 16 || k_pad % 16 != 0 || m < 1 || n < 1 || ns < 1 || grid < 1 ||
+      k_pad < 16 || k_pad % 16 != 0 || m < 1 || n < 1 || ns < 1 || batch < 1 || grid < 1 ||
       (uintptr_t)da % 16 != 0 || (uintptr_t)dbt % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Schedule sch;
@@ -604,9 +622,11 @@ extern "C" int oz_recombine(const void* da, const void* dbt, void* o0, void* o1,
   float *p0 = (float*)o0, *p1 = (float*)o1, *p2 = (float*)o2;
   switch (tile) {
     case 0:
-      return launch<2, 256, 4, 2>(da, dbt, p0, p1, p2, m, n, ns, k_pad, sch, grid, smem_bytes, s);
+      return launch<2, 256, 4, 2>(da, dbt, p0, p1, p2, m, n, ns, k_pad, batch, sch, grid,
+                                  smem_bytes, s);
     case 1:
-      return launch<1, 128, 8, 1>(da, dbt, p0, p1, p2, m, n, ns, k_pad, sch, grid, smem_bytes, s);
+      return launch<1, 128, 8, 1>(da, dbt, p0, p1, p2, m, n, ns, k_pad, batch, sch, grid,
+                                  smem_bytes, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -20,6 +20,14 @@
 // pass, so the operand is read once (the plain version reads it once per
 // plane).  The 128-bit shift runs on two uint64 words; every shift count
 // that could reach 64 is a branch, never a C shift (undefined behaviour).
+//
+// A batch (the TPU kernel under jax.vmap, one call with a leading grid
+// axis) is one launch over the contiguous [batch, rows, cols] operand, and
+// a 2-D call is its batch-1 case.  Rows' exponents (axis = 1, the A
+// operand) are int32 [batch * rows], the batch being only more rows;
+// columns' exponents (axis = 0, the B operand) are int32 [batch, cols], one
+// row of them per matrix.  The planes are int8 [ns, batch, rows, cols].
+// Every flattened index is 64-bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -28,10 +36,11 @@ namespace {
 
 __global__ void split_digits_kernel(const uint64_t* __restrict__ x,
                                     const int32_t* __restrict__ e_max,
-                                    int8_t* __restrict__ out, int64_t rows,
-                                    int64_t cols, int num_split, int b,
-                                    int axis) {
-  const int64_t total = rows * cols;
+                                    int8_t* __restrict__ out, int64_t batch,
+                                    int64_t rows, int64_t cols, int num_split,
+                                    int b, int axis) {
+  const int64_t plane = rows * cols;  // one matrix
+  const int64_t total = batch * plane;
   const uint64_t mask = (1ull << b) - 1ull;
   for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
        idx < total; idx += (int64_t)gridDim.x * blockDim.x) {
@@ -40,7 +49,13 @@ __global__ void split_digits_kernel(const uint64_t* __restrict__ x,
     uint64_t m53 = bits & ((1ull << 52) - 1ull);
     if (e > 0) m53 |= 1ull << 52;
     const int neg = (int)(bits >> 63);
-    const int er = axis == 1 ? e_max[idx / cols] : e_max[idx % cols];
+    int er;
+    if (axis == 1) {
+      er = e_max[idx / cols];
+    } else {
+      const int64_t col = idx % cols;
+      er = e_max[batch == 1 ? col : (idx / plane) * cols + col];
+    }
     int u = er > 0 ? er + 1 - e : 159;
     // u < 0 only for an e_max below the element's own exponent; the TPU
     // kernel's unsigned shift flushes that to zero digits, and so does this
@@ -77,16 +92,18 @@ __global__ void split_digits_kernel(const uint64_t* __restrict__ x,
 
 }  // namespace
 
+// x: float64 [batch, rows, cols], contiguous; e_max: int32 [batch * rows]
+// (axis = 1) or [batch, cols] (axis = 0); out: int8 [ns, batch, rows, cols].
 extern "C" int oz_split_digits(const void* x, const void* e_max, void* out,
-                               int64_t rows, int64_t cols, int num_split,
-                               int b, int axis, void* stream) {
+                               int64_t batch, int64_t rows, int64_t cols,
+                               int num_split, int b, int axis, void* stream) {
   const int threads = 256;
-  const int64_t total = rows * cols;
+  const int64_t total = batch * rows * cols;
   int64_t blocks = (total + threads - 1) / threads;
   if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond this
   split_digits_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint64_t*)x, (const int32_t*)e_max, (int8_t*)out, rows, cols,
-      num_split, b, axis);
+      (const uint64_t*)x, (const int32_t*)e_max, (int8_t*)out, batch, rows,
+      cols, num_split, b, axis);
   return (int)cudaGetLastError();
 }
 

@@ -49,12 +49,15 @@ def _round_up(x: int, q: int) -> int:
 
 
 def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int8 [m, k] @ int8 [k, n] -> int32 through ``torch._int_mm``.
+    """Exact int8 [m, k] @ int8 [k, n] -> int32 through ``torch._int_mm``;
+    a batch [B, m, k] @ [B, k, n] matrix by matrix.
 
     On CUDA that op needs m > 16 and k, n multiples of 8; zero padding to
     those sizes is exact (zero digits add zero products), so the operands
     are padded and the result sliced back.
     """
+    if a.dim() == 3:
+        return torch.stack([_int_mm(x, y) for x, y in zip(a, b)])
     m, k = a.shape
     n = b.shape[1]
     mp, kp, np_ = max(m, 17), _round_up(k, 8), _round_up(n, 8)
@@ -68,8 +71,9 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, k: int, b: int) -> List[torch.Tensor]:
     """Int32 partial products of every scheduled t-group (a list, in
     ascending-t schedule order): the sum of ``da[i-1] @ db[j-1]`` over the
-    group's pairs.  Exact — the schedule's cap bounds the FULL contraction
-    (pass the true k)."""
+    group's pairs, for planes [ns, m, k] @ [ns, k, n] or, matrix by matrix,
+    a batch [ns, B, m, k] @ [ns, B, k, n].  Exact — the schedule's cap
+    bounds the FULL contraction (pass the true k)."""
     totals = []
     for g in group_schedule(num_split, k, b):
         d = None
@@ -83,7 +87,8 @@ def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, k: int, b: 
 def fold_group_totals(totals, num_split: int, k: int, b: int) -> Triple:
     """Deterministic fold of the int32 group totals into the triple-f32
     accumulator (ascending t; each total split exactly into two f32
-    16-bit-half terms)."""
+    16-bit-half terms).  Elementwise: a batch's totals fold as each
+    matrix's would."""
     shift = acc_shift(num_split, b)
     acc = tf32x3.zeros(totals[0].shape, device=totals[0].device)
     for g, d in zip(group_schedule(num_split, k, b), totals):
@@ -98,8 +103,9 @@ def fold_group_totals(totals, num_split: int, k: int, b: int) -> Triple:
 def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int) -> Triple:
     """Weighted recombination of all scheduled slice pairs.
 
-    Returns the triple-f32 accumulator ``S_shifted`` [m, n] such that the
-    mathematical partial result is::
+    Returns the triple-f32 accumulator ``S_shifted`` [m, n] (for a batch of
+    planes [ns, B, m, k] @ [ns, B, k, n], [B, m, n] in one kernel launch)
+    such that the mathematical partial result is::
 
         sum_{i+j<=ns+1} (A_i @ B_j) * 2^(2 - b(i+j))
             == S_shifted * 2^(-ACC_SHIFT)

@@ -72,18 +72,20 @@ def _smem_bytes(block_m: int, block_n: int, stages: int) -> int:
 
 
 def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
-                tile: Optional[int] = None) -> LaunchPlan:
-    """The launch of an m x n product over ``k`` (the planes' k) with
-    ``num_split`` planes on a card with ``sms`` SMs.  Unless ``tile`` forces
-    a class, the one whose waves of tiles finish first: waves x tile area /
-    relative rate (the large tile leaves most SMs idle on small products)."""
+                tile: Optional[int] = None, batch: int = 1) -> LaunchPlan:
+    """The launch of ``batch`` m x n products over ``k`` (the planes' k)
+    with ``num_split`` planes on a card with ``sms`` SMs.  Unless ``tile``
+    forces a class, the one whose waves of tiles (over the whole batch)
+    finish first: waves x tile area / relative rate (the large tile leaves
+    most SMs idle on small products)."""
     pairs = num_split * (num_split + 1) // 2
-    if pairs > MAX_PAIRS or min(m, n, k, sms) < 1:
-        raise ValueError(f"no launch for m={m} n={n} k={k} ns={num_split} sms={sms}")
+    if pairs > MAX_PAIRS or min(m, n, k, sms, batch) < 1:
+        raise ValueError(
+            f"no launch for m={m} n={n} k={k} ns={num_split} sms={sms} batch={batch}")
 
     def units_of(t: int) -> int:  # clusters' units of work
         nc, bn, _, cm = TILES[t]
-        return math.ceil(math.ceil(m / (64 * nc)) / cm) * math.ceil(n / bn)
+        return batch * math.ceil(math.ceil(m / (64 * nc)) / cm) * math.ceil(n / bn)
 
     def cost(t: int) -> float:
         nc, bn, _, cm = TILES[t]
@@ -97,6 +99,8 @@ def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
         raise ValueError(f"tile class {tile} needs {cm} SMs, the card has {sms}")
     k_pad = -(-k // K_ALIGN) * K_ALIGN
     units = units_of(tile)
+    if units * cm >= 2**31 or num_split * batch >= 2**31:
+        raise ValueError(f"{units} units of {batch} matrices exceed the kernel's 32-bit unit index")
     return LaunchPlan(
         tile=tile, block_m=64 * nc, block_n=bn, stages=stages, cluster=cm, k_pad=k_pad,
         tiles=units * cm, grid=cm * min(sms // cm, units),
@@ -125,9 +129,9 @@ def _schedule_arrays(num_split: int, k: int, b: int):
 
 
 def _k_major(planes: torch.Tensor, k_pad: int) -> torch.Tensor:
-    """``planes`` [ns, rows, k] as a 16-byte aligned [ns, rows, k_pad]
+    """``planes`` [ns, B, rows, k] as a 16-byte aligned [ns, B, rows, k_pad]
     tensor, zero beyond k (zero digits add zero products)."""
-    k = planes.shape[2]
+    k = planes.shape[-1]
     if k != k_pad:
         planes = F.pad(planes, (0, k_pad - k))
     planes = planes.contiguous()
@@ -137,45 +141,53 @@ def _k_major(planes: torch.Tensor, k_pad: int) -> torch.Tensor:
 def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
               tile: Optional[int] = None) -> Triple:
     """The 2^ACC_SHIFT-scaled triple-f32 accumulator [m, n] of the digit
-    planes ``da`` int8 [ns, m, k] and ``db`` int8 [ns, k, n]; ``k`` is the
-    true contraction length, which sets the group caps.  ``tile`` forces a
-    tile class of :data:`TILES` (the launch plan chooses otherwise)."""
+    planes ``da`` int8 [ns, m, k] and ``db`` int8 [ns, k, n]; or, in one
+    launch, [B, m, n] of a batch ``da`` [ns, B, m, k], ``db`` [ns, B, k, n],
+    matrix i the product of the planes of matrix i.  ``k`` is the true
+    contraction length, which sets the group caps.  ``tile`` forces a tile
+    class of :data:`TILES` (the launch plan chooses otherwise)."""
     global LAUNCHES
     if da.device.type != "cuda" or db.device != da.device:
         raise ValueError(
             f"recombine needs CUDA tensors on one device, got {da.device} and {db.device}"
         )
     for name, t in (("da", da), ("db", db)):
-        if t.dtype != torch.int8 or t.dim() != 3 or not t.is_contiguous():
+        if t.dtype != torch.int8 or t.dim() != da.dim() or t.dim() not in (3, 4) \
+                or not t.is_contiguous():
             raise ValueError(
-                f"{name} must be a contiguous int8 [ns, ., .] tensor, got {t.dtype} {tuple(t.shape)}"
+                f"{name} must be a contiguous int8 [ns, (B,) ., .] tensor, got {t.dtype} "
+                f"{tuple(t.shape)}"
             )
-    ns, m, k_in = da.shape
-    n = db.shape[2]
-    if ns != num_split or db.shape[0] != ns or db.shape[1] != k_in:
+    batched = da.dim() == 4
+    if not batched:
+        da, db = da.unsqueeze(1), db.unsqueeze(1)
+    ns, bsz, m, k_in = da.shape
+    n = db.shape[3]
+    if ns != num_split or tuple(db.shape[:3]) != (ns, bsz, k_in):
         raise ValueError(f"plane shapes {tuple(da.shape)} @ {tuple(db.shape)} do not match ns={num_split}")
     if k_in > k or max(m, n, k) >= 2**31:
         raise ValueError(f"unsupported sizes m={m} n={n} k={k_in} (true k={k})")
     if not 3 <= num_split <= 18 or not 1 <= b <= 7:
         raise ValueError(f"unsupported num_split={num_split}, b={b}")
-    out = tuple(torch.empty((m, n), dtype=torch.float32, device=da.device) for _ in range(3))
-    if m == 0 or n == 0 or k_in == 0:
-        return tuple(o.zero_() for o in out)
+    out = tuple(torch.empty((bsz, m, n), dtype=torch.float32, device=da.device) for _ in range(3))
+    if min(bsz, m, n, k_in) == 0:
+        out = tuple(o.zero_() for o in out)
+        return out if batched else tuple(o[0] for o in out)
     sms = torch.cuda.get_device_properties(da.device).multi_processor_count
-    plan = launch_plan(m, n, k_in, num_split, sms, tile)
+    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz)
     # both operands go over k-contiguous (wgmma takes 8-bit operands only
-    # K-major): B's planes as [ns, n, k_pad], one copy of ns*k*n bytes
+    # K-major): B's planes as [ns, B, n, k_pad], one copy of ns*B*k*n bytes
     da = _k_major(da, plan.k_pad)
-    dbt = _k_major(db.transpose(1, 2), plan.k_pad)
+    dbt = _k_major(db.transpose(2, 3), plan.k_pad)
     n_groups, start, pi, pj, shi, slo = _schedule_arrays(num_split, k, b)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
     with torch.cuda.device(da.device):
         stream = torch.cuda.current_stream(da.device).cuda_stream
         code = native.lib().oz_recombine(
             da.data_ptr(), dbt.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            m, n, ns, plan.k_pad, n_groups, ptr(start), ptr(pi), ptr(pj), ptr(shi), ptr(slo),
+            m, n, ns, plan.k_pad, bsz, n_groups, ptr(start), ptr(pi), ptr(pj), ptr(shi), ptr(slo),
             plan.tile, plan.grid, plan.smem_bytes, stream,
         )
     native.check(code, "recombine launch")
     LAUNCHES += 1
-    return out
+    return out if batched else tuple(o[0] for o in out)

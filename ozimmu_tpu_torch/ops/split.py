@@ -36,8 +36,10 @@ ZERO_ROW_PEXP = -(2**20)
 
 
 def row_exponent(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
-    """Max biased exponent field (int32) along the contraction axis."""
-    return torch.amax(exponent_field(x), dim=axis)
+    """Max biased exponent field (int32) along the contraction axis of a
+    matrix [R, C] or of each matrix of a batch [B, R, C]: one per row
+    (``axis=1``) or one per column (``axis=0``)."""
+    return torch.amax(exponent_field(x), dim=axis - 2)
 
 
 def pexp_from_row_exp(e_row: torch.Tensor) -> torch.Tensor:
@@ -57,13 +59,15 @@ def split_with_row_exp(
     digits come out in the matrix's natural layout.
 
     Returns ``(digits, pexp)``: int8 ``[ns, rows, cols]`` and int32
-    ``[rows]`` (axis=1) or ``[cols]`` (axis=0).  Each window is cut from
+    ``[rows]`` (axis=1) or ``[cols]`` (axis=0).  A batch ``x`` [B, rows,
+    cols] with ``e_row`` [B, rows] or [B, cols] gives int8 ``[ns, B, rows,
+    cols]``, each matrix split as on its own.  Each window is cut from
     the int64 53-bit significand; all shift counts are clamped into
     [0, 62], which keeps the semantics because the significand is below
     2^53 and windows reaching below bit -b are zero.
     """
     e_row = e_row.to(torch.int32)
-    bcast = (slice(None), None) if axis == 1 else (None, slice(None))
+    bcast = (..., slice(None), None) if axis == 1 else (..., None, slice(None))
     m53 = mantissa53(x)
     neg = sign_bit(x) == 1
     delta = (e_row + 1)[bcast].to(torch.int64) - exponent_field(x).to(torch.int64)
@@ -84,9 +88,9 @@ def split_with_exp(
     x: torch.Tensor, e_max: torch.Tensor, num_split: int, b: int, axis: int = 1
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`split_with_row_exp` on ``x``'s device: the CUDA kernel for a
-    CUDA tensor, the plain version for a CPU tensor.  ``e_max`` is the max
-    exponent field along ``axis`` (the distributed layer passes the max
-    over every rank's block)."""
+    CUDA tensor (one launch, also for a batch), the plain version for a CPU
+    tensor.  ``e_max`` is the max exponent field along ``axis`` (the
+    distributed layer passes the max over every rank's block)."""
     if x.device.type == "cuda":
         from .split_cuda import split_digits
 
@@ -105,7 +109,8 @@ def split_f64(x: torch.Tensor, num_split: int, b: int) -> Tuple[torch.Tensor, to
     """Split ``x`` [rows, k] into digit planes.
 
     Returns ``(digits, pexp)``: ``digits`` int8 ``[ns, rows, k]``, ``pexp``
-    int32 ``[rows]`` with row scale ``2^pexp``.
+    int32 ``[rows]`` with row scale ``2^pexp``; for a batch [B, rows, k],
+    ``[ns, B, rows, k]`` and ``[B, rows]``.
     """
     return _split(x, num_split, b, axis=1)
 
@@ -116,6 +121,7 @@ def split_f64_cols(x: torch.Tensor, num_split: int, b: int) -> Tuple[torch.Tenso
     Same semantics as splitting ``x.T`` row-wise (reference
     split.cu:277-282 swaps m/n and the op), computed directly in the
     [k, cols] layout.  Returns digits int8 ``[ns, k, cols]`` and pexp
-    int32 [cols].
+    int32 [cols]; for a batch [B, k, cols], ``[ns, B, k, cols]`` and
+    ``[B, cols]``.
     """
     return _split(x, num_split, b, axis=0)

@@ -33,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from .core.gemm import gemm_f64, zgemm_f64
+from .core.gemm import gemm_f64, gemm_f64_batched, zgemm_f64, zgemm_f64_batched
 from .schedule import bits_per_int8
 
 
@@ -42,16 +42,20 @@ def _check_k(k: int) -> None:
         raise ValueError(f"k={k} exceeds the int8 emulation bound")
 
 
-def _gemm_2d(a, b, c, num_split: int, alpha: complex, beta: complex, n_chunks):
-    """The engine on one [m, k] @ [k, n] product (real or complex)."""
+def _engine(a, b, c, num_split: int, alpha: complex, beta: complex, **kw):
+    """The engine on one [m, k] @ [k, n] product (``kw`` holds its
+    ``n_chunks``) or on a batch [B, m, k] @ [B, k, n], real or complex."""
     a, b = a.resolve_conj().resolve_neg(), b.resolve_conj().resolve_neg()
     if c is not None:
         c = c.resolve_conj().resolve_neg()
+    batched = a.dim() == 3
     if not a.is_complex():
-        return gemm_f64(a, b, num_split, alpha.real, beta.real, c, n_chunks=n_chunks)
+        f = gemm_f64_batched if batched else gemm_f64
+        return f(a, b, num_split, alpha.real, beta.real, c, **kw)
     planes = [x.contiguous() for x in (a.real, a.imag, b.real, b.imag)]
     cp = (c.real.contiguous(), c.imag.contiguous()) if c is not None else (None, None)
-    re, im = zgemm_f64(*planes, num_split, alpha, beta, *cp, n_chunks=n_chunks)
+    re, im = (zgemm_f64_batched if batched else zgemm_f64)(*planes, num_split, alpha, beta,
+                                                            *cp, **kw)
     return torch.complex(re, im)
 
 
@@ -60,8 +64,8 @@ def _gemm_op(
     a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor], num_split: int,
     alpha_re: float, alpha_im: float, beta_re: float, beta_im: float, n_chunks: Optional[int],
 ) -> torch.Tensor:
-    return _gemm_2d(a, b, c, num_split, complex(alpha_re, alpha_im),
-                    complex(beta_re, beta_im), n_chunks)
+    return _engine(a, b, c, num_split, complex(alpha_re, alpha_im),
+                   complex(beta_re, beta_im), n_chunks=n_chunks)
 
 
 @_gemm_op.register_fake
@@ -74,12 +78,7 @@ def _gemm_batched_op(
     a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor], num_split: int,
     alpha_re: float, alpha_im: float, beta_re: float, beta_im: float,
 ) -> torch.Tensor:
-    alpha, beta = complex(alpha_re, alpha_im), complex(beta_re, beta_im)
-    out = a.new_empty((a.shape[0], a.shape[1], b.shape[2]))
-    for i in range(a.shape[0]):
-        out[i] = _gemm_2d(a[i], b[i], c[i] if c is not None else None, num_split, alpha,
-                          beta, None)
-    return out
+    return _engine(a, b, c, num_split, complex(alpha_re, alpha_im), complex(beta_re, beta_im))
 
 
 @_gemm_batched_op.register_fake

@@ -74,6 +74,50 @@ def test_recombine_kernel_equals_plain(dev, m, n, k, ns):
             assert torch.equal(w.view(torch.int32), g.view(torch.int32)), tile
 
 
+@pytest.mark.parametrize("ns,b", [(3, 7), (9, 5), (18, 5)])
+def test_split_kernel_on_a_batch_equals_plain(dev, ns, b):
+    """One launch over [3, 1000, 777] (each matrix against its own row or
+    column exponents) equals the plain split of the batch and the 2-D
+    kernel of each matrix."""
+    x_np = generate_input("exp_rand-8", (3, 1000, 777), seed=2)
+    x_np[0, 5, :] = 0.0
+    x_np[1, :, 7] = 0.0
+    x_np[2, 3, 3] = 5e-324
+    x = torch.from_numpy(x_np).to(dev)
+    for axis in (0, 1):
+        e = S.row_exponent(x, axis)
+        want, _ = S.split_with_row_exp(x, e, ns, b, axis)
+        before = split_cuda.LAUNCHES
+        got = split_cuda.split_digits(x, e, ns, b, axis)
+        assert split_cuda.LAUNCHES - before == 1
+        assert torch.equal(want, got), (ns, b, axis)
+        for i in range(3):
+            assert torch.equal(got[:, i], split_cuda.split_digits(x[i], e[i].contiguous(), ns, b,
+                                                                  axis)), (axis, i)
+
+
+@pytest.mark.parametrize("bsz,m,n,k,ns", [(5, 1000, 513, 777, 9), (3, 17, 9, 32, 3),
+                                          (4, 130, 260, 4096, 18), (64, 256, 256, 256, 9),
+                                          (2, 1025, 1023, 1025, 16)])
+def test_recombine_kernel_on_a_batch_equals_plain(dev, bsz, m, n, k, ns):
+    """One launch over the batch, bitwise on all three planes in every
+    tile class, equal to the plain version matrix by matrix: m and n off
+    every tile size, so that a tile reaching past a matrix's last row
+    reads zeros and not the next matrix's rows."""
+    b = bits_per_int8(k)
+    a = torch.from_numpy(generate_input("normal01", (bsz, m, k), seed=m)).to(dev)
+    bm = torch.from_numpy(generate_input("exp_rand-8", (bsz, k, n), seed=n)).to(dev)
+    da, _ = S.split_f64(a, ns, b)
+    db, _ = S.split_f64_cols(bm, ns, b)
+    want = R.fold_group_totals(R.group_totals(da, db, ns, k, b), ns, k, b)
+    for tile in [None, *range(len(recombine_cuda.TILES))]:
+        before = recombine_cuda.LAUNCHES
+        got = recombine_cuda.recombine(da, db, ns, b, k, tile=tile)
+        assert recombine_cuda.LAUNCHES - before == 1
+        for w, g in zip(want, got):
+            assert torch.equal(w.view(torch.int32), g.view(torch.int32)), tile
+
+
 @pytest.mark.parametrize("m,n,k,ns", [(200, 136, 272, 6), (1000, 1234, 777, 9), (256, 128, 1024, 18)])
 def test_zgemm_on_the_kernels_equals_plain(dev, m, n, k, ns):
     """The 4-pass complex engine through both kernels against the same
@@ -118,7 +162,11 @@ def test_batched_equals_a_loop_and_plain(dev, kind):
     b = torch.from_numpy(generate_input("exp_rand-8", (3, 272, 136), seed=6, complex_=cx))
     c = torch.from_numpy(generate_input("normal01", (3, 200, 136), seed=7, complex_=cx))
     kw = dict(mode="fp64_int8_9", alpha=1.5, beta=-0.5)
+    torch.cuda.synchronize()
+    before = (split_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
     got = ozt.gemm_batched(a.to(dev), b.to(dev), c=c.to(dev), **kw)
+    launches = (split_cuda.LAUNCHES - before[0], recombine_cuda.LAUNCHES - before[1])
+    assert launches == ((4, 4) if cx else (2, 1)), launches  # for the whole batch
     as_real = torch.view_as_real if cx else (lambda t: t)
     want = ozt.gemm_batched(a, b, c=c, **kw)
     assert torch.equal(as_real(got.cpu()).view(torch.int64), as_real(want).view(torch.int64))

@@ -112,9 +112,9 @@ def make_copies(root: str) -> dict:
     _edit(os.path.join(tiles, "ozimmu_tpu_torch", "csrc", "recombine.cu"),
           ("#include <cuda_runtime.h>", "#include <cuda_runtime.h>\n#include <cstdio>"),
           (SWITCH, "    case 2:\n      return launch<2, 256, 4, 1>(da, dbt, p0, p1, p2, m, n, ns, "
-                   "k_pad, sch, grid, smem_bytes, s);\n"
+                   "k_pad, batch, sch, grid, smem_bytes, s);\n"
                    "    case 3:\n      return launch<2, 256, 4, 4>(da, dbt, p0, p1, p2, m, n, ns, "
-                   "k_pad, sch, grid, smem_bytes, s);\n" + SWITCH),
+                   "k_pad, batch, sch, grid, smem_bytes, s);\n" + SWITCH),
           (FIT, FIT + '    static int told[8] = {};\n'
                       '    if (!told[CM]++) printf("{\\"clusters_of\\": %d, \\"fit\\": %d}\\n", '
                       'CM, fit);\n'))
