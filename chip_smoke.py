@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``ozimmu_tpu_torch/csrc``, checks each kernel
-bit for bit against its plain PyTorch version (the recombine kernel in
-each of its tile classes), drives the main path — the real DGEMM
-``gemm(a, b, mode="fp64_int8_9")`` at m = n = k = 8192 — checks its bits
-against the plain pipeline and its residual against a long-double oracle,
-shows that the main path went through both kernels, and times the main
-path, its phases, each kernel against its plain version and its bound, the
-int8 products alone through ``torch._int_mm`` as a yardstick, and
-``torch.matmul`` on float64.
+bit for bit against its plain PyTorch version (the exponent max; the split
+in both plane layouts, natural and k-major; the recombine kernel in each
+of its tile classes, from either layout), drives the main path — the real
+DGEMM ``gemm(a, b, mode="fp64_int8_9")`` at m = n = k = 8192 — checks its
+bits against the plain pipeline and its residual against a long-double
+oracle, shows that the main path launched the exponent max and the split
+twice each and recombine once, and times the main path, its phases, each
+operand's split stage and each kernel against its plain version and its
+bound, the transposed copy of B's planes that the k-major split removed
+and the int8 products alone through ``torch._int_mm`` as yardsticks, the
+GEMM's peak memory, and ``torch.matmul`` on float64.
 
 Then it drives the rest of the public GEMM API, each path with the launch
 counts set to 0 just before it and read just after:
@@ -177,18 +180,57 @@ def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
 
 
 def reset_launches() -> None:
-    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
 
     torch.cuda.synchronize()
     split_cuda.LAUNCHES = 0
+    exponent_cuda.LAUNCHES = 0
     recombine_cuda.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
 
     torch.cuda.synchronize()
-    return {"split_digits": split_cuda.LAUNCHES, "recombine": recombine_cuda.LAUNCHES}
+    return {"split_digits": split_cuda.LAUNCHES, "row_exponent": exponent_cuda.LAUNCHES,
+            "recombine": recombine_cuda.LAUNCHES}
+
+
+def per_path(split: int, recombine: int) -> dict:
+    """The launch counts of a path that splits ``split`` operands (each
+    split is one exponent-max launch and one split launch) and runs
+    ``recombine`` recombine launches."""
+    return {"split_digits": split, "row_exponent": split, "recombine": recombine}
+
+
+def counts_of(res: dict, prefix: str = "") -> dict:
+    """The launch counts in a rank's or an example's results (keys
+    ``prefix + kernel``), as :func:`read_launches` gives them."""
+    return {k: int(res[prefix + k]) for k in ("split_digits", "row_exponent", "recombine")}
+
+
+def kernel_ms(fn, names, iters: int = 5) -> float:
+    """Mean device time (ms) per call of ``fn`` of the device kernels whose
+    name contains one of ``names``, over ``iters`` calls after one, from a
+    ``torch.profiler`` trace: the kernels' own time, where a call is too
+    short for CUDA events around it to see past the host's issue time."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="oz_prof_") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    total = sum(float(e["dur"]) for e in events if e.get("cat") == "kernel"
+                and any(n in e.get("name", "") for n in names))
+    if total <= 0:
+        raise AssertionError(f"no device time of {names} in the profile")
+    return total / iters / 1e3
 
 
 def residual(got: np.ndarray, ref: np.ndarray) -> dict:
@@ -236,13 +278,13 @@ def main() -> int:
 
     import ozimmu_tpu_torch as ozt
     from ozimmu_tpu_torch import native
-    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
     from ozimmu_tpu_torch.ops.pack import pack_f64
     from ozimmu_tpu_torch.ops.recombine import (
-        acc_shift, fold_group_totals, group_totals, recombine,
+        acc_shift, fold_group_totals, group_totals, padded_k, recombine,
     )
     from ozimmu_tpu_torch.ops.split import (
-        row_exponent, split_f64, split_f64_cols, split_with_row_exp,
+        row_exponent_plain, split_f64, split_f64_cols, split_with_row_exp,
     )
     from ozimmu_tpu_torch.schedule import bits_per_int8, group_schedule
     from ozimmu_tpu_torch.testing import generate_input, reference_gemm
@@ -261,37 +303,72 @@ def main() -> int:
           f"({native.library_path()})", flush=True)
     entry = "?"
     for line in native.build_log.splitlines():
-        m = re.search(r"([a-z_]+_kernel)(I(?:Li-?\d+E)+)?", line)
+        m = re.search(r"([a-z_]+_kernel)(I(?:L[ib]-?\d+E)+)?", line)
         if "Compiling entry function" in line and m:
-            targs = re.findall(r"Li(-?\d+)E", m[2] or "")
+            targs = re.findall(r"L[ib](-?\d+)E", m[2] or "")
             entry = m[1] + (f"<{', '.join(targs)}>" if targs else "")
         if "Used" in line or "spill" in line:
             print(f"[build] {entry}: {line.strip()}", flush=True)
 
-    max_err = {"split_digits": 0.0, "recombine": 0.0}
+    max_err = {"split_digits": 0.0, "row_exponent": 0.0, "recombine": 0.0}
 
-    # 3. split: kernel vs plain, bitwise
+    # 3. exponent max and split: kernel vs plain, bitwise, the split in both
+    #    plane layouts (natural [ns, R, C]; k-major [ns, R or C, k_pad], as
+    #    the engine splits), on 2-D operands, batches, strided column panels
+    #    and k around the multiple of 16
     mats = {
         "normal01(1000x1234)": generate_input("normal01", (1000, 1234), seed=1),
         "exp_rand-8(1000x1234)": generate_input("exp_rand-8", (1000, 1234), seed=2),
         "special(64x128)": special_matrix(),
     }
-    n_cases = 0
+    n_cases = {"natural": 0, "k-major": 0, "exponent": 0}
+
+    def check_split(what, x, axis, ns, b):
+        e = row_exponent_plain(x, axis)
+        got_e = exponent_cuda.exponent_max(x, axis)
+        max_err["row_exponent"] = max(max_err["row_exponent"],
+                                      float((got_e - e).abs().max().item()))
+        if not torch.equal(got_e, e):
+            raise AssertionError(f"exponent mismatch: {what} axis={axis}")
+        n_cases["exponent"] += 1
+        k = x.shape[-1] if axis == 1 else x.shape[-2]
+        for layout, kp in (("natural", None), ("k-major", padded_k(k))):
+            want, _ = split_with_row_exp(x, e, ns, b, axis, kp)
+            got = split_cuda.split_digits(x, e, ns, b, axis, kp)
+            err = (want.to(torch.int16) - got.to(torch.int16)).abs().max().item()
+            max_err["split_digits"] = max(max_err["split_digits"], float(err))
+            if not bits_equal(want, got):
+                raise AssertionError(f"split mismatch: {what} axis={axis} ns={ns} b={b} {layout}")
+            n_cases[layout] += 1
+
     for name, x_np in mats.items():
         x = torch.from_numpy(x_np).to(dev)
         for axis in (0, 1):
-            e = row_exponent(x, axis)
             for ns in (3, 9, 18):
                 for b in (7, 5):
-                    want, _ = split_with_row_exp(x, e, ns, b, axis)
-                    got = split_cuda.split_digits(x, e, ns, b, axis)
-                    err = (want.to(torch.int16) - got.to(torch.int16)).abs().max().item()
-                    max_err["split_digits"] = max(max_err["split_digits"], float(err))
-                    if not bits_equal(want, got):
-                        raise AssertionError(f"split mismatch: {name} axis={axis} ns={ns} b={b}")
-                    n_cases += 1
+                    check_split(name, x, axis, ns, b)
+    xb = generate_input("exp_rand-8", (3, 300, 777), seed=4)
+    xb[0, 5, :] = 0.0
+    xb[1, :, 7] = 0.0
+    xb[2, 3, 3] = 5e-324
+    wide = torch.from_numpy(mats["exp_rand-8(1000x1234)"]).to(dev)
+    extra = {"batch exp_rand-8(3x300x777)": torch.from_numpy(xb).to(dev),
+             "panel [:, 3:700] (8-byte aligned rows)": wide[:, 3:700],
+             "panel [:, 64:1000]": wide[:, 64:1000]}
+    for k in (1, 15, 16, 17):
+        extra[f"normal01({k}x129)"] = torch.from_numpy(
+            generate_input("normal01", (k, 129), seed=k)).to(dev)
+        extra[f"normal01(129x{k})"] = torch.from_numpy(
+            generate_input("normal01", (129, k), seed=k)).to(dev)
+    for name, x in extra.items():
+        for axis in (0, 1):
+            for ns, b in ((3, 7), (9, 5), (18, 7)):
+                check_split(name, x, axis, ns, b)
     torch.cuda.synchronize()
-    print(f"[split] kernel == plain bitwise in {n_cases} cases", flush=True)
+    print(f"[split] split kernel == plain bitwise in {n_cases['natural']} cases in the natural "
+          f"layout and {n_cases['k-major']} k-major (A [ns, m, k_pad], B [ns, n, k_pad]); "
+          f"exponent-max kernel == plain in {n_cases['exponent']} (batches, strided column "
+          f"panels, k in 1, 15, 16, 17, 777, 1234 among them)", flush=True)
 
     # 4. recombine: kernel vs plain, bitwise on all three f32 planes, in
     #    every tile class (the launch plan picks one per shape)
@@ -302,18 +379,23 @@ def main() -> int:
         b_t = torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=n)).to(dev)
         da, _ = split_f64(a_t, ns, b)
         db, _ = split_f64_cols(b_t, ns, b)
+        dak, _ = split_f64(a_t, ns, b, padded_k(k))
+        dbk, _ = split_f64_cols(b_t, ns, b, padded_k(k))
         want = fold_group_totals(group_totals(da, db, ns, k, b), ns, k, b)
         for tile in range(len(recombine_cuda.TILES)):
-            got = recombine_cuda.recombine(da, db, ns, b, k, tile=tile)
-            err = max((w - g).abs().max().item() for w, g in zip(want, got))
-            max_err["recombine"] = max(max_err["recombine"], float(err))
-            if not all(bits_equal(w, g) for w, g in zip(want, got)):
-                raise AssertionError(f"recombine mismatch at m,n,k={m},{n},{k} ns={ns} tile={tile}")
-        del want, got, da, db
+            for got in (recombine_cuda.recombine(da, db, ns, b, k, tile=tile),
+                        recombine_cuda.recombine(dak, dbk, ns, b, k, tile=tile, b_kmajor=True)):
+                err = max((w - g).abs().max().item() for w, g in zip(want, got))
+                max_err["recombine"] = max(max_err["recombine"], float(err))
+                if not all(bits_equal(w, g) for w, g in zip(want, got)):
+                    raise AssertionError(
+                        f"recombine mismatch at m,n,k={m},{n},{k} ns={ns} tile={tile}")
+        del want, got, da, db, dak, dbk
         groups = group_schedule(ns, k, b)
         plan = recombine_cuda.launch_plan(m, n, k, ns, sms)
         print(f"[recombine] kernel == plain bitwise (3 planes, tile classes "
-              f"{list(range(len(recombine_cuda.TILES)))}; plan: {plan.tile}) at m,n,k={m},{n},{k} "
+              f"{list(range(len(recombine_cuda.TILES)))}, B's planes [ns, k, n] and k-major; "
+              f"plan: {plan.tile}) at m,n,k={m},{n},{k} "
               f"ns={ns} b={b}: {len(groups)} groups of {[len(g.pairs) for g in groups]} pairs",
               flush=True)
 
@@ -328,8 +410,8 @@ def main() -> int:
     launches = read_launches()
 
     bb = bits_per_int8(N)
-    pda, ppa = split_with_row_exp(a, row_exponent(a, 1), NS, bb, 1)
-    pdb, ppb = split_with_row_exp(b, row_exponent(b, 0), NS, bb, 0)
+    pda, ppa = split_with_row_exp(a, row_exponent_plain(a, 1), NS, bb, 1)
+    pdb, ppb = split_with_row_exp(b, row_exponent_plain(b, 0), NS, bb, 0)
     S = fold_group_totals(group_totals(pda, pdb, NS, N, bb), NS, N, bb)
     E = (ppa[:, None] + ppb[None, :] - acc_shift(NS, bb)).to(torch.int32)
     plain_out = pack_f64(S, E)
@@ -375,9 +457,10 @@ def main() -> int:
     print(f"[probe] {m}x{n}x{k} n_chunks=3 == n_chunks=1 bitwise; "
           f"relative_residual={r['relative_residual']:.3e}", flush=True)
 
-    # 6. the main path went through both kernels
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the main path was not launched: {launches}")
+    # 6. the main path went through every kernel: each operand's exponent
+    #    max and split, one recombine
+    if launches != per_path(2, 1):
+        raise AssertionError(f"the main path's launches {launches}, expected {per_path(2, 1)}")
     print(f"[launches] main path {N}^3: {launches}", flush=True)
 
     # 7. timing (CUDA events, after warm-up); nothing is asserted on speed
@@ -385,13 +468,16 @@ def main() -> int:
     print(f"[time] {label}: gemm fp64_int8_{NS} {N}^3: {ms_main:.3f} ms, "
           f"{2 * N**3 / ms_main / 1e9:.3f} effective FP64 TFLOPS", flush=True)
 
+    # the engine's phases: each operand split (exponent max + split kernel)
+    # into the k-major planes that recombine reads as they are
+    kp = padded_k(N)
     phases = {}
-    phases["split_A"] = cuda_ms(lambda: split_f64(a, NS, bb), iters=5)
-    phases["split_B"] = cuda_ms(lambda: split_f64_cols(b, NS, bb), iters=5)
-    da, pa = split_f64(a, NS, bb)
-    db, pb = split_f64_cols(b, NS, bb)
-    phases["recombine"] = cuda_ms(lambda: recombine(da, db, NS, bb, N), iters=3)
-    S = recombine(da, db, NS, bb, N)
+    phases["split_A"] = cuda_ms(lambda: split_f64(a, NS, bb, kp), iters=5)
+    phases["split_B"] = cuda_ms(lambda: split_f64_cols(b, NS, bb, kp), iters=5)
+    da, pa = split_f64(a, NS, bb, kp)
+    db, pb = split_f64_cols(b, NS, bb, kp)
+    phases["recombine"] = cuda_ms(lambda: recombine(da, db, NS, bb, N, b_kmajor=True), iters=3)
+    S = recombine(da, db, NS, bb, N, b_kmajor=True)
     phases["epilogue"] = cuda_ms(
         lambda: pack_f64(S, (pa[:, None] + pb[None, :] - acc_shift(NS, bb)).to(torch.int32)),
         iters=5)
@@ -399,44 +485,88 @@ def main() -> int:
     print(f"[time] {label}: phases of {N}^3 fp64_int8_{NS}: "
           + ", ".join(f"{k_} {v:.3f} ms" for k_, v in phases.items())
           + f" (sum {sum(phases.values()):.3f} ms)", flush=True)
+    # a stage's bound: one read of the f64 operand and one write of its planes
+    stage_bound = bound_ms(a.numel() * 8 + da.numel(), 0, INT8_OPS_PER_S)
+    for op in ("A", "B"):
+        print(f"[time] {label}: split {op} stage (row_exponent + split_digits, k-major planes) "
+              f"{N}^2 ns={NS}: {phases[f'split_{op}']:.3f} ms, bound {stage_bound[0]:.3f} ms "
+              f"({stage_bound[1]}: the operand read once, its planes written once), "
+              f"{stage_bound[0] / phases[f'split_{op}']:.1%} of the bound", flush=True)
 
-    e_a = row_exponent(a, 1)
+    e_a = exponent_cuda.exponent_max(a, 1)
+    e_b = exponent_cuda.exponent_max(b, 0)
     ms = {
-        "split_digits": cuda_ms(lambda: split_cuda.split_digits(a, e_a, NS, bb, 1), iters=5),
-        "recombine": cuda_ms(lambda: recombine_cuda.recombine(da, db, NS, bb, N), iters=3),
+        "split_digits": cuda_ms(lambda: split_cuda.split_digits(a, e_a, NS, bb, 1, kp), iters=10),
+        "row_exponent": cuda_ms(lambda: exponent_cuda.exponent_max(a, 1), iters=10),
+        "recombine": cuda_ms(
+            lambda: recombine_cuda.recombine(da, db, NS, bb, N, b_kmajor=True), iters=3),
+    }
+    ms_b = {  # the B operand: by columns, its planes through the shared-memory tiles
+        "split_digits": cuda_ms(lambda: split_cuda.split_digits(b, e_b, NS, bb, 0, kp), iters=10),
+        "row_exponent": cuda_ms(lambda: exponent_cuda.exponent_max(b, 0), iters=10),
     }
     plain_ms = {
-        "split_digits": cuda_ms(lambda: split_with_row_exp(a, e_a, NS, bb, 1), iters=3),
+        "split_digits": cuda_ms(lambda: split_with_row_exp(a, e_a, NS, bb, 1, kp), iters=3),
+        "row_exponent": cuda_ms(lambda: row_exponent_plain(a, 1), iters=5),
         "recombine": cuda_ms(
-            lambda: fold_group_totals(group_totals(da, db, NS, N, bb), NS, N, bb), iters=3),
+            lambda: fold_group_totals(group_totals(da, db, NS, N, bb, b_kmajor=True), NS, N, bb),
+            iters=3),
     }
     pairs = NS * (NS + 1) // 2
     rec_ops = pairs * 2 * N**3
     bounds = {
         # read f64 [N, N] and the int32 row exponents, write ns int8 planes
-        "split_digits": bound_ms(a.numel() * 8 + e_a.numel() * 4 + NS * a.numel(), 0,
+        "split_digits": bound_ms(a.numel() * 8 + e_a.numel() * 4 + da.numel(), 0,
                                  INT8_OPS_PER_S),
+        # read f64 [N, N], write the int32 row exponents
+        "row_exponent": bound_ms(a.numel() * 8 + e_a.numel() * 4, 0, INT8_OPS_PER_S),
         # read both operands' planes, write three f32 planes; 2mnk int8
         # operations per scheduled pair
         "recombine": bound_ms(da.numel() + db.numel() + 3 * 4 * N * N, rec_ops, INT8_OPS_PER_S),
     }
     for name in ms:
-        print(f"[time] {label}: {name} at the main-path shape: kernel {ms[name]:.3f} ms, "
-              f"plain PyTorch {plain_ms[name]:.3f} ms, bound {bounds[name][0]:.3f} ms "
-              f"({bounds[name][1]})", flush=True)
+        print(f"[time] {label}: {name} at the main-path shape: kernel {ms[name]:.3f} ms"
+              + (f" (A; B {ms_b[name]:.3f} ms)" if name in ms_b else "")
+              + f", plain PyTorch {plain_ms[name]:.3f} ms, bound {bounds[name][0]:.3f} ms "
+              f"({bounds[name][1]}), {bounds[name][0] / ms[name]:.1%} of the bound", flush=True)
     print(f"[time] {label}: recombine {N}^3 ns={NS}: {rec_ops / ms['recombine'] / 1e9:.1f} int8 "
           f"TOPS ({pairs} pairs x 2mnk)", flush=True)
+    # a yardstick of what the k-major split removed: B's planes in the
+    # operand's own layout [ns, k, n], copied into [ns, n, k_pad] as the
+    # recombine wrapper did before (it still does for the distributed
+    # layer's planes), timed alone; recombine from those planes (with the
+    # copy, bitwise the same) against recombine from the split's (without)
+    dn = split_cuda.split_digits(b, e_b, NS, bb, 0)
+    ms_copy = cuda_ms(lambda: recombine_cuda._pad_k_major(dn.transpose(1, 2), kp), iters=5)
+    ms_rec_copy = cuda_ms(lambda: recombine_cuda.recombine(da, dn, NS, bb, N), iters=3)
+    if not all(bits_equal(w, g) for w, g in zip(recombine_cuda.recombine(da, dn, NS, bb, N),
+                                                 recombine(da, db, NS, bb, N, b_kmajor=True))):
+        raise AssertionError("recombine from [ns, k, n] planes differs from the k-major planes")
+    copy_bound = bound_ms(2 * dn.numel(), 0, INT8_OPS_PER_S)
+    print(f"[time] {label}: yardstick, the parent layout's transposed copy of B's planes "
+          f"[ns, k, n] -> [ns, n, k_pad] at {N}^2 ns={NS}, alone: {ms_copy:.3f} ms (bound "
+          f"{copy_bound[0]:.3f} ms, {copy_bound[1]}); recombine from [ns, k, n] planes (with "
+          f"that copy) {ms_rec_copy:.3f} ms, from the k-major planes (no copy) "
+          f"{ms['recombine']:.3f} ms, bitwise the same", flush=True)
     # the int8 products alone, without the group sums and the fold: not the
     # same function, a yardstick of the library's int8 rate
     pair_list = [(i - 1, j - 1) for g in group_schedule(NS, N, bb) for i, j in g.pairs]
-    dbt = db.transpose(1, 2).contiguous()
-    ms_mm = cuda_ms(lambda: [torch._int_mm(da[i], db[j]) for i, j in pair_list], iters=3)
-    ms_mm_t = cuda_ms(lambda: [torch._int_mm(da[i], dbt[j].t()) for i, j in pair_list], iters=3)
+    ms_mm = cuda_ms(lambda: [torch._int_mm(da[i], dn[j]) for i, j in pair_list], iters=3)
+    ms_mm_t = cuda_ms(lambda: [torch._int_mm(da[i], db[j].t()) for i, j in pair_list], iters=3)
     print(f"[time] {label}: yardstick, NOT the same function: the {pairs} int8 products alone "
           f"through torch._int_mm at {N}^3: {ms_mm:.3f} ms ({rec_ops / ms_mm / 1e9:.1f} TOPS) with "
           f"B's planes [k, n] as the plain version passes them, {ms_mm_t:.3f} ms "
           f"({rec_ops / ms_mm_t / 1e9:.1f} TOPS) with them k-contiguous", flush=True)
-    del da, db, dbt
+    del da, db, dn
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
+    torch.cuda.synchronize()
+    print(f"[memory] {label}: gemm fp64_int8_{NS} {N}^3: peak "
+          f"{(torch.cuda.max_memory_allocated() - before) / 2**30:.3f} GiB allocated during the "
+          f"call", flush=True)
 
     ms_dgemm = cuda_ms(lambda: torch.matmul(a, b), iters=3)
     print(f"[time] {label}: torch.matmul float64 {N}^3: {ms_dgemm:.3f} ms, "
@@ -467,25 +597,34 @@ def main() -> int:
          "replaces": "ozimmu_tpu/ops/split_pallas.py:134"},
         {"name": "recombine", "route": "cuda", "source": "ozimmu_tpu_torch/csrc/recombine.cu",
          "replaces": "ozimmu_tpu/ops/recombine_pallas.py:182"},
+        # the split's exponent max: plain XLA in the JAX package
+        {"name": "row_exponent", "route": "cuda", "source": "ozimmu_tpu_torch/csrc/exponent.cu",
+         "replaces": "ozimmu_tpu/ops/split.py:42"},
     ]
     for kern in kernels:
         name = kern["name"]
-        # no single PyTorch call computes either function: library_ms is null
+        # no single PyTorch call computes any of these functions: library_ms
+        # is null
         kern.update(launches=launches[name], max_abs_err=max_err[name],
                     ms=ms[name], plain_ms=plain_ms[name], bound_ms=bounds[name][0],
                     bound_by=bounds[name][1], library_ms=None,
                     launches_by_path={p: c[name] for p, c in by_path.items()})
-    # the same two kernels in their batched form (one launch over a whole
+        if name in ms_b:
+            kern["ms_by_operand"] = {"A": ms[name], "B": ms_b[name]}
+    # the same kernels in their batched form (one launch over a whole
     # batch, as the TPU kernels run under jax.vmap): launches in phase 11's
     # real 8 x 1024^3 run, times and bounds at that shape
     main_batch = by_path["batched_real_8x1024"]
-    for kern in kernels[:2]:
+    for kern in kernels[:3]:
         name = kern["name"]
         k_ms, p_ms, (b_ms, b_by), err, _ = batched_figs[name]
-        kernels.append(dict(
+        batched = dict(
             kern, name=f"{name}_batched", launches=main_batch[name], max_abs_err=err, ms=k_ms,
             plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            launches_by_path={p: c[name] for p, c in by_path.items() if p.startswith("batched")}))
+            launches_by_path={p: c[name] for p, c in by_path.items() if p.startswith("batched")})
+        if name in batched_figs["B"]:
+            batched["ms_by_operand"] = {"A": k_ms, "B": batched_figs["B"][name]}
+        kernels.append(batched)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -560,7 +699,7 @@ def plain_zgemm(a_re, a_im, b_re, b_im, ns, alpha, beta, c_re, c_im):
     the same _zfold_passes."""
     from ozimmu_tpu_torch.core.gemm import ZGEMM_PASSES, _exponent_plane, _zfold_passes
     from ozimmu_tpu_torch.ops.recombine import acc_shift, fold_group_totals, group_totals
-    from ozimmu_tpu_torch.ops.split import row_exponent, split_with_row_exp
+    from ozimmu_tpu_torch.ops.split import row_exponent_plain, split_with_row_exp
     from ozimmu_tpu_torch.schedule import bits_per_int8
 
     m, k = a_re.shape
@@ -568,7 +707,7 @@ def plain_zgemm(a_re, a_im, b_re, b_im, ns, alpha, beta, c_re, c_im):
     bb = bits_per_int8(k)
 
     def split(x, axis):
-        return split_with_row_exp(x, row_exponent(x, axis), ns, bb, axis)
+        return split_with_row_exp(x, row_exponent_plain(x, axis), ns, bb, axis)
 
     a_planes = {0: split(a_re, 1), 1: split(a_im, 1)}
     b_planes = {0: split(b_re, 0), 1: split(b_im, 0)}
@@ -594,8 +733,8 @@ def phase_zgemm(ozt, label, rng) -> dict:
     reset_launches()
     out = ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
     counts = read_launches()
-    if counts != {"split_digits": 4, "recombine": 4}:
-        raise AssertionError(f"ZGEMM launches {counts}, expected 4 and 4")
+    if counts != per_path(4, 4):
+        raise AssertionError(f"ZGEMM launches {counts}, expected {per_path(4, 4)}")
     planes = [x.contiguous() for x in (a.real, a.imag, b.real, b.imag)]
     re, im = plain_zgemm(*planes, NS, 1.0, 0.0, None, None)
     if not (bits_equal(out.real.contiguous(), re) and bits_equal(out.imag.contiguous(), im)):
@@ -736,59 +875,89 @@ def busy_ms(ozt, fn, name: str):
     return busy / 1e3, window / 1e3, kernels
 
 
+#: the device kernels of the split and of the exponent max, by name
+SPLIT_KERNELS = ("split_rows_kernel", "split_tiles_kernel")
+EXPONENT_KERNELS = ("exponent_rows_kernel", "exponent_cols_kernel")
+
+
 def batched_kernels_equal_plain(a: torch.Tensor, b: torch.Tensor, ns: int) -> dict:
-    """Both kernels, one launch each over the batch a [B, m, k] @ b [B, k, n]
-    (A by rows, B by columns), bitwise against their plain versions on the
-    same inputs; returns each kernel's (ms, the plain version's ms (CUDA
-    events), the bound, max |kernel - plain|, the ms of one 2-D launch per
-    matrix) and the tile class."""
-    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
-    from ozimmu_tpu_torch.ops.recombine import fold_group_totals, group_totals
-    from ozimmu_tpu_torch.ops.split import row_exponent, split_with_row_exp
+    """The kernels, one launch each over the batch a [B, m, k] @ b [B, k, n]
+    (A by rows, B by columns, k-major planes as the engine splits them),
+    bitwise against their plain versions on the same inputs; returns each
+    kernel's (ms, the plain version's ms (CUDA events), the bound,
+    max |kernel - plain|, the ms of one 2-D launch per matrix), the B
+    operand's split and exponent ms, and the tile class.  The split's and
+    the exponent max's ms are their kernels' device time (``kernel_ms``):
+    one call over such a batch is short enough that CUDA events around it
+    see the host's issue time."""
+    from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops.recombine import fold_group_totals, group_totals, padded_k
+    from ozimmu_tpu_torch.ops.split import row_exponent_plain, split_with_row_exp
     from ozimmu_tpu_torch.schedule import bits_per_int8
 
     bsz, m, k = a.shape
     n = b.shape[2]
     bb = bits_per_int8(k)
-    planes, err = [], {"split_digits": 0.0}
+    kp = padded_k(k)
+    planes, err = [], {"split_digits": 0.0, "row_exponent": 0.0}
     for x, axis in ((a, 1), (b, 0)):
-        e = row_exponent(x, axis).contiguous()
-        want, _ = split_with_row_exp(x, e, ns, bb, axis)
-        got = split_cuda.split_digits(x, e, ns, bb, axis)
+        e = row_exponent_plain(x, axis)
+        got_e = exponent_cuda.exponent_max(x, axis)
+        err["row_exponent"] = max(err["row_exponent"], float((got_e - e).abs().max().item()))
+        if not torch.equal(got_e, e):
+            raise AssertionError(f"batched exponent kernel != plain: {bsz} x {m}x{k}x{n} "
+                                 f"axis={axis}")
+        want, _ = split_with_row_exp(x, e, ns, bb, axis, kp)
+        got = split_cuda.split_digits(x, e, ns, bb, axis, kp)
         err["split_digits"] = max(err["split_digits"], float(
             (want.to(torch.int16) - got.to(torch.int16)).abs().max().item()))
         if not bits_equal(want, got):
             raise AssertionError(f"batched split kernel != plain: {bsz} x {m}x{k}x{n} axis={axis}")
         planes.append(got)
     da, db = planes
-    want = fold_group_totals(group_totals(da, db, ns, k, bb), ns, k, bb)
-    got = recombine_cuda.recombine(da, db, ns, bb, k)
+    want = fold_group_totals(group_totals(da, db, ns, k, bb, b_kmajor=True), ns, k, bb)
+    got = recombine_cuda.recombine(da, db, ns, bb, k, b_kmajor=True)
     err["recombine"] = max(float((w - g).abs().max().item()) for w, g in zip(want, got))
     if not all(bits_equal(w, g) for w, g in zip(want, got)):
         raise AssertionError(f"batched recombine kernel != plain: {bsz} x {m}x{k}x{n}")
     del want, got
-    e_a = row_exponent(a, 1).contiguous()
+    e_a = exponent_cuda.exponent_max(a, 1)
+    e_b = exponent_cuda.exponent_max(b, 0)
     pairs = ns * (ns + 1) // 2
     one = [(da[:, i].contiguous(), db[:, i].contiguous()) for i in range(bsz)]
     loops = {
-        "split_digits": cuda_ms(lambda: [split_cuda.split_digits(a[i], e_a[i], ns, bb, 1)
-                                         for i in range(bsz)], iters=3),
-        "recombine": cuda_ms(lambda: [recombine_cuda.recombine(x, y, ns, bb, k) for x, y in one],
-                             iters=3),
+        "split_digits": kernel_ms(lambda: [split_cuda.split_digits(a[i], e_a[i], ns, bb, 1, kp)
+                                           for i in range(bsz)], SPLIT_KERNELS, iters=3),
+        "row_exponent": kernel_ms(lambda: [exponent_cuda.exponent_max(a[i], 1)
+                                           for i in range(bsz)], EXPONENT_KERNELS, iters=3),
+        "recombine": cuda_ms(lambda: [recombine_cuda.recombine(x, y, ns, bb, k, b_kmajor=True)
+                                      for x, y in one], iters=3),
     }
     del one
     return {
         "split_digits": (
-            cuda_ms(lambda: split_cuda.split_digits(a, e_a, ns, bb, 1), iters=5),
-            cuda_ms(lambda: split_with_row_exp(a, e_a, ns, bb, 1), iters=3),
-            bound_ms(a.numel() * (8 + ns) + e_a.numel() * 4, 0, INT8_OPS_PER_S),
+            kernel_ms(lambda: split_cuda.split_digits(a, e_a, ns, bb, 1, kp), SPLIT_KERNELS, 10),
+            cuda_ms(lambda: split_with_row_exp(a, e_a, ns, bb, 1, kp), iters=3),
+            bound_ms(a.numel() * 8 + e_a.numel() * 4 + da.numel(), 0, INT8_OPS_PER_S),
             err["split_digits"], loops["split_digits"]),
+        "row_exponent": (
+            kernel_ms(lambda: exponent_cuda.exponent_max(a, 1), EXPONENT_KERNELS, 10),
+            cuda_ms(lambda: row_exponent_plain(a, 1), iters=3),
+            bound_ms(a.numel() * 8 + e_a.numel() * 4, 0, INT8_OPS_PER_S),
+            err["row_exponent"], loops["row_exponent"]),
         "recombine": (
-            cuda_ms(lambda: recombine_cuda.recombine(da, db, ns, bb, k), iters=3),
-            cuda_ms(lambda: fold_group_totals(group_totals(da, db, ns, k, bb), ns, k, bb), iters=3),
+            cuda_ms(lambda: recombine_cuda.recombine(da, db, ns, bb, k, b_kmajor=True), iters=3),
+            cuda_ms(lambda: fold_group_totals(group_totals(da, db, ns, k, bb, b_kmajor=True),
+                                              ns, k, bb), iters=3),
             bound_ms(da.numel() + db.numel() + 12 * bsz * m * n, pairs * 2 * bsz * m * n * k,
                      INT8_OPS_PER_S),
             err["recombine"], loops["recombine"]),
+        "B": {
+            "split_digits": kernel_ms(lambda: split_cuda.split_digits(b, e_b, ns, bb, 0, kp),
+                                      SPLIT_KERNELS, 10),
+            "row_exponent": kernel_ms(lambda: exponent_cuda.exponent_max(b, 0),
+                                      EXPONENT_KERNELS, 10),
+        },
         "tile": recombine_cuda.launch_plan(
             m, n, k, ns, torch.cuda.get_device_properties(0).multi_processor_count,
             batch=bsz).tile,
@@ -834,7 +1003,7 @@ def phase_batched(ozt, label):
             got = counts[f"batched_{kind}_{bsz}x{m}" + ("_budget" if budget else "")] = read_launches()
             peak = torch.cuda.max_memory_allocated() - before
             per = (4, 4) if cx else (2, 1)
-            if got != {"split_digits": per[0] * len(parts), "recombine": per[1] * len(parts)}:
+            if got != per_path(per[0] * len(parts), per[1] * len(parts)):
                 raise AssertionError(f"batched {what}: launches {got} for {len(parts)} sub-batch(es)")
             as_real = torch.view_as_real if cx else (lambda x: x)
             for i, want in enumerate(loop()):
@@ -857,13 +1026,17 @@ def phase_batched(ozt, label):
         if budget is None:
             figs = batched_kernels_equal_plain(a.real.contiguous() if cx else a,
                                                b.real.contiguous() if cx else b, NS)
-            print(f"[batched] {what}: split and recombine kernels == plain bitwise, one launch "
-                  f"each over the batch (recombine tile class {figs['tile']})", flush=True)
-            for name in ("split_digits", "recombine"):
+            print(f"[batched] {what}: exponent, split (k-major planes) and recombine kernels == "
+                  f"plain bitwise, one launch each over the batch (recombine tile class "
+                  f"{figs['tile']})", flush=True)
+            for name in ("split_digits", "row_exponent", "recombine"):
                 k_ms, p_ms, (b_ms, b_by), _, loop_ms = figs[name]
-                print(f"[time] {label}: batched {name} at {what}: kernel {k_ms:.3f} ms (one 2-D "
-                      f"launch per matrix: {loop_ms:.3f} ms), plain PyTorch {p_ms:.3f} ms, bound "
-                      f"{b_ms:.3f} ms ({b_by})", flush=True)
+                dev_time = " device time" if name != "recombine" else ""
+                b_side = (f"A; B by columns {figs['B'][name]:.4f} ms; " if name in figs["B"] else "")
+                print(f"[time] {label}: batched {name} at {what}: kernel {k_ms:.4f} ms{dev_time} "
+                      f"({b_side}one 2-D launch per matrix: {loop_ms:.4f} ms), plain PyTorch "
+                      f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.1%} of the "
+                      f"bound", flush=True)
             if kernel_figs is None:
                 kernel_figs = figs
         del a, b, c
@@ -888,7 +1061,7 @@ def busy_in_window(events, name: str):
 
 
 def phase_trace(ozt) -> None:
-    """12. device_trace of one 4096^3 fp64_int8_9 GEMM: both kernels in
+    """12. device_trace of one 4096^3 fp64_int8_9 GEMM: the exponent, split and recombine kernels in
     the trace, and the device's busy share over the traced window."""
     from ozimmu_tpu_torch.testing import generate_input
 
@@ -899,6 +1072,10 @@ def phase_trace(ozt) -> None:
     torch.cuda.synchronize()
     log_dir = tempfile.mkdtemp(prefix="oz_trace_")
     with ozt.device_trace(log_dir):
+        # the trace can miss the first kernel of a session (on an H100 it
+        # dropped the GEMM's first, A's exponent max): one small op first
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         with torch.profiler.record_function("traced_gemm"):
             ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
             torch.cuda.synchronize()
@@ -907,12 +1084,14 @@ def phase_trace(ozt) -> None:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     names = {e["name"] for e in kernels}
-    for want in ("split_digits_kernel", "recombine_kernel"):
+    for want in ("exponent_rows_kernel", "exponent_cols_kernel", "split_rows_kernel",
+                 "split_tiles_kernel", "recombine_kernel"):
         if not any(want in nm for nm in names):
             raise AssertionError(f"{want} not in the traced kernels {sorted(names)}")
     busy, window = busy_in_window(events, "traced_gemm")
     print(f"[trace] {n}^3 fp64_int8_{NS}: {len(kernels)} device kernels traced, incl. "
-          f"split_digits_kernel and recombine_kernel; device busy {busy / 1e3:.3f} ms of a "
+          f"exponent_rows_kernel, exponent_cols_kernel, split_rows_kernel, split_tiles_kernel "
+          f"and recombine_kernel; device busy {busy / 1e3:.3f} ms of a "
           f"{window / 1e3:.3f} ms window = busy share {busy / window:.4f}", flush=True)
 
 
@@ -956,8 +1135,8 @@ def phase_intercept(ozt, label) -> dict:
     with ozi.intercept(mode=mode):
         got = a @ b
     counts = read_launches()
-    if counts != {"split_digits": 2, "recombine": 1}:
-        raise AssertionError(f"intercepted {N}^3 launches {counts}, expected 2 and 1")
+    if counts != per_path(2, 1):
+        raise AssertionError(f"intercepted {N}^3 launches {counts}, expected {per_path(2, 1)}")
     if not bits_equal(got, want):
         raise AssertionError("intercepted a @ b differs from gemm(a, b)")
     del got, want
@@ -977,7 +1156,7 @@ def phase_intercept(ozt, label) -> dict:
     with ozi.intercept(mode=mode):
         got = torch.einsum("bik,bkj->bij", a3, b3)
     c3 = read_launches()
-    if c3 != {"split_digits": 2, "recombine": 1}:
+    if c3 != per_path(2, 1):
         raise AssertionError(f"intercepted einsum launches {c3}")
     if not bits_equal(got, ozt.gemm_batched(a3, b3, mode=mode)):
         raise AssertionError("intercepted einsum differs from gemm_batched")
@@ -991,7 +1170,7 @@ def phase_intercept(ozt, label) -> dict:
         got = x.mH @ y
     cz = read_launches()
     want = ozt.gemm(x, y, mode=mode, op_a="C")
-    if cz != {"split_digits": 4, "recombine": 4} or not bits_equal(
+    if cz != per_path(4, 4) or not bits_equal(
             torch.view_as_real(got), torch.view_as_real(want)):
         raise AssertionError(f"intercepted x.mH @ y: launches {cz} or bits differ")
     print(f"[intercept] einsum bik,bkj->bij {B} x 1024^3: bits == gemm_batched, launches {c3}; "
@@ -1027,7 +1206,7 @@ def phase_intercept(ozt, label) -> dict:
     with ozi.intercept(mode=mode):
         routed = step()
     cl = read_launches()
-    if cl != {"split_digits": 6, "recombine": 3}:
+    if cl != per_path(6, 3):
         raise AssertionError(f"nn.Linear step launches {cl}, expected 6 and 3 (addmm + 2 mm)")
     res = [relative_residual(r, nat) for r, nat in zip(routed, native)]
     if not max(res) < RESIDUAL_GATE:
@@ -1055,9 +1234,9 @@ def phase_intercept(ozt, label) -> dict:
             del os.environ["OZIMMU_COMPUTE_MODE"]
         else:
             os.environ["OZIMMU_COMPUTE_MODE"] = saved
-    if c512 != {"split_digits": 0, "recombine": 0}:
+    if c512 != per_path(0, 0):
         raise AssertionError(f"a 512^3 product under the 1024 thresholds launched {c512}")
-    if cenv != {"split_digits": 2, "recombine": 1} or not bits_equal(
+    if cenv != per_path(2, 1) or not bits_equal(
             got, ozt.gemm(a1, a1, mode=mode)):
         raise AssertionError(f"OZIMMU_COMPUTE_MODE={mode} did not route the call: {cenv}")
     print(f"[intercept] 512^3 launches {c512}; OZIMMU_COMPUTE_MODE={mode} with no pinned mode "
@@ -1082,8 +1261,8 @@ def phase_traced(ozt, label) -> dict:
     counts = read_launches()
     t_first = time.perf_counter() - t0
     want = ozt.gemm(a, b, mode=f"fp64_int8_{NS}", alpha=2.0, beta=-0.5, c=c)
-    if counts != {"split_digits": 2, "recombine": 1}:
-        raise AssertionError(f"compiled traced.gemm launches {counts}, expected 2 and 1")
+    if counts != per_path(2, 1):
+        raise AssertionError(f"compiled traced.gemm launches {counts}, expected {per_path(2, 1)}")
     if not bits_equal(got, want):
         raise AssertionError("compiled traced.gemm differs from the eager gemm")
     ms_c = cuda_ms(lambda: f(a, b, c), iters=3)
@@ -1155,11 +1334,10 @@ def step_launches(n: int, block: int, complex_: bool = False, factorizations: in
                   matvecs: int = 0) -> dict:
     """Launches of ``factorizations`` resident factorizations of an n x n
     matrix and ``matvecs`` engine matvecs: each step that has a trailing
-    block runs two engine GEMMs, a real GEMM launches split twice and
-    recombine once, a complex one four times each."""
+    block runs two engine GEMMs, a real GEMM launches the exponent max and
+    split twice each and recombine once, a complex one four times each."""
     gemms = 2 * (-(-n // block) - 1) * factorizations + matvecs
-    return {"split_digits": gemms * (4 if complex_ else 2),
-            "recombine": gemms * (4 if complex_ else 1)}
+    return per_path(gemms * (4 if complex_ else 2), gemms * (4 if complex_ else 1))
 
 
 def expect_launches(path: str, got: dict, want: dict) -> dict:
@@ -1192,14 +1370,15 @@ def first_step_operands(size: int, blk: int, complex_: bool) -> dict:
 
 
 def kernels_equal_plain_on(what: str, a: torch.Tensor, b: torch.Tensor, ns: int) -> str:
-    """Both kernels against their plain versions, bit for bit, on the
+    """The kernels against their plain versions, bit for bit, on the
     float64 operands ``a`` [m, k] and ``b`` [k, n] of one engine product:
-    the split of each as the engine launches it, then the recombine of the
-    kernel's planes in the tile class that the launch plan picks for the
-    shape, which is the launch the solver makes."""
-    from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda
-    from ozimmu_tpu_torch.ops.recombine import fold_group_totals, group_totals
-    from ozimmu_tpu_torch.ops.split import row_exponent, split_with_row_exp
+    the exponent max and the split of each as the engine launches them
+    (k-major planes), then the recombine of the kernel's planes in the tile
+    class that the launch plan picks for the shape, which is the launch the
+    solver makes."""
+    from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops.recombine import fold_group_totals, group_totals, padded_k
+    from ozimmu_tpu_torch.ops.split import row_exponent_plain, split_with_row_exp
     from ozimmu_tpu_torch.schedule import bits_per_int8
 
     a, b = a.contiguous(), b.contiguous()  # as core/gemm.py passes them
@@ -1207,16 +1386,18 @@ def kernels_equal_plain_on(what: str, a: torch.Tensor, b: torch.Tensor, ns: int)
     bb = bits_per_int8(k)
     planes = []
     for name, x, axis in (("A", a, 1), ("B", b, 0)):
-        e = row_exponent(x, axis)
-        want, _ = split_with_row_exp(x, e, ns, bb, axis)
-        got = split_cuda.split_digits(x, e, ns, bb, axis)
+        e = row_exponent_plain(x, axis)
+        if not torch.equal(exponent_cuda.exponent_max(x, axis), e):
+            raise AssertionError(f"{what}: exponent of {name} {tuple(x.shape)} differs from plain")
+        want, _ = split_with_row_exp(x, e, ns, bb, axis, padded_k(k))
+        got = split_cuda.split_digits(x, e, ns, bb, axis, padded_k(k))
         if not bits_equal(want, got):
             raise AssertionError(f"{what}: split of {name} {tuple(x.shape)} differs from plain")
         planes.append(got)
         del want
     da, db = planes
-    want = fold_group_totals(group_totals(da, db, ns, k, bb), ns, k, bb)
-    got = recombine_cuda.recombine(da, db, ns, bb, k)
+    want = fold_group_totals(group_totals(da, db, ns, k, bb, b_kmajor=True), ns, k, bb)
+    got = recombine_cuda.recombine(da, db, ns, bb, k, b_kmajor=True)
     if not all(bits_equal(w, g) for w, g in zip(want, got)):
         raise AssertionError(f"{what}: recombine {m}x{n}x{k} ns={ns} differs from plain")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1309,6 +1490,7 @@ def phase_solvers(ozt, label) -> dict:
     first trailing update of that HPL staged by the handle's profiler."""
     from ozimmu_tpu_torch import bench_cli, linalg
     from ozimmu_tpu_torch.ops import recombine_cuda
+    from ozimmu_tpu_torch.ops.recombine import padded_k
     from ozimmu_tpu_torch.ops.split import split_f64, split_f64_cols
     from ozimmu_tpu_torch.schedule import auto_n_chunks, bits_per_int8
 
@@ -1495,9 +1677,9 @@ def phase_solvers(ozt, label) -> dict:
     staged = {name: ns_ / count / 1e6 for name, count, ns_, _ in h.profiler.result_rows()}
     bb = bits_per_int8(k)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    da, _ = split_f64(l21.contiguous(), NS, bb)
-    db, _ = split_f64_cols(u12, NS, bb)
-    ms_rec = cuda_ms(lambda: recombine_cuda.recombine(da, db, NS, bb, k), iters=3)
+    da, _ = split_f64(l21.contiguous(), NS, bb, padded_k(k))
+    db, _ = split_f64_cols(u12, NS, bb, padded_k(k))
+    ms_rec = cuda_ms(lambda: recombine_cuda.recombine(da, db, NS, bb, k, b_kmajor=True), iters=3)
     pairs = NS * (NS + 1) // 2
     rec_bound = bound_ms(da.numel() + db.numel() + 12 * m * m, pairs * 2 * m * m * k,
                          INT8_OPS_PER_S)
@@ -1537,7 +1719,8 @@ def phase_solvers(ozt, label) -> dict:
 # table's module); phase_parallel launches them and checks what they return.
 
 PAR_N = 4096  # the global size of the 4-rank variants but SUMMA's
-#: per-rank launches of each distributed path (split, recombine): a real
+#: per-rank launches of each distributed path (split, recombine; the
+#: exponent max launches once per split, :func:`per_path`): a real
 #: variant splits its two operands, a complex one four planes; SUMMA
 #: recombines once per pass, the ring, stream and k variants sum int32
 #: group totals through torch._int_mm and launch no recombine kernel
@@ -1580,8 +1763,7 @@ def _par_call(call, want, gather=None) -> dict:
     seconds = time.perf_counter() - t0
     counts = read_launches()
     out = np.ascontiguousarray(gather(out) if gather else out)
-    res = {"call_seconds": seconds, "split_digits": counts["split_digits"],
-           "recombine": counts["recombine"], "call_staged_bytes": comm.STAGED_BYTES,
+    res = {"call_seconds": seconds, **counts, "call_staged_bytes": comm.STAGED_BYTES,
            "digest": hashlib.sha256(out.tobytes()).hexdigest()}
     if dist.get_rank() == 0:
         ref = np.ascontiguousarray(want())
@@ -1609,8 +1791,7 @@ def par_nccl_summa(mesh) -> dict:
     reset_launches()
     got = par.sharded_gemm(a, b, NS, mesh)
     counts = read_launches()
-    res = {"equal": bits_equal(got, want) and bool(torch.isfinite(got).all()),
-           "split_digits": counts["split_digits"], "recombine": counts["recombine"]}
+    res = {"equal": bits_equal(got, want) and bool(torch.isfinite(got).all()), **counts}
     del got, want
     res["ms_sharded"] = cuda_ms(lambda: par.sharded_gemm(a, b, NS, mesh), iters=3)
     res["ms_gemm"] = cuda_ms(lambda: ozt.gemm(a, b, mode=mode), iters=3)
@@ -1751,10 +1932,9 @@ def phase_parallel(ozt, label) -> dict:
     t0 = time.perf_counter()
     ranks = local.run(f"{here}:PARALLEL_NCCL", "1x1", nproc=1, device="cuda", timeout=300)
     (res,) = _par_results(ranks, PARALLEL_NCCL, "NCCL 1x1")["summa"]
-    if not res["equal"] or (res["split_digits"], res["recombine"]) != PAR_LAUNCHES["summa"]:
+    by_path["parallel_nccl_summa"] = counts_of(res)
+    if not res["equal"] or by_path["parallel_nccl_summa"] != per_path(*PAR_LAUNCHES["summa"]):
         raise AssertionError(f"NCCL 1x1 sharded_gemm {N}^3: {res}")
-    by_path["parallel_nccl_summa"] = {"split_digits": res["split_digits"],
-                                      "recombine": res["recombine"]}
     print(f"[parallel] NCCL, world size 1, 1x1 mesh: sharded_gemm fp64_int8_{NS} {N}^3 == gemm "
           f"bitwise; launches split {res['split_digits']}, recombine {res['recombine']} "
           f"({time.perf_counter() - t0:.1f} s with the process start)", flush=True)
@@ -1771,13 +1951,14 @@ def phase_parallel(ozt, label) -> dict:
     results = _par_results(ranks, PARALLEL_GLOO, "gloo 4 ranks")
     for name, per_rank in results.items():
         r0 = per_rank[0]
-        counts = {(r["split_digits"], r["recombine"]) for r in per_rank}
+        counts = [counts_of(r) for r in per_rank]
         digests = {r["digest"] for r in per_rank}
-        if not r0["equal"] or counts != {PAR_LAUNCHES[name]} or len(digests) != 1:
+        if not r0["equal"] or any(c != per_path(*PAR_LAUNCHES[name]) for c in counts) \
+                or len(digests) != 1:
             raise AssertionError(f"gloo {name}: equal {r0['equal']}, per-rank launches {counts} "
-                                 f"(expected {PAR_LAUNCHES[name]}), {len(digests)} digests")
-        by_path[f"parallel_gloo_{name}"] = {"split_digits": r0["split_digits"],
-                                            "recombine": r0["recombine"]}
+                                 f"(expected {per_path(*PAR_LAUNCHES[name])}), {len(digests)} "
+                                 f"digests")
+        by_path[f"parallel_gloo_{name}"] = counts[0]
         extra = ""
         if name == "auto":
             extra = f"; AUTO chose {r0['mode']}"
@@ -1822,16 +2003,15 @@ def sharded_launches(n: int, block: int, p: int, rank: int, kind: str) -> dict:
     has a trailing block, the step's root (the owner of its first row)
     runs the U12 GEMM of LU, and a rank that owns trailing rows runs their
     update (and for Cholesky, their panel solve first).  A real GEMM
-    launches split twice and recombine once, a complex one four times
-    each; at p = 1 this is :func:`step_launches`."""
+    launches the exponent max and split twice each and recombine once, a
+    complex one four times each; at p = 1 this is :func:`step_launches`."""
     h = -(-n // p)
     hi = min((rank + 1) * h, n)
     gemms = 0
     for j in range(0, n - block, block):
         owns_trailing = hi > j + block
         gemms += 2 * owns_trailing if kind == "cholesky" else (j // h == rank) + owns_trailing
-    return {"split_digits": gemms * (4 if kind == "zlu" else 2),
-            "recombine": gemms * (4 if kind == "zlu" else 1)}
+    return per_path(gemms * (4 if kind == "zlu" else 2), gemms * (4 if kind == "zlu" else 1))
 
 
 def _timed(call):
@@ -2027,7 +2207,7 @@ def phase_mesh_solvers(ozt, label) -> dict:
     if want != step_launches(n, blk):
         raise AssertionError(f"sharded_launches at p = 1 {want} != step_launches")
     for panel in ("device", "host"):
-        got = {"split_digits": res[f"{panel}_split_digits"], "recombine": res[f"{panel}_recombine"]}
+        got = {k: res[f"{panel}_{k}"] for k in ("split_digits", "row_exponent", "recombine")}
         if not res[f"{panel}_equal"] or got != want or not res[f"{panel}_residual"] < 1e-14:
             raise AssertionError(f"NCCL 1x1 HPL n={n} {panel} panels: equal "
                                  f"{res[f'{panel}_equal']}, launches {got} (expected {want}), "
@@ -2063,7 +2243,7 @@ def phase_mesh_solvers(ozt, label) -> dict:
         r0 = per_rank[0]
         kind = name.split("_")[0]
         wants = [sharded_launches(n, blk, 4, r, kind) for r in range(4)]
-        gots = [{"split_digits": r["split_digits"], "recombine": r["recombine"]} for r in per_rank]
+        gots = [counts_of(r) for r in per_rank]
         exact = name != "lu_device_panels"
         ok = (r0["same_piv"] and (r0["same_bits"] if exact else r0["rel"] < 1e-13)
               and r0["scaled_residual"] < 1e-14
@@ -2123,11 +2303,14 @@ def under_gate(what: str, value: float, gate: float) -> float:
 def hostref_checks(ozt) -> list:
     """The split kernel's planes against ``hostref.split_fp64``'s digits,
     bitwise (exp_rand-3 at 1000 x 1234 with a zero row and a subnormal, ns
-    3, 9, 18, A by rows and B = its transpose by columns; the exponents
-    compared by meaning, the null-row sentinels being different numbers),
+    3, 9, 18, A by rows and B = its transpose by columns, in the natural
+    layout and k-major, the latter read back as [ns, 1000, 1234] and zero
+    beyond k; the exponents compared by meaning, the null-row sentinels
+    being different numbers),
     and the card's ``gemm`` at 1025 x 777 x 513 within 2 ulp (rtol 5e-16)
     of ``hostref.gemm_fp64``."""
     from ozimmu_tpu_torch import hostref
+    from ozimmu_tpu_torch.ops.recombine import padded_k
     from ozimmu_tpu_torch.ops.split import ZERO_ROW_PEXP, row_exponent, split_with_exp
     from ozimmu_tpu_torch.schedule import bits_per_int8
     from ozimmu_tpu_torch.testing import generate_input
@@ -2137,19 +2320,26 @@ def hostref_checks(ozt) -> list:
     x[3, 0] = 2.0**-1070
     b = bits_per_int8(1234)
     done = []
+    kp = padded_k(1234)
     for axis, operand in ((1, x), (0, np.ascontiguousarray(x.T))):
         t = torch.from_numpy(operand).cuda()
         for ns in (3, 9, 18):
-            planes, pexp = split_with_exp(t, row_exponent(t, axis), ns, b, axis)  # the kernel
-            pexp = pexp.cpu().numpy().astype(np.int64)
             dh, ph = hostref.split_fp64(x, ns, b)
-            want = dh if axis == 1 else np.swapaxes(dh, 1, 2)
             live = ph != hostref.ZERO_ROW_PEXP
+            e = row_exponent(t, axis)  # the kernels
+            planes, pexp = split_with_exp(t, e, ns, b, axis)
+            # the engine's k-major planes ([ns, 1000, k_pad] for A and for
+            # B = x^T by columns), read back in hostref's [ns, 1000, 1234]
+            kmajor, _ = split_with_exp(t, e, ns, b, axis, kp)
+            kmajor = kmajor.cpu().numpy()
+            pexp = pexp.cpu().numpy().astype(np.int64)
+            want = dh if axis == 1 else np.swapaxes(dh, 1, 2)
             if not (np.array_equal(planes.cpu().numpy(), want)
+                    and np.array_equal(kmajor[..., :1234], dh) and not kmajor[..., 1234:].any()
                     and np.array_equal(pexp == ZERO_ROW_PEXP, ~live)
                     and np.array_equal(pexp[live], ph[live])):
                 raise AssertionError(f"split kernel != hostref.split_fp64 (axis {axis}, ns {ns})")
-            done.append(f"{'A by rows' if axis == 1 else 'B by columns'} ns={ns}")
+            done.append(f"{'A by rows' if axis == 1 else 'B by columns'} ns={ns}, both layouts")
     m, n, k = 1025, 777, 513
     a = generate_input("normal01", (m, k), seed=42)
     bm = generate_input("normal01", (k, n), seed=43)
@@ -2228,8 +2418,8 @@ def example_kernel_checks(name: str, r: dict) -> list:
 
 
 #: launches (split, recombine) of each single-process example at its own
-#: size: a real GEMM splits twice and recombines once, a complex one four
-#: times each.  01: matmul, the op_a=T gemm, a 512^2 ZGEMM (AUTO's two
+#: size (the exponent max once per split, :func:`per_path`): a real GEMM
+#: splits twice and recombines once, a complex one four times each.  01: matmul, the op_a=T gemm, a 512^2 ZGEMM (AUTO's two
 #: queries run no kernel); 02: three routed products, the 64^3 one below
 #: the threshold adds nothing; 04: two profiled gemms and the traced
 #: matmul; 05: one residual per refinement step (one step converges);
@@ -2318,7 +2508,7 @@ def phase_examples(ozt, label) -> dict:
             checked = _single_example_checks(name, r)
         kernels = example_kernel_checks(name, r)
         del r
-        if (counts["split_digits"], counts["recombine"]) != EXAMPLE_LAUNCHES[name]:
+        if counts != per_path(*EXAMPLE_LAUNCHES[name]):
             raise AssertionError(f"{name}: launches {counts}, expected {EXAMPLE_LAUNCHES[name]}")
         by_path[f"examples/{name}"] = counts
         print(f"[examples] {name} on cuda: launches {counts}; {checked} "
@@ -2336,33 +2526,29 @@ def phase_examples(ozt, label) -> dict:
     results = _par_results(ranks, ex03.CASES, "example 03")
     for name, per_rank in results.items():
         r0 = per_rank[0]
-        counts = [(r["case_launches_split_digits"], r["case_launches_recombine"])
-                  for r in per_rank]
+        counts = [counts_of(r, "case_launches_") for r in per_rank]
         ok = r0["same"] if name == "auto_select" else (r0["bitwise"] and r0.get("ran", True))
-        if not ok or set(counts) != {EX03_LAUNCHES[name]}:
+        if not ok or any(c != per_path(*EX03_LAUNCHES[name]) for c in counts):
             raise AssertionError(f"example 03 {name}: {r0}, per-rank launches {counts}, expected "
-                                 f"{EX03_LAUNCHES[name]}")
-        by_path[f"examples/torch_03_distributed/{name}"] = {
-            "split_digits": counts[0][0], "recombine": counts[0][1]}
+                                 f"{per_path(*EX03_LAUNCHES[name])}")
+        by_path[f"examples/torch_03_distributed/{name}"] = counts[0]
         what = (f"AUTO chose {r0['mode']} == single-device {r0['single_device_mode']}"
                 if name == "auto_select" else "bitwise == one-device gemm")
         print(f"[examples] torch_03_distributed {name}, 4 gloo ranks on one card: {what}; "
-              f"launches (split, recombine) {counts[0]} on every rank (the case with its "
-              "one-device reference)", flush=True)
+              f"launches {counts[0]} on every rank (the case with its one-device reference)",
+              flush=True)
     print(f"[examples] torch_03_distributed: {len(results)} cases in "
           f"{time.perf_counter() - t0:.1f} s with the process start", flush=True)
 
     t0 = time.perf_counter()
     res = load_example("torch_07_multiprocess").main(device="cuda", backend="gloo")
-    counts = [(r["case_launches_split_digits"], r["case_launches_recombine"])
-              for r in res["results"]]
-    if set(counts) != {EX_PAIR_LAUNCHES} or not all(
+    counts = [counts_of(r, "case_launches_") for r in res["results"]]
+    if any(c != per_path(*EX_PAIR_LAUNCHES) for c in counts) or not all(
             ln.endswith("bitwise == single-device") for ln in res["lines"]):
         raise AssertionError(f"example 07: {res['lines']}, per-rank launches {counts}")
-    by_path["examples/torch_07_multiprocess"] = {"split_digits": counts[0][0],
-                                                 "recombine": counts[0][1]}
+    by_path["examples/torch_07_multiprocess"] = counts[0]
     print(f"[examples] torch_07_multiprocess, 2 hosts x 2 gloo ranks on the hybrid mesh: "
-          f"bitwise == gemm_f64 on every rank; per-rank launches (split, recombine) {counts[0]} "
+          f"bitwise == gemm_f64 on every rank; per-rank launches {counts[0]} "
           f"(SUMMA body and the one-device reference) ({time.perf_counter() - t0:.1f} s with "
           "the process start)", flush=True)
 
@@ -2370,8 +2556,8 @@ def phase_examples(ozt, label) -> dict:
     t0 = time.perf_counter()
     ranks = local.run(f"{here}:EXAMPLES_NCCL", "1x1", nproc=1, device="cuda", timeout=420)
     (r,) = _par_results(ranks, EXAMPLES_NCCL, "example 09")["north_star"]
-    counts = {"split_digits": r["split_digits"], "recombine": r["recombine"]}
-    if not r["bitwise"] or (r["split_digits"], r["recombine"]) != EX_PAIR_LAUNCHES:
+    counts = counts_of(r)
+    if not r["bitwise"] or counts != per_path(*EX_PAIR_LAUNCHES):
         raise AssertionError(f"example 09 at {NORTH_STAR}^3: {r}")
     # the full-matrix reference is torch.matmul float64 summed over k-panels
     # of 1024: one call's own accumulation over k = 16384 is off by ~3e-15

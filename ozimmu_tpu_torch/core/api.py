@@ -27,7 +27,7 @@ from ..ops import tf32x3
 from ..ops.mantissa_loss import auto_mode_select as _auto_mode_select_core
 from ..ops.mantissa_loss import auto_mode_select_complex
 from ..ops.pack import unpack_f64
-from ..ops.recombine import acc_shift, recombine
+from ..ops.recombine import acc_shift, padded_k, recombine
 from ..ops.split import split_f64, split_f64_cols
 from ..schedule import bits_per_int8
 from ..types import ComputeMode, ComputeModeLike, ElementKind, Operation, OperationLike
@@ -35,8 +35,8 @@ from ..utils.env import env_flag
 from ..utils.log import log
 from ..utils.profiling import culip_timer, synchronize
 from .gemm import (
-    _epilogue_SE, _exponent_plane, _zfold_passes, _zpasses, gemm_f64, gemm_f64_batched,
-    zgemm_f64, zgemm_f64_batched,
+    _epilogue_SE, _exponent_plane, _zfold_passes, _zpasses, _zsplit, gemm_f64,
+    gemm_f64_batched, zgemm_f64, zgemm_f64_batched,
 )
 from .handle import Handle, default_handle
 
@@ -173,12 +173,13 @@ def _gemm_staged(handle: Handle, a, b, num_split: int, alpha: float, beta: float
     dev = a.device
     k = a.shape[1]
     bb = bits_per_int8(k)
+    kp = padded_k(k)
     with prof.phase("split_A", sync=dev):
-        da, pa = split_f64(a, num_split, bb)
+        da, pa = split_f64(a, num_split, bb, kp)
     with prof.phase("split_B", sync=dev):
-        db, pb = split_f64_cols(b, num_split, bb)
+        db, pb = split_f64_cols(b, num_split, bb, kp)
     with prof.phase("int8tc+accumulate_in_f64", sync=dev):
-        S = recombine(da, db, num_split, bb, k)
+        S = recombine(da, db, num_split, bb, k, b_kmajor=True)
     with prof.phase("copy_result", sync=dev):
         E = _exponent_plane(pa, pb, acc_shift(num_split, bb))
         out = _epilogue_SE(S, E, float(alpha), float(beta), c)
@@ -194,12 +195,13 @@ def _zgemm_staged(handle: Handle, a_re, a_im, b_re, b_im, num_split: int,
     m, k = a_re.shape
     n = b_re.shape[1]
     bb = bits_per_int8(k)
+    kp = padded_k(k)
     with prof.phase("split_A", sync=dev):
-        a_planes = {0: split_f64(a_re, num_split, bb), 1: split_f64(a_im, num_split, bb)}
+        a_planes = _zsplit(a_re, a_im, num_split, bb, kp, cols=False)
     with prof.phase("split_B", sync=dev):
-        b_planes = {0: split_f64_cols(b_re, num_split, bb), 1: split_f64_cols(b_im, num_split, bb)}
+        b_planes = _zsplit(b_re, b_im, num_split, bb, kp, cols=True)
     with prof.phase("int8tc+accumulate_in_f64", sync=dev):
-        SEs = _zpasses(a_planes, b_planes, num_split, bb, k)
+        SEs = _zpasses(a_planes, b_planes, num_split, bb, k, b_kmajor=True)
     with prof.phase("copy_result", sync=dev):
         out = _zfold_passes(SEs, m, n, alpha, beta, c_re, c_im, dev)
     return out

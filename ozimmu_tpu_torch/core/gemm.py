@@ -32,7 +32,7 @@ import torch
 
 from ..ops import tf32x3
 from ..ops.pack import aligned_add, pack_f64, scalar_triple, unpack_f64
-from ..ops.recombine import acc_shift, recombine
+from ..ops.recombine import acc_shift, padded_k, recombine
 from ..ops.split import split_f64, split_f64_cols
 from ..schedule import (
     auto_n_chunks, bits_per_int8, epilogue_block_bytes, hbm_budget_bytes,
@@ -110,12 +110,15 @@ def _exponent_plane(pa: torch.Tensor, pb: torch.Tensor, shift: int) -> torch.Ten
 def _gemm_core(a, b, num_split: int, alpha: float, beta: float, c=None) -> torch.Tensor:
     """Real-valued engine core on one device: [m, k] @ [k, n], or a batch
     [B, m, k] @ [B, k, n] with one split per operand, one recombination
-    and one epilogue for the whole batch."""
+    and one epilogue for the whole batch.  Both operands are split straight
+    into the k-major, k-padded planes that recombine reads (no copy of
+    either)."""
     k = a.shape[-1]
     bb = bits_per_int8(k)
-    da, pa = split_f64(a, num_split, bb)
-    db, pb = split_f64_cols(b, num_split, bb)
-    S = recombine(da, db, num_split, bb, k)
+    kp = padded_k(k)
+    da, pa = split_f64(a, num_split, bb, kp)
+    db, pb = split_f64_cols(b, num_split, bb, kp)
+    S = recombine(da, db, num_split, bb, k, b_kmajor=True)
     E = _exponent_plane(pa, pb, acc_shift(num_split, bb))
     return _epilogue_SE(S, E, alpha, beta, c)
 
@@ -128,7 +131,8 @@ def _gemm_core_nchunked(a, b, num_split: int, n_chunks: int, alpha: float = 1.0,
     independent, the recombination sees the full k, and the epilogue is
     elementwise), but peak memory for the B planes / int32 partials /
     triple-f32 accumulator drops by ~n_chunks.  Any ``n`` (the last panel
-    is simply narrower).
+    is simply narrower).  Each B panel is split where it lies in ``b`` (the
+    kernels read it through its row stride), straight into k-major planes.
     """
     k = a.shape[1]
     n = b.shape[1]
@@ -136,13 +140,14 @@ def _gemm_core_nchunked(a, b, num_split: int, n_chunks: int, alpha: float = 1.0,
         return _gemm_core(a, b, num_split, alpha, beta, c)
     w = -(-n // n_chunks)
     bb = bits_per_int8(k)
+    kp = padded_k(k)
     shift = acc_shift(num_split, bb)
-    da, pa = split_f64(a, num_split, bb)
+    da, pa = split_f64(a, num_split, bb, kp)
     out = torch.empty((a.shape[0], n), dtype=torch.float64, device=a.device)
     for j0 in range(0, n, w):
         j1 = min(j0 + w, n)
-        db, pb = split_f64_cols(b[:, j0:j1].contiguous(), num_split, bb)
-        S = recombine(da, db, num_split, bb, k)
+        db, pb = split_f64_cols(b[:, j0:j1], num_split, bb, kp)
+        S = recombine(da, db, num_split, bb, k, b_kmajor=True)
         E = _exponent_plane(pa, pb, shift)
         cj = c[:, j0:j1] if c is not None else None
         out[:, j0:j1] = _epilogue_SE(S, E, alpha, beta, cj)
@@ -268,16 +273,26 @@ def _zfold_block(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im,
     return pack_f64(*acc_re), pack_f64(*acc_im)
 
 
-def _zpasses(a_planes, b_planes, num_split: int, bb: int, k: int):
+def _zpasses(a_planes, b_planes, num_split: int, bb: int, k: int, b_kmajor: bool = False):
     """(S, E) of every pass of :data:`ZGEMM_PASSES`; ``a_planes`` and
-    ``b_planes`` map 0/1 (real/imag) to (digits, pexp)."""
+    ``b_planes`` map 0/1 (real/imag) to (digits, pexp), B's planes k-major
+    where ``b_kmajor`` (as the engine splits them: each B part is laid out
+    once and read by two passes as it is)."""
     shift = acc_shift(num_split, bb)
     SEs = []
     for ap, bp in ZGEMM_PASSES:
         da, pa = a_planes[ap]
         db, pb = b_planes[bp]
-        SEs.append((recombine(da, db, num_split, bb, k), _exponent_plane(pa, pb, shift)))
+        SEs.append((recombine(da, db, num_split, bb, k, b_kmajor),
+                    _exponent_plane(pa, pb, shift)))
     return SEs
+
+
+def _zsplit(x_re, x_im, num_split: int, bb: int, kp: int, cols: bool):
+    """The k-major planes of a complex operand's two parts: 0/1 (real/imag)
+    to (digits, pexp); ``cols`` for the B operand."""
+    split = split_f64_cols if cols else split_f64
+    return {0: split(x_re, num_split, bb, kp), 1: split(x_im, num_split, bb, kp)}
 
 
 def _zgemm_core(a_re, a_im, b_re, b_im, num_split: int, alpha: complex, beta: complex,
@@ -288,9 +303,10 @@ def _zgemm_core(a_re, a_im, b_re, b_im, num_split: int, alpha: complex, beta: co
     k = a_re.shape[-1]
     shape = (*a_re.shape[:-1], b_re.shape[-1])
     bb = bits_per_int8(k)
-    a_planes = {0: split_f64(a_re, num_split, bb), 1: split_f64(a_im, num_split, bb)}
-    b_planes = {0: split_f64_cols(b_re, num_split, bb), 1: split_f64_cols(b_im, num_split, bb)}
-    SEs = _zpasses(a_planes, b_planes, num_split, bb, k)
+    kp = padded_k(k)
+    a_planes = _zsplit(a_re, a_im, num_split, bb, kp, cols=False)
+    b_planes = _zsplit(b_re, b_im, num_split, bb, kp, cols=True)
+    SEs = _zpasses(a_planes, b_planes, num_split, bb, k, b_kmajor=True)
     n = shape[-1]
     rows = lambda x: None if x is None else x.reshape(-1, n)  # noqa: E731
     SEs = [(tuple(map(rows, S)), rows(E)) for S, E in SEs]
@@ -311,16 +327,14 @@ def _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split: int, n_chunks: int,
         return _zgemm_core(a_re, a_im, b_re, b_im, num_split, alpha, beta, c_re, c_im)
     w = -(-n // n_chunks)
     bb = bits_per_int8(k)
-    a_planes = {0: split_f64(a_re, num_split, bb), 1: split_f64(a_im, num_split, bb)}
+    kp = padded_k(k)
+    a_planes = _zsplit(a_re, a_im, num_split, bb, kp, cols=False)
     out_re = torch.empty((m, n), dtype=torch.float64, device=a_re.device)
     out_im = torch.empty((m, n), dtype=torch.float64, device=a_re.device)
     for j0 in range(0, n, w):
         j1 = min(j0 + w, n)
-        b_planes = {
-            0: split_f64_cols(b_re[:, j0:j1].contiguous(), num_split, bb),
-            1: split_f64_cols(b_im[:, j0:j1].contiguous(), num_split, bb),
-        }
-        SEs = _zpasses(a_planes, b_planes, num_split, bb, k)
+        b_planes = _zsplit(b_re[:, j0:j1], b_im[:, j0:j1], num_split, bb, kp, cols=True)
+        SEs = _zpasses(a_planes, b_planes, num_split, bb, k, b_kmajor=True)
         cr = c_re[:, j0:j1] if c_re is not None else None
         ci = c_im[:, j0:j1] if c_im is not None else None
         out_re[:, j0:j1], out_im[:, j0:j1] = _zfold_passes(

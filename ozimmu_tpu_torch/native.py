@@ -120,8 +120,12 @@ def build() -> str:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.oz_split_digits.argtypes = [p, p, p, i64, i64, i64, i32, i32, i32, p]
+    lib.oz_split_digits.argtypes = [
+        p, p, p, i64, i64, i64, i64, i64, i64, i32, i32, i32, i32, i32, i32, i64, i32, p,
+    ]
     lib.oz_split_digits.restype = i32
+    lib.oz_exponent_max.argtypes = [p, p, i64, i64, i64, i64, i64, i32, i32, i64, i64, p]
+    lib.oz_exponent_max.restype = i32
     lib.oz_recombine.argtypes = [
         p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p, p, p, p, i32, i32, i32, p,
     ]

@@ -39,6 +39,16 @@ from . import tf32x3
 Triple = tf32x3.Triple
 
 
+#: the recombine kernel's TMA strides are multiples of 16 bytes: the
+#: engine's k-major planes are zero-padded along k to this
+K_ALIGN = 16
+
+
+def padded_k(k: int) -> int:
+    """``k`` rounded up to :data:`K_ALIGN`: the length of a k-major plane row."""
+    return -(-k // K_ALIGN) * K_ALIGN
+
+
 def acc_shift(num_split: int, b: int) -> int:
     """Exponent bias of the accumulation space (see module docstring)."""
     return b * (num_split + 1) - 64
@@ -68,12 +78,17 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
 
 
-def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, k: int, b: int) -> List[torch.Tensor]:
+def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, k: int, b: int,
+                 b_kmajor: bool = False) -> List[torch.Tensor]:
     """Int32 partial products of every scheduled t-group (a list, in
     ascending-t schedule order): the sum of ``da[i-1] @ db[j-1]`` over the
     group's pairs, for planes [ns, m, k] @ [ns, k, n] or, matrix by matrix,
-    a batch [ns, B, m, k] @ [ns, B, k, n].  Exact — the schedule's cap
-    bounds the FULL contraction (pass the true k)."""
+    a batch [ns, B, m, k] @ [ns, B, k, n].  With ``b_kmajor`` B's planes
+    come k-major, [ns, (B,) n, k] (the engine's, with A's and B's k both
+    zero-padded alike: zero digits add zero products).  Exact — the
+    schedule's cap bounds the FULL contraction (pass the true k)."""
+    if b_kmajor:
+        db = db.transpose(-1, -2)
     totals = []
     for g in group_schedule(num_split, k, b):
         d = None
@@ -100,7 +115,8 @@ def fold_group_totals(totals, num_split: int, k: int, b: int) -> Triple:
     return tf32x3.renorm(acc)
 
 
-def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int) -> Triple:
+def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
+              b_kmajor: bool = False) -> Triple:
     """Weighted recombination of all scheduled slice pairs.
 
     Returns the triple-f32 accumulator ``S_shifted`` [m, n] (for a batch of
@@ -111,13 +127,16 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
             == S_shifted * 2^(-ACC_SHIFT)
 
     The caller folds ``2^(pa + pb - ACC_SHIFT)`` in the epilogue.
+    ``b_kmajor``: the planes come as the engine's split writes them, both
+    k-major and zero-padded to :func:`padded_k` (A [ns, (B,) m, k_pad], B
+    [ns, (B,) n, k_pad]), and the kernel reads them as they are.
     """
     if da.device.type == "cuda":
         from .recombine_cuda import recombine as recombine_kernel
 
-        return recombine_kernel(da, db, num_split, b, k)
+        return recombine_kernel(da, db, num_split, b, k, b_kmajor=b_kmajor)
     if da.device.type == "cpu":
-        return fold_group_totals(group_totals(da, db, num_split, k, b), num_split, k, b)
+        return fold_group_totals(group_totals(da, db, num_split, k, b, b_kmajor), num_split, k, b)
     raise ValueError(f"unsupported device {da.device}")
 
 

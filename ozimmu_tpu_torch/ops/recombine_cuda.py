@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from .. import native
 from ..schedule import group_schedule
-from .recombine import acc_shift
+from .recombine import K_ALIGN, acc_shift, padded_k
 from .tf32x3 import Triple
 
 #: kernel launches by :func:`recombine` since the process started (or
@@ -39,8 +39,6 @@ LAUNCHES = 0
 TILES = ((2, 256, 4, 2), (1, 128, 8, 1))
 #: k bytes of one ring stage (one 128-byte swizzle row)
 BLOCK_K = 128
-#: TMA's global strides are multiples of 16 bytes: k is zero-padded to this
-K_ALIGN = 16
 #: dynamic shared memory a block may use on Hopper
 SMEM_LIMIT = 232_448
 #: the most pairs (ns = 18) and groups the kernel's schedule parameter holds
@@ -97,7 +95,7 @@ def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
     nc, bn, stages, cm = TILES[tile]
     if sms < cm:
         raise ValueError(f"tile class {tile} needs {cm} SMs, the card has {sms}")
-    k_pad = -(-k // K_ALIGN) * K_ALIGN
+    k_pad = padded_k(k)
     units = units_of(tile)
     if units * cm >= 2**31 or num_split * batch >= 2**31:
         raise ValueError(f"{units} units of {batch} matrices exceed the kernel's 32-bit unit index")
@@ -128,9 +126,10 @@ def _schedule_arrays(num_split: int, k: int, b: int):
     return (len(groups), *arrays)
 
 
-def _k_major(planes: torch.Tensor, k_pad: int) -> torch.Tensor:
-    """``planes`` [ns, B, rows, k] as a 16-byte aligned [ns, B, rows, k_pad]
-    tensor, zero beyond k (zero digits add zero products)."""
+def _pad_k_major(planes: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """``planes`` [ns, B, rows, k] copied into a 16-byte aligned
+    [ns, B, rows, k_pad] tensor, zero beyond k (zero digits add zero
+    products): the copy that planes in the operands' own layout pay."""
     k = planes.shape[-1]
     if k != k_pad:
         planes = F.pad(planes, (0, k_pad - k))
@@ -138,14 +137,34 @@ def _k_major(planes: torch.Tensor, k_pad: int) -> torch.Tensor:
     return planes if planes.data_ptr() % 16 == 0 else planes.clone()
 
 
+def _k_major(planes: torch.Tensor, k_pad: int, name: str) -> torch.Tensor:
+    """``planes`` as the kernel reads them, [ns, B, rows, k_pad]: contiguous,
+    16-byte aligned, k padded to ``k_pad``.  Raises otherwise — nothing is
+    copied here."""
+    if planes.shape[-1] != k_pad or not planes.is_contiguous() or planes.data_ptr() % 16:
+        raise ValueError(
+            f"{name} planes {tuple(planes.shape)} (strides {planes.stride()}) are not contiguous, "
+            f"16-byte aligned and padded to k_pad={k_pad}")
+    return planes
+
+
 def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
-              tile: Optional[int] = None) -> Triple:
+              tile: Optional[int] = None, b_kmajor: bool = False) -> Triple:
     """The 2^ACC_SHIFT-scaled triple-f32 accumulator [m, n] of the digit
     planes ``da`` int8 [ns, m, k] and ``db`` int8 [ns, k, n]; or, in one
     launch, [B, m, n] of a batch ``da`` [ns, B, m, k], ``db`` [ns, B, k, n],
     matrix i the product of the planes of matrix i.  ``k`` is the true
     contraction length, which sets the group caps.  ``tile`` forces a tile
-    class of :data:`TILES` (the launch plan chooses otherwise)."""
+    class of :data:`TILES` (the launch plan chooses otherwise).
+
+    The kernel reads both operands k-contiguous (8-bit ``wgmma`` takes only
+    K-major operands), k zero-padded to a multiple of :data:`K_ALIGN`.
+    With ``b_kmajor`` the planes come so, as the engine's split writes
+    them: ``da`` [ns, (B,) m, k_pad], ``db`` [ns, (B,) n, k_pad]; anything
+    else raises, and nothing is copied.  Without it (the planes of the
+    distributed layer and of the plain tests) B's planes are transposed
+    into a copy of ns*B*k*n bytes and A's padded where k is not a
+    multiple."""
     global LAUNCHES
     if da.device.type != "cuda" or db.device != da.device:
         raise ValueError(
@@ -162,10 +181,13 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
     if not batched:
         da, db = da.unsqueeze(1), db.unsqueeze(1)
     ns, bsz, m, k_in = da.shape
-    n = db.shape[3]
-    if ns != num_split or tuple(db.shape[:3]) != (ns, bsz, k_in):
-        raise ValueError(f"plane shapes {tuple(da.shape)} @ {tuple(db.shape)} do not match ns={num_split}")
-    if k_in > k or max(m, n, k) >= 2**31:
+    n = db.shape[2] if b_kmajor else db.shape[3]
+    k_b = db.shape[3] if b_kmajor else db.shape[2]
+    if ns != num_split or tuple(db.shape[:2]) != (ns, bsz) or k_b != k_in:
+        raise ValueError(f"plane shapes {tuple(da.shape)} @ {tuple(db.shape)} do not match "
+                         f"ns={num_split} (B k-major: {b_kmajor})")
+    k_max = padded_k(k) if b_kmajor else k
+    if k_in > k_max or max(m, n, k) >= 2**31:
         raise ValueError(f"unsupported sizes m={m} n={n} k={k_in} (true k={k})")
     if not 3 <= num_split <= 18 or not 1 <= b <= 7:
         raise ValueError(f"unsupported num_split={num_split}, b={b}")
@@ -175,10 +197,10 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
         return out if batched else tuple(o[0] for o in out)
     sms = torch.cuda.get_device_properties(da.device).multi_processor_count
     plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz)
-    # both operands go over k-contiguous (wgmma takes 8-bit operands only
-    # K-major): B's planes as [ns, B, n, k_pad], one copy of ns*B*k*n bytes
-    da = _k_major(da, plan.k_pad)
-    dbt = _k_major(db.transpose(2, 3), plan.k_pad)
+    if not b_kmajor:
+        da = _pad_k_major(da, plan.k_pad)
+        db = _pad_k_major(db.transpose(2, 3), plan.k_pad)
+    da, dbt = _k_major(da, plan.k_pad, "A"), _k_major(db, plan.k_pad, "B")
     n_groups, start, pi, pj, shi, slo = _schedule_arrays(num_split, k, b)
     ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
     with torch.cuda.device(da.device):

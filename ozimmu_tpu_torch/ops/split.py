@@ -17,16 +17,26 @@ Exactness identity:
 whenever ``ns*b >= 53 + (Erow - E)``.
 
 :func:`split_with_row_exp` is the plain PyTorch version of the CUDA kernel
-in :mod:`.split_cuda`.  :func:`split_with_exp`, :func:`split_f64` and
-:func:`split_f64_cols` pick by the operand's device alone: a CUDA tensor
-always goes through the kernel, a CPU tensor through the plain version.
+in :mod:`.split_cuda`, :func:`row_exponent_plain` that of the exponent-max
+kernel in :mod:`.exponent_cuda`.  :func:`row_exponent`,
+:func:`split_with_exp`, :func:`split_f64` and :func:`split_f64_cols` pick
+by the operand's device alone: a CUDA tensor always goes through the
+kernels, a CPU tensor through the plain versions.
+
+Plane layouts: without ``k_pad`` the planes keep the operand's layout,
+[ns, rows, k] for A and [ns, k, cols] for B (the JAX package's).  With
+``k_pad`` (a multiple of 16, at least k) both come k-major and zero beyond
+k, as the recombine kernel reads them: A [ns, rows, k_pad] and B
+[ns, cols, k_pad] — B's split writes its planes transposed, so nothing
+copies them again.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.bits import exponent_field, mantissa53, sign_bit
 
@@ -35,11 +45,24 @@ from ..core.bits import exponent_field, mantissa53, sign_bit
 ZERO_ROW_PEXP = -(2**20)
 
 
-def row_exponent(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+def row_exponent_plain(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
     """Max biased exponent field (int32) along the contraction axis of a
     matrix [R, C] or of each matrix of a batch [B, R, C]: one per row
     (``axis=1``) or one per column (``axis=0``)."""
     return torch.amax(exponent_field(x), dim=axis - 2)
+
+
+def row_exponent(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """:func:`row_exponent_plain` on ``x``'s device: the CUDA kernel for a
+    CUDA tensor (one launch, also for a batch or a strided column panel),
+    the plain version for a CPU tensor."""
+    if x.device.type == "cuda":
+        from .exponent_cuda import exponent_max
+
+        return exponent_max(x, axis)
+    if x.device.type == "cpu":
+        return row_exponent_plain(x, axis)
+    raise ValueError(f"unsupported device {x.device}")
 
 
 def pexp_from_row_exp(e_row: torch.Tensor) -> torch.Tensor:
@@ -50,7 +73,8 @@ def pexp_from_row_exp(e_row: torch.Tensor) -> torch.Tensor:
 
 
 def split_with_row_exp(
-    x: torch.Tensor, e_row: torch.Tensor, num_split: int, b: int, axis: int = 1
+    x: torch.Tensor, e_row: torch.Tensor, num_split: int, b: int, axis: int = 1,
+    k_pad: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split against a supplied max exponent along ``axis``.
 
@@ -61,10 +85,12 @@ def split_with_row_exp(
     Returns ``(digits, pexp)``: int8 ``[ns, rows, cols]`` and int32
     ``[rows]`` (axis=1) or ``[cols]`` (axis=0).  A batch ``x`` [B, rows,
     cols] with ``e_row`` [B, rows] or [B, cols] gives int8 ``[ns, B, rows,
-    cols]``, each matrix split as on its own.  Each window is cut from
-    the int64 53-bit significand; all shift counts are clamped into
-    [0, 62], which keeps the semantics because the significand is below
-    2^53 and windows reaching below bit -b are zero.
+    cols]``, each matrix split as on its own.  ``k_pad`` gives the
+    k-major layout instead (module docstring): the same digits transposed
+    (B) and zero-padded to ``k_pad``.  Each window is cut from the int64
+    53-bit significand; all shift counts are clamped into [0, 62], which
+    keeps the semantics because the significand is below 2^53 and windows
+    reaching below bit -b are zero.
     """
     e_row = e_row.to(torch.int32)
     bcast = (..., slice(None), None) if axis == 1 else (..., None, slice(None))
@@ -81,47 +107,66 @@ def split_with_row_exp(
         win = torch.where(r >= 0, from_above, from_below) & mask
         win = torch.where((r > -b) & nonzero, win, torch.zeros_like(win))
         digits[plane] = torch.where(neg, -win, win).to(torch.int8)
+    if k_pad is not None:
+        digits = _as_k_major(digits, axis, k_pad)
     return digits, pexp_from_row_exp(e_row)
 
 
+def _as_k_major(digits: torch.Tensor, axis: int, k_pad: int) -> torch.Tensor:
+    """Planes [ns, ..., rows, k] (axis=1) or [ns, ..., k, cols] (axis=0) as
+    contiguous [ns, ..., rows or cols, k_pad], zero beyond k."""
+    if axis == 0:
+        digits = digits.transpose(-1, -2)
+    k = digits.shape[-1]
+    if k_pad % 16 or k_pad < k:
+        raise ValueError(f"k_pad={k_pad} is not a multiple of 16 at least k={k}")
+    return F.pad(digits, (0, k_pad - k)).contiguous()
+
+
 def split_with_exp(
-    x: torch.Tensor, e_max: torch.Tensor, num_split: int, b: int, axis: int = 1
+    x: torch.Tensor, e_max: torch.Tensor, num_split: int, b: int, axis: int = 1,
+    k_pad: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`split_with_row_exp` on ``x``'s device: the CUDA kernel for a
-    CUDA tensor (one launch, also for a batch), the plain version for a CPU
-    tensor.  ``e_max`` is the max exponent field along ``axis`` (the
-    distributed layer passes the max over every rank's block)."""
+    CUDA tensor (one launch, also for a batch; ``x`` read through its
+    strides), the plain version for a CPU tensor.  ``e_max`` is the max
+    exponent field along ``axis`` (the distributed layer passes the max
+    over every rank's block)."""
     if x.device.type == "cuda":
         from .split_cuda import split_digits
 
         e_max = e_max.to(torch.int32).contiguous()
-        return split_digits(x, e_max, num_split, b, axis), pexp_from_row_exp(e_max)
+        return split_digits(x, e_max, num_split, b, axis, k_pad), pexp_from_row_exp(e_max)
     if x.device.type == "cpu":
-        return split_with_row_exp(x, e_max, num_split, b, axis)
+        return split_with_row_exp(x, e_max, num_split, b, axis, k_pad)
     raise ValueError(f"unsupported device {x.device}")
 
 
-def _split(x: torch.Tensor, num_split: int, b: int, axis: int):
-    return split_with_exp(x, row_exponent(x, axis), num_split, b, axis)
+def _split(x: torch.Tensor, num_split: int, b: int, axis: int, k_pad: Optional[int]):
+    return split_with_exp(x, row_exponent(x, axis), num_split, b, axis, k_pad)
 
 
-def split_f64(x: torch.Tensor, num_split: int, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def split_f64(x: torch.Tensor, num_split: int, b: int,
+              k_pad: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split ``x`` [rows, k] into digit planes.
 
-    Returns ``(digits, pexp)``: ``digits`` int8 ``[ns, rows, k]``, ``pexp``
-    int32 ``[rows]`` with row scale ``2^pexp``; for a batch [B, rows, k],
-    ``[ns, B, rows, k]`` and ``[B, rows]``.
+    Returns ``(digits, pexp)``: ``digits`` int8 ``[ns, rows, k]`` (with
+    ``k_pad``, ``[ns, rows, k_pad]``, zero beyond k), ``pexp`` int32
+    ``[rows]`` with row scale ``2^pexp``; for a batch [B, rows, k],
+    ``[ns, B, rows, k or k_pad]`` and ``[B, rows]``.
     """
-    return _split(x, num_split, b, axis=1)
+    return _split(x, num_split, b, 1, k_pad)
 
 
-def split_f64_cols(x: torch.Tensor, num_split: int, b: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def split_f64_cols(x: torch.Tensor, num_split: int, b: int,
+                   k_pad: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Split ``x`` [k, cols] along columns (for the B operand).
 
     Same semantics as splitting ``x.T`` row-wise (reference
     split.cu:277-282 swaps m/n and the op), computed directly in the
-    [k, cols] layout.  Returns digits int8 ``[ns, k, cols]`` and pexp
-    int32 [cols]; for a batch [B, k, cols], ``[ns, B, k, cols]`` and
-    ``[B, cols]``.
+    [k, cols] layout.  Returns digits int8 ``[ns, k, cols]`` — with
+    ``k_pad``, k-major ``[ns, cols, k_pad]``, zero beyond k — and pexp
+    int32 [cols]; for a batch [B, k, cols], ``[ns, B, k, cols]`` (or
+    ``[ns, B, cols, k_pad]``) and ``[B, cols]``.
     """
-    return _split(x, num_split, b, axis=0)
+    return _split(x, num_split, b, 0, k_pad)

@@ -11,7 +11,7 @@ Starts ``--nproc`` processes with ``subprocess``, each one rank of a
 every case of ``TABLE``, a dict ``name -> fn(mesh) -> dict`` of arrays,
 tensors, numbers or strings, in order.  Per case and rank it records the
 results, the traceback of an exception (``<case>/error``), and the whole
-case's seconds, split and recombine kernel launches and bytes staged
+case's seconds, split, exponent and recombine kernel launches and bytes staged
 through host memory (``<case>/case_seconds``, ``case_launches_*``,
 ``case_staged_bytes``); each rank writes them to its own ``.npz``.  The parent waits with
 a timeout: a rank that fails or hangs has every rank killed and raises, so
@@ -80,13 +80,14 @@ def _run_case(name: str, fn, mesh, cuda: bool) -> Dict[str, np.ndarray]:
     import torch
     import torch.distributed as dist
 
-    from ..ops import recombine_cuda, split_cuda
+    from ..ops import exponent_cuda, recombine_cuda, split_cuda
     from . import comm
 
     dist.barrier()
     if cuda:
         torch.cuda.synchronize()
-    split_cuda.LAUNCHES = recombine_cuda.LAUNCHES = comm.STAGED_BYTES = 0
+    split_cuda.LAUNCHES = exponent_cuda.LAUNCHES = recombine_cuda.LAUNCHES = 0
+    comm.STAGED_BYTES = 0
     t0 = time.perf_counter()
     try:
         out = {k: _value(v) for k, v in fn(mesh).items()}
@@ -96,6 +97,7 @@ def _run_case(name: str, fn, mesh, cuda: bool) -> Dict[str, np.ndarray]:
         out = {"error": np.asarray(traceback.format_exc())}
     out.update(case_seconds=np.asarray(time.perf_counter() - t0),
                case_launches_split_digits=np.asarray(split_cuda.LAUNCHES),
+               case_launches_row_exponent=np.asarray(exponent_cuda.LAUNCHES),
                case_launches_recombine=np.asarray(recombine_cuda.LAUNCHES),
                case_staged_bytes=np.asarray(comm.STAGED_BYTES))
     return {f"{name}/{k}": v for k, v in out.items()}

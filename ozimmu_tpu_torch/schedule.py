@@ -153,7 +153,13 @@ def working_set_bytes(
     """Approximate device working set for one emulated GEMM (analogue of
     the reference's ``calculate_working_memory_size``, config.cu:121-146).
     PyTorch's caching allocator owns allocation; this is a planning and
-    introspection helper."""
+    introspection helper.
+
+    The plane term counts each operand's int8 planes once, which is what
+    the engine allocates: its split writes them k-major, as recombine reads
+    them, so B's planes are never copied into a transposed second layout.
+    Padding k to a multiple of 16 adds at most 15 bytes per plane row,
+    which the term leaves out (exact where k is a multiple of 16)."""
     factor = 2 if complex_ else 1
     slices = num_split * (m * k + k * n) * factor  # int8 planes
     exps = 4 * (m + n) * factor  # int32 row/col exponents
@@ -170,7 +176,10 @@ def working_set_bytes_chunked(
     The chunked engine (core.gemm._gemm_core_nchunked) keeps A's operand
     and int8 planes plus B's operand and the full output resident, and
     streams B's planes / int32 partials / triple-f32 accumulator one
-    n-panel at a time — so those scale by 1/n_chunks.
+    n-panel at a time — so those scale by 1/n_chunks.  Each panel is split
+    where it lies in B (no contiguous copy of the column panel) straight
+    into its k-major planes, counted once, as in :func:`working_set_bytes`
+    (k padded to a multiple of 16 adds at most 15 bytes per plane row).
     """
     factor = 2 if complex_ else 1
     w = -(-n // n_chunks)

@@ -10,7 +10,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from ozimmu_tpu_torch.ops import recombine as R  # noqa: E402
-from ozimmu_tpu_torch.ops import recombine_cuda, split_cuda  # noqa: E402
+from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda  # noqa: E402
 from ozimmu_tpu_torch.ops import split as S  # noqa: E402
 from ozimmu_tpu_torch.schedule import bits_per_int8  # noqa: E402
 from ozimmu_tpu_torch.testing import generate_input  # noqa: E402
@@ -47,6 +47,99 @@ def test_split_kernel_equals_plain(dev, name, ns, b):
         want, _ = S.split_with_row_exp(x, e, ns, b, axis)
         got = split_cuda.split_digits(x, e, ns, b, axis)
         assert torch.equal(want, got), (name, ns, b, axis)
+
+
+def _operands(dev):
+    """2-D operands (k off the multiple of 16 among them), a batch with a
+    zero row, a zero column and a subnormal, and column panels whose rows
+    are strided views, 16-byte aligned or not."""
+    xb = generate_input("exp_rand-8", (3, 300, 777), seed=4)
+    xb[0, 5, :] = 0.0
+    xb[1, :, 7] = 0.0
+    xb[2, 3, 3] = 5e-324
+    wide = torch.from_numpy(generate_input("normal01", (1000, 1234), seed=1)).to(dev)
+    ops = {"special": torch.from_numpy(_special()).to(dev),
+           "exp_rand-8(1000x1234)": torch.from_numpy(
+               generate_input("exp_rand-8", (1000, 1234), seed=2)).to(dev),
+           "batch(3x300x777)": torch.from_numpy(xb).to(dev),
+           "panel[:, 3:700]": wide[:, 3:700], "panel[:, 64:1000]": wide[:, 64:1000]}
+    for k in (1, 15, 16, 17):
+        ops[f"{k}x129"] = torch.from_numpy(generate_input("normal01", (k, 129), seed=k)).to(dev)
+        ops[f"129x{k}"] = torch.from_numpy(generate_input("normal01", (129, k), seed=k)).to(dev)
+    return ops
+
+
+def test_exponent_kernel_equals_plain(dev):
+    """The exponent-max kernel == torch.amax of the exponent field, by rows
+    and by columns, 2-D, batched and through a panel's strides, one launch
+    each."""
+    for name, x in _operands(dev).items():
+        for axis in (0, 1):
+            before = exponent_cuda.LAUNCHES
+            got = exponent_cuda.exponent_max(x, axis)
+            assert exponent_cuda.LAUNCHES - before == 1
+            assert got.dtype == torch.int32
+            assert torch.equal(got, S.row_exponent_plain(x, axis)), (name, axis)
+            assert torch.equal(S.row_exponent(x, axis), got), (name, axis)
+
+
+@pytest.mark.parametrize("ns,b", [(3, 7), (9, 5), (18, 7), (9, 7)])
+def test_split_kernel_k_major_equals_plain(dev, ns, b):
+    """Both layouts of the split kernel (natural, and k-major padded to the
+    next multiple of 16 and to 16 more) == the plain split, 2-D, batched,
+    through a panel's strides and at k around the multiple of 16."""
+    for name, x in _operands(dev).items():
+        for axis in (0, 1):
+            e = S.row_exponent_plain(x, axis)
+            k = x.shape[-1] if axis == 1 else x.shape[-2]
+            for kp in (None, R.padded_k(k), R.padded_k(k) + 16):
+                want, _ = S.split_with_row_exp(x, e, ns, b, axis, kp)
+                got = split_cuda.split_digits(x, e, ns, b, axis, kp)
+                assert torch.equal(want, got), (name, axis, kp)
+
+
+@pytest.mark.parametrize("m,n,k,ns", [(200, 136, 272, 6), (1000, 1234, 777, 9), (17, 9, 32, 3),
+                                      (130, 260, 4096, 18)])
+def test_recombine_reads_k_major_planes(dev, m, n, k, ns):
+    """recombine on the engine's k-major planes (no copy) == recombine on
+    [ns, k, n] planes (the transposed copy) == the plain version, in every
+    tile class; planes that are not padded to the plan's k_pad raise."""
+    b = bits_per_int8(k)
+    a = torch.from_numpy(generate_input("normal01", (m, k), seed=m)).to(dev)
+    bm = torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=n)).to(dev)
+    kp = R.padded_k(k)
+    da, _ = S.split_f64(a, ns, b, kp)
+    db, _ = S.split_f64_cols(bm, ns, b, kp)
+    want = R.fold_group_totals(R.group_totals(da, db, ns, k, b, b_kmajor=True), ns, k, b)
+    old = recombine_cuda.recombine(S.split_f64(a, ns, b)[0], S.split_f64_cols(bm, ns, b)[0],
+                                   ns, b, k)
+    for tile in [None, *range(len(recombine_cuda.TILES))]:
+        got = recombine_cuda.recombine(da, db, ns, b, k, tile=tile, b_kmajor=True)
+        for w, g, o in zip(want, got, old):
+            assert torch.equal(w.view(torch.int32), g.view(torch.int32)), tile
+            assert torch.equal(o.view(torch.int32), g.view(torch.int32)), tile
+    if k % 16:
+        with pytest.raises(ValueError):
+            recombine_cuda.recombine(da[..., :k].contiguous(), db[..., :k].contiguous(), ns, b, k,
+                                     b_kmajor=True)
+
+
+def test_gemm_launches_exponent_split_and_recombine(dev):
+    """One real GEMM launches the exponent max and the split twice each
+    and recombine once; a column-chunked one once per B panel more."""
+    import ozimmu_tpu_torch as ozt
+
+    a = torch.from_numpy(generate_input("normal01", (300, 777), seed=5)).to(dev)
+    b = torch.from_numpy(generate_input("exp_rand-8", (777, 260), seed=6)).to(dev)
+    for chunks in (1, 3):
+        torch.cuda.synchronize()
+        before = (split_cuda.LAUNCHES, exponent_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
+        got = ozt.gemm_f64(a, b, 9, n_chunks=chunks)
+        torch.cuda.synchronize()
+        after = (split_cuda.LAUNCHES, exponent_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
+        assert tuple(x - y for x, y in zip(after, before)) == (1 + chunks, 1 + chunks, chunks)
+        want = ozt.gemm_f64(a.cpu(), b.cpu(), 9, n_chunks=chunks)
+        assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
 
 
 @pytest.mark.parametrize(

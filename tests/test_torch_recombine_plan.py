@@ -42,8 +42,8 @@ def test_zero_padded_k_is_exact(k, ns):
     da, db = np.array(da), np.array(db)
     tda, tdb = torch.from_numpy(da), torch.from_numpy(db)
     plan = K.launch_plan(m, n, k, ns, sms=132)
-    pa = K._k_major(tda, plan.k_pad)
-    pb = K._k_major(tdb.transpose(1, 2), plan.k_pad).transpose(1, 2)
+    pa = K._pad_k_major(tda, plan.k_pad)
+    pb = K._pad_k_major(tdb.transpose(1, 2), plan.k_pad).transpose(1, 2)
     assert pa.shape == (ns, m, plan.k_pad) and pb.shape == (ns, plan.k_pad, n)
     assert plan.k_pad > k and not pa[:, :, k:].any() and not pb[:, k:, :].any()
     padded = P.fold_group_totals(P.group_totals(pa, pb, ns, k, b), ns, k, b)

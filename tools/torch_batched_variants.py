@@ -93,9 +93,10 @@ def make_copies(root: str) -> dict:
           ("const int pa = sch.pi[p] * batch + mat, pb = sch.pj[p] * batch + mat;",
            "const int pa = mat * sch.ns + sch.pi[p], pb = mat * sch.ns + sch.pj[p];"))
     _edit(os.path.join(mm, "ozimmu_tpu_torch", "ops", "recombine_cuda.py"),
-          ("    da = _k_major(da, plan.k_pad)\n    dbt = _k_major(db.transpose(2, 3), plan.k_pad)",
-           "    da = _k_major(da.transpose(0, 1), plan.k_pad)\n"
-           "    dbt = _k_major(db.permute(1, 0, 3, 2), plan.k_pad)"))
+          ("        da = _pad_k_major(da, plan.k_pad)\n"
+           "        db = _pad_k_major(db.transpose(2, 3), plan.k_pad)",
+           "        da = _pad_k_major(da.transpose(0, 1), plan.k_pad)\n"
+           "        db = _pad_k_major(db.permute(1, 0, 3, 2), plan.k_pad)"))
     return {"shipped": shipped, "matrix_major": mm}
 
 
