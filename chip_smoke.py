@@ -10,11 +10,15 @@ of its tile classes, from either layout), drives the main path — the real
 DGEMM ``gemm(a, b, mode="fp64_int8_9")`` at m = n = k = 8192 — checks its
 bits against the plain pipeline and its residual against a long-double
 oracle, shows that the main path launched the exponent max and the split
-twice each and recombine once, and times the main path, its phases, each
-operand's split stage and each kernel against its plain version and its
-bound, the transposed copy of B's planes that the k-major split removed
-and the int8 products alone through ``torch._int_mm`` as yardsticks, the
-GEMM's peak memory, and ``torch.matmul`` on float64.
+twice each, recombine and the epilogue once, and times the main path, its
+phases, each operand's split stage and each kernel against its plain
+version and its bound, the transposed copy of B's planes that the k-major
+split removed and the int8 products alone through ``torch._int_mm`` as
+yardsticks, the GEMM's peak memory, and ``torch.matmul`` on float64.  Then
+the epilogue and complex-fold kernels bit for bit against their plain
+versions (the main path's S and E, crafted triples in every branch, HPL's
+15360^2 update with a strided c, a batch's [B*m, n] view, ZGEMM's four
+passes at 8192^2), each timed beside its bound and its plain version.
 
 Then it drives the rest of the public GEMM API, each path with the launch
 counts set to 0 just before it and read just after:
@@ -28,7 +32,7 @@ counts set to 0 just before it and read just after:
     TF32 setting kept out and restored; one complex probe;
   * ``gemm_batched`` (one launch of each kernel per sub-batch): 8 x 1024^3
     real and complex, 64 x 256^3, an odd 5 x 1000 x 777 x 513 batch and
-    4 x 4096^3, also in sub-batches under a 12 GiB budget; bits against a
+    4 x 4096^3, also in sub-batches under a 3 GiB budget; bits against a
     loop of 2-D ``gemm``, both kernels bitwise against their plain versions
     on each batch, and timed beside the loop and batched ``torch.matmul``;
   * ``device_trace`` of one 4096^3 GEMM: kernel names and the device's
@@ -115,6 +119,12 @@ RESIDUAL_GATE = 1e-15
 # NVIDIA's data sheet for the H100 SXM (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12  # outside the tensor cores
+#: f32 additions, subtractions and multiplications per element of the
+#: device functions of ozimmu_tpu_torch/csrc/tf32x3.cuh (what an
+#: operations bound of the epilogue counts; integer work not counted)
+F32_OPS = {"mul": 109, "aligned_add": 63, "unpack": 5, "pack": 12}
+HPL_UPDATE = (15360, 1024)  # m = n, k of HPL's first trailing update at n = 16384
 
 # recombine cases (m, n, k, ns): ragged edges, k % 16 != 0, one group per
 # pair at ns = 18 (171 pairs), the int32 group splits of k = 16384
@@ -179,34 +189,52 @@ def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
     return x.shape == y.shape and torch.equal(x.view(view), y.view(view))
 
 
+#: the kernels' launch counters, by the name each has in the results
+KERNEL_KEYS = ("split_digits", "row_exponent", "recombine", "epilogue", "zfold")
+
+
 def reset_launches() -> None:
-    from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops import epilogue_cuda, exponent_cuda, recombine_cuda, split_cuda
 
     torch.cuda.synchronize()
     split_cuda.LAUNCHES = 0
     exponent_cuda.LAUNCHES = 0
     recombine_cuda.LAUNCHES = 0
+    epilogue_cuda.LAUNCHES = 0
+    epilogue_cuda.ZFOLD_LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops import epilogue_cuda, exponent_cuda, recombine_cuda, split_cuda
 
     torch.cuda.synchronize()
     return {"split_digits": split_cuda.LAUNCHES, "row_exponent": exponent_cuda.LAUNCHES,
-            "recombine": recombine_cuda.LAUNCHES}
+            "recombine": recombine_cuda.LAUNCHES, "epilogue": epilogue_cuda.LAUNCHES,
+            "zfold": epilogue_cuda.ZFOLD_LAUNCHES}
 
 
-def per_path(split: int, recombine: int) -> dict:
+def per_path(split: int, recombine: int, epilogue: int = 0, zfold: int = 0) -> dict:
     """The launch counts of a path that splits ``split`` operands (each
-    split is one exponent-max launch and one split launch) and runs
-    ``recombine`` recombine launches."""
-    return {"split_digits": split, "row_exponent": split, "recombine": recombine}
+    split is one exponent-max launch and one split launch), runs
+    ``recombine`` recombine launches, ``epilogue`` epilogue launches (one
+    per real GEMM, column panel or sub-batch) and ``zfold`` complex folds
+    (one per ZGEMM, panel or sub-batch)."""
+    return {"split_digits": split, "row_exponent": split, "recombine": recombine,
+            "epilogue": epilogue, "zfold": zfold}
+
+
+def gemms(real: int = 0, complex_: int = 0) -> dict:
+    """The launch counts of ``real`` real and ``complex_`` complex engine
+    GEMMs, each unchunked and with its recombine kernel: a real one splits
+    two operands, recombines once and runs one epilogue, a complex one
+    splits four planes, recombines four times and runs one fold."""
+    return per_path(2 * real + 4 * complex_, real + 4 * complex_, real, complex_)
 
 
 def counts_of(res: dict, prefix: str = "") -> dict:
     """The launch counts in a rank's or an example's results (keys
     ``prefix + kernel``), as :func:`read_launches` gives them."""
-    return {k: int(res[prefix + k]) for k in ("split_digits", "row_exponent", "recombine")}
+    return {k: int(res[prefix + k]) for k in KERNEL_KEYS}
 
 
 def kernel_ms(fn, names, iters: int = 5) -> float:
@@ -214,13 +242,17 @@ def kernel_ms(fn, names, iters: int = 5) -> float:
     name contains one of ``names``, over ``iters`` calls after one, from a
     ``torch.profiler`` trace: the kernels' own time, where a call is too
     short for CUDA events around it to see past the host's issue time."""
+    from ozimmu_tpu_torch.utils.profiling import TRACE_PAD_S
+
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(TRACE_PAD_S)  # the device clock's drift (device_trace)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
     with tempfile.TemporaryDirectory(prefix="oz_prof_") as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -279,7 +311,7 @@ def main() -> int:
     import ozimmu_tpu_torch as ozt
     from ozimmu_tpu_torch import native
     from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
-    from ozimmu_tpu_torch.ops.pack import pack_f64
+    from ozimmu_tpu_torch.core.gemm import _epilogue_block, _epilogue_SE, _exponent_plane
     from ozimmu_tpu_torch.ops.recombine import (
         acc_shift, fold_group_totals, group_totals, padded_k, recombine,
     )
@@ -414,7 +446,7 @@ def main() -> int:
     pdb, ppb = split_with_row_exp(b, row_exponent_plain(b, 0), NS, bb, 0)
     S = fold_group_totals(group_totals(pda, pdb, NS, N, bb), NS, N, bb)
     E = (ppa[:, None] + ppb[None, :] - acc_shift(NS, bb)).to(torch.int32)
-    plain_out = pack_f64(S, E)
+    plain_out = _epilogue_block(S, E, 1.0, 0.0, None)
     if not bits_equal(out, plain_out):
         raise AssertionError("main path output differs from the plain pipeline")
     del pda, pdb, S, E, plain_out
@@ -459,8 +491,8 @@ def main() -> int:
 
     # 6. the main path went through every kernel: each operand's exponent
     #    max and split, one recombine
-    if launches != per_path(2, 1):
-        raise AssertionError(f"the main path's launches {launches}, expected {per_path(2, 1)}")
+    if launches != gemms(1):
+        raise AssertionError(f"the main path's launches {launches}, expected {gemms(1)}")
     print(f"[launches] main path {N}^3: {launches}", flush=True)
 
     # 7. timing (CUDA events, after warm-up); nothing is asserted on speed
@@ -479,8 +511,9 @@ def main() -> int:
     phases["recombine"] = cuda_ms(lambda: recombine(da, db, NS, bb, N, b_kmajor=True), iters=3)
     S = recombine(da, db, NS, bb, N, b_kmajor=True)
     phases["epilogue"] = cuda_ms(
-        lambda: pack_f64(S, (pa[:, None] + pb[None, :] - acc_shift(NS, bb)).to(torch.int32)),
+        lambda: _epilogue_SE(S, _exponent_plane(pa, pb, acc_shift(NS, bb)), 1.0, 0.0, None),
         iters=5)
+    main_SE = (S, _exponent_plane(pa, pb, acc_shift(NS, bb)))
     del S
     print(f"[time] {label}: phases of {N}^3 fp64_int8_{NS}: "
           + ", ".join(f"{k_} {v:.3f} ms" for k_, v in phases.items())
@@ -572,6 +605,10 @@ def main() -> int:
     print(f"[time] {label}: torch.matmul float64 {N}^3: {ms_dgemm:.3f} ms, "
           f"{2 * N**3 / ms_dgemm / 1e9:.3f} TFLOPS", flush=True)
 
+    # 7b. the epilogue and fold kernels against their plain versions
+    epi_figs = walled(phase_epilogue, label, main_SE)
+    del main_SE
+
     # 8.-19. the rest of the public surface, each path counted on its own
     print(f"[wall] phases 1-7 (build, kernels vs plain, main path, timing): "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
@@ -625,11 +662,212 @@ def main() -> int:
         if name in batched_figs["B"]:
             batched["ms_by_operand"] = {"A": k_ms, "B": batched_figs["B"][name]}
         kernels.append(batched)
+    # the epilogue (plain XLA in the JAX package, fused by jax.jit) on the
+    # main path, the fold on ZGEMM's: launches from that path's run, times
+    # and bounds at its shape (phase 7b)
+    for name, path, line in (("epilogue", "main", 40), ("zfold", "zgemm", 175)):
+        k_ms, p_ms, (b_ms, b_by), err = epi_figs[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "ozimmu_tpu_torch/csrc/epilogue.cu",
+            "replaces": f"ozimmu_tpu/core/gemm.py:{line}", "launches": by_path[path][name],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+        if by_path[path][name] < 1:
+            raise AssertionError(f"the {path} path did not launch the {name} kernel")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def epilogue_bound(elements: int, alpha: float, beta: float):
+    """The epilogue kernel's bound (ms, what sets it) over ``elements``
+    outputs: S (12 B), E (4 B), c where beta != 0 (8 B) read once, the
+    output (8 B) written once; the f32 operations of its branches."""
+    ops = F32_OPS["pack"] + (F32_OPS["mul"] if alpha != 1.0 else 0)
+    if beta != 0.0:
+        ops += F32_OPS["unpack"] + F32_OPS["aligned_add"] + (F32_OPS["mul"] if beta != 1.0 else 0)
+    return bound_ms(elements * (24 + (8 if beta != 0.0 else 0)), elements * ops, F32_OPS_PER_S)
+
+
+def zfold_bound(elements: int, alpha: complex, beta: complex, with_c: bool):
+    """The fold kernel's bound: four (S, E) passes (16 B each) and c's two
+    parts where the plan reads them read once, both output planes written
+    once; the f32 operations of the plan's steps."""
+    from ozimmu_tpu_torch.ops.epilogue_cuda import zfold_plan
+
+    plan = zfold_plan(alpha, beta)
+    reads_c = with_c and (plan.init_from_c or any(st.src >= 4 for st in plan.steps))
+    ops = (2 * F32_OPS["pack"] + len(plan.steps) * (F32_OPS["mul"] + F32_OPS["aligned_add"])
+           + (2 * F32_OPS["unpack"] if reads_c else 0))
+    return bound_ms(elements * (4 * 16 + 16 + (16 if reads_c else 0)), elements * ops,
+                    F32_OPS_PER_S)
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the elements (0 where both are the same
+    infinity)."""
+    d = (got - want).abs()
+    return float(torch.where(got == want, torch.zeros_like(d), d).max())
+
+
+def window_of(c: torch.Tensor, pad: int = 1024) -> torch.Tensor:
+    """``c`` as the strided window ``big[pad:, pad:]`` of a wider matrix,
+    as HPL passes its trailing block."""
+    m, n = c.shape
+    big = torch.zeros((m + pad, n + pad), dtype=c.dtype, device=c.device)
+    big[pad:, pad:] = c
+    return big[pad:, pad:]
+
+
+def phase_epilogue(label, main_SE) -> dict:
+    """7b. The epilogue and fold kernels against their plain versions
+    (``_epilogue_block``, ``_zfold_block``), bit for bit, each call one
+    launch: the main path's own S and E at 8192^2 (alpha = 1, beta = 0) and
+    with alpha, beta and c; crafted triples in every branch; HPL's first
+    trailing update, 15360^2 from the split and recombine kernels, alpha =
+    -1, beta = 1 and c the strided window of a 16384^2 matrix; the [B*m, n]
+    view of an 8 x 1024^3 batch; the fold at 8192^2 on four recombined
+    passes with alpha = 1 (ZGEMM's main path) and with complex alpha, beta
+    and c, contiguous and strided; then each kernel's ms beside its bound
+    and its plain version's.  Returns the figures of the kernels line."""
+    from ozimmu_tpu_torch.core.gemm import (
+        _epilogue_block, _epilogue_SE, _exponent_plane, _zfold_block, _zpasses, _zsplit,
+    )
+    from ozimmu_tpu_torch.ops import epilogue_cuda
+    from ozimmu_tpu_torch.ops.recombine import acc_shift, padded_k, recombine
+    from ozimmu_tpu_torch.ops.split import split_f64, split_f64_cols
+    from ozimmu_tpu_torch.schedule import bits_per_int8
+    from ozimmu_tpu_torch.testing import crafted_triples, generate_input
+
+    err = {"epilogue": 0.0, "zfold": 0.0}
+    cases = {"epilogue": 0, "zfold": 0}
+
+    def check_epilogue(what, S, E, alpha, beta, c, via=None):
+        want = _epilogue_block(S, E, alpha, beta, c if beta != 0.0 else None)
+        before = epilogue_cuda.LAUNCHES
+        got = (via or epilogue_cuda.epilogue)(S, E, alpha, beta, c if beta != 0.0 else None)
+        torch.cuda.synchronize()
+        if epilogue_cuda.LAUNCHES - before != 1 or not bits_equal(got, want.view(got.shape)):
+            raise AssertionError(f"epilogue kernel != plain: {what} alpha={alpha} beta={beta}")
+        err["epilogue"] = max(err["epilogue"], max_abs_err(got, want.view(got.shape)))
+        cases["epilogue"] += 1
+
+    def check_zfold(what, SEs, alpha, beta, c_re, c_im):
+        m, n = SEs[0][1].shape
+        want = _zfold_block(SEs, m, n, complex(alpha), complex(beta), c_re, c_im, "cuda")
+        before = epilogue_cuda.ZFOLD_LAUNCHES
+        got = epilogue_cuda.zfold(SEs, alpha, beta, c_re, c_im)
+        torch.cuda.synchronize()
+        if epilogue_cuda.ZFOLD_LAUNCHES - before != 1 or not all(
+                bits_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"fold kernel != plain: {what} alpha={alpha} beta={beta}")
+        err["zfold"] = max([err["zfold"]] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        cases["zfold"] += 1
+        del want, got
+
+    rng = np.random.default_rng(7)
+    S, E = main_SE
+    c = torch.from_numpy(generate_input("normal01", (N, N), seed=20)).cuda()
+    check_epilogue(f"main path {N}^2", S, E, 1.0, 0.0, None)
+    check_epilogue(f"main path {N}^2 with c", S, E, 2.0, -0.5, c)
+    times = {}
+    for key, (alpha, beta, cc) in {"main": (1.0, 0.0, None), "scaled": (2.0, -0.5, c)}.items():
+        times[key] = (cuda_ms(lambda: epilogue_cuda.epilogue(S, E, alpha, beta, cc), iters=10),
+                      cuda_ms(lambda: _epilogue_block(S, E, alpha, beta, cc), iters=2),
+                      epilogue_bound(N * N, alpha, beta))
+    del S, E, c, main_SE
+    torch.cuda.empty_cache()
+
+    St, Et, ct = crafted_triples(1031, 1029, seed=21, device="cuda")
+    for alpha, beta in ((1.0, 0.0), (-1.5, 0.0), (1.0, 1.0), (-1.0, 1.0), (1.0, -0.5),
+                        (2.5, -0.5), (0.0, 1.5), (0.1, 1.0 / 3.0)):
+        for cc in (ct, window_of(ct, 7)):
+            check_epilogue("crafted 1031x1029", St, Et, alpha, beta, cc)
+    passes = [crafted_triples(515, 517, seed=22 + i, device="cuda") for i in range(4)]
+    SEs = [(p[0], p[1]) for p in passes]
+    for alpha, beta in ((1.0, 0.0), (-1.0, 1.0), (0.5 - 1.5j, 1.25 + 0.5j), (0.0, -1.0),
+                        (2.5, 0.75)):
+        for parts in ((None, None), (passes[0][2], passes[1][2]),
+                      (window_of(passes[2][2], 5), window_of(passes[3][2], 3))):
+            check_zfold("crafted 515x517", SEs, alpha, beta, *parts)
+    del St, Et, ct, passes, SEs
+
+    # HPL's first trailing update: 15360^2 x 1024 through the kernels
+    m, k = HPL_UPDATE
+    bb = bits_per_int8(k)
+    l21 = torch.from_numpy(rng.uniform(-1, 1, (m, k))).cuda()
+    u12 = torch.from_numpy(rng.uniform(-1, 1, (k, m))).cuda()
+    da, pa = split_f64(l21, NS, bb, padded_k(k))
+    db, pb = split_f64_cols(u12, NS, bb, padded_k(k))
+    S = recombine(da, db, NS, bb, k, b_kmajor=True)
+    E = _exponent_plane(pa, pb, acc_shift(NS, bb))
+    del l21, u12, da, db
+    a_hpl = torch.from_numpy(rng.uniform(-1, 1, (m + k, m + k))).cuda()
+    c22 = a_hpl[k:, k:]
+    check_epilogue(f"HPL update {m}^2, c a window of {m + k}^2", S, E, -1.0, 1.0, c22)
+    times["hpl"] = (cuda_ms(lambda: epilogue_cuda.epilogue(S, E, -1.0, 1.0, c22), iters=5),
+                    cuda_ms(lambda: _epilogue_block(S, E, -1.0, 1.0, c22), iters=1),
+                    epilogue_bound(m * m, -1.0, 1.0))
+    del S, E, a_hpl, c22
+    torch.cuda.empty_cache()
+
+    # the [B*m, n] view of a batch, through the dispatch
+    bsz, n1 = 8, 1024
+    xa = torch.from_numpy(generate_input("normal01", (bsz, n1, n1), seed=23)).cuda()
+    xb = torch.from_numpy(generate_input("exp_rand-8", (bsz, n1, n1), seed=24)).cuda()
+    xc = torch.from_numpy(generate_input("normal01", (bsz, n1, n1), seed=25)).cuda()
+    bb = bits_per_int8(n1)
+    da, pa = split_f64(xa, NS, bb, padded_k(n1))
+    db, pb = split_f64_cols(xb, NS, bb, padded_k(n1))
+    Sb = recombine(da, db, NS, bb, n1, b_kmajor=True)
+    Eb = _exponent_plane(pa, pb, acc_shift(NS, bb))
+    check_epilogue(f"batch {bsz} x {n1}^2 as its [B*m, n] view", Sb, Eb, 1.5, -0.5, xc,
+                   via=_epilogue_SE)
+    del xa, xb, xc, da, db, Sb, Eb
+
+    # the fold on four recombined passes at 8192^2
+    bb = bits_per_int8(N)
+    kp = padded_k(N)
+    planes = [torch.from_numpy(generate_input("urand01", (N, N), seed=26 + i)).cuda()
+              for i in range(4)]
+    a_planes = _zsplit(planes[0], planes[1], NS, bb, kp, cols=False)
+    b_planes = _zsplit(planes[2], planes[3], NS, bb, kp, cols=True)
+    del planes
+    SEs = _zpasses(a_planes, b_planes, NS, bb, N, b_kmajor=True)
+    del a_planes, b_planes
+    c_re, c_im = (torch.from_numpy(generate_input("normal01", (N, N), seed=30 + i)).cuda()
+                  for i in range(2))
+    check_zfold(f"ZGEMM {N}^2", SEs, 1.0, 0.0, None, None)
+    za, zb = 2 - 0.5j, 0.25 + 1j
+    check_zfold(f"ZGEMM {N}^2 with c", SEs, za, zb, c_re, c_im)
+    check_zfold(f"ZGEMM {N}^2 with c windows", SEs, za, zb, window_of(c_re, 64),
+                window_of(c_im, 64))
+    times["zfold"] = (cuda_ms(lambda: epilogue_cuda.zfold(SEs, 1.0, 0.0), iters=5),
+                      cuda_ms(lambda: _zfold_block(SEs, N, N, 1 + 0j, 0j, None, None, "cuda"),
+                              iters=1),
+                      zfold_bound(N * N, 1.0, 0.0, False))
+    times["zfold_c"] = (cuda_ms(lambda: epilogue_cuda.zfold(SEs, za, zb, c_re, c_im), iters=5),
+                        cuda_ms(lambda: _zfold_block(SEs, N, N, za, zb, c_re, c_im, "cuda"),
+                                iters=1),
+                        zfold_bound(N * N, za, zb, True))
+    del SEs, c_re, c_im
+    torch.cuda.empty_cache()
+    print(f"[epilogue] epilogue kernel == plain bitwise in {cases['epilogue']} cases, fold "
+          f"kernel == plain in {cases['zfold']} (the main path's S and E, crafted triples in "
+          f"every branch, c contiguous and as strided windows, HPL's 15360^2 update, a batch's "
+          f"[B*m, n] view, ZGEMM's four passes at {N}^2), one launch each", flush=True)
+    names = {"main": f"epilogue {N}^2 alpha=1 beta=0 (the main path)",
+             "scaled": f"epilogue {N}^2 alpha=2 beta=-0.5 with c",
+             "hpl": f"epilogue {m}^2 alpha=-1 beta=1, c a strided window (HPL's first update)",
+             "zfold": f"fold {N}^2 alpha=1 beta=0 (ZGEMM's main path)",
+             "zfold_c": f"fold {N}^2 alpha=2-0.5i beta=0.25+1i with c"}
+    for key, (k_ms, p_ms, (b_ms, b_by)) in times.items():
+        print(f"[time] {label}: {names[key]}: kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.1%} of the bound", flush=True)
+    return {"epilogue": (*times["main"][:2], times["main"][2], err["epilogue"]),
+            "zfold": (*times["zfold"][:2], times["zfold"][2], err["zfold"])}
 
 
 def phase_auto(ozt, a, b, a_np, b_np, mats, label, rng) -> dict:
@@ -681,7 +919,7 @@ def phase_auto(ozt, a, b, a_np, b_np, mats, label, rng) -> dict:
         raise AssertionError(f"AUTO output differs from mode={chosen.value}")
     rows, cols = block(rng, N, N)
     r = residual(out[rows][:, cols].cpu().numpy(), reference_gemm(a_np[rows], b_np[:, cols]))
-    if counts["split_digits"] < 2 or counts["recombine"] < 1:
+    if counts["split_digits"] < 2 or counts["recombine"] < 1 or counts["epilogue"] < 1:
         raise AssertionError(f"the AUTO path did not launch the kernels: {counts}")
     print(f"[auto] bits == gemm(mode={chosen.value}); sampled 64x256 block "
           f"relative_residual={r['relative_residual']:.3e}; launches {counts}", flush=True)
@@ -695,9 +933,9 @@ def phase_auto(ozt, a, b, a_np, b_np, mats, label, rng) -> dict:
 
 
 def plain_zgemm(a_re, a_im, b_re, b_im, ns, alpha, beta, c_re, c_im):
-    """The complex engine on the plain split and plain recombine, folded by
-    the same _zfold_passes."""
-    from ozimmu_tpu_torch.core.gemm import ZGEMM_PASSES, _exponent_plane, _zfold_passes
+    """The complex engine on the plain split, the plain recombine and the
+    plain fold (``_zfold_block``)."""
+    from ozimmu_tpu_torch.core.gemm import ZGEMM_PASSES, _exponent_plane, _zfold_block
     from ozimmu_tpu_torch.ops.recombine import acc_shift, fold_group_totals, group_totals
     from ozimmu_tpu_torch.ops.split import row_exponent_plain, split_with_row_exp
     from ozimmu_tpu_torch.schedule import bits_per_int8
@@ -717,7 +955,7 @@ def plain_zgemm(a_re, a_im, b_re, b_im, ns, alpha, beta, c_re, c_im):
         db, pb = b_planes[bp]
         S = fold_group_totals(group_totals(da, db, ns, k, bb), ns, k, bb)
         SEs.append((S, _exponent_plane(pa, pb, acc_shift(ns, bb))))
-    return _zfold_passes(SEs, m, n, complex(alpha), complex(beta), c_re, c_im, a_re.device)
+    return _zfold_block(SEs, m, n, complex(alpha), complex(beta), c_re, c_im, a_re.device)
 
 
 def phase_zgemm(ozt, label, rng) -> dict:
@@ -733,8 +971,8 @@ def phase_zgemm(ozt, label, rng) -> dict:
     reset_launches()
     out = ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
     counts = read_launches()
-    if counts != per_path(4, 4):
-        raise AssertionError(f"ZGEMM launches {counts}, expected {per_path(4, 4)}")
+    if counts != gemms(complex_=1):
+        raise AssertionError(f"ZGEMM launches {counts}, expected {gemms(complex_=1)}")
     planes = [x.contiguous() for x in (a.real, a.imag, b.real, b.imag)]
     re, im = plain_zgemm(*planes, NS, 1.0, 0.0, None, None)
     if not (bits_equal(out.real.contiguous(), re) and bits_equal(out.imag.contiguous(), im)):
@@ -835,11 +1073,12 @@ def phase_sgemm(ozt) -> None:
 #: default).  8 x 1024^3 as before; 64 x 256^3, products too small to fill
 #: the card one at a time; an odd batch (m, k and n off every tile and
 #: k % 16 != 0), so that a tile reaching past one matrix's last row reads
-#: zeros and not the next matrix's rows; 4 x 4096^3, also under a 12 GiB
-#: budget, where the batch runs in sub-batches
+#: zeros and not the next matrix's rows; 4 x 4096^3, also under a 3 GiB
+#: budget, where the batch runs in two sub-batches (1.09 GiB of working set
+#: per matrix: the epilogue kernel holds no temporaries)
 BATCH_CASES = ((8, 1024, 1024, 1024, "real", None), (8, 1024, 1024, 1024, "complex", None),
                (64, 256, 256, 256, "real", None), (5, 1000, 777, 513, "real", None),
-               (4, 4096, 4096, 4096, "real", None), (4, 4096, 4096, 4096, "real", 12288))
+               (4, 4096, 4096, 4096, "real", None), (4, 4096, 4096, 4096, "real", 3072))
 
 
 def wall_ms(fn, iters: int = 3) -> float:
@@ -1002,8 +1241,7 @@ def phase_batched(ozt, label):
             out = batched()
             got = counts[f"batched_{kind}_{bsz}x{m}" + ("_budget" if budget else "")] = read_launches()
             peak = torch.cuda.max_memory_allocated() - before
-            per = (4, 4) if cx else (2, 1)
-            if got != per_path(per[0] * len(parts), per[1] * len(parts)):
+            if got != (gemms(complex_=len(parts)) if cx else gemms(len(parts))):
                 raise AssertionError(f"batched {what}: launches {got} for {len(parts)} sub-batch(es)")
             as_real = torch.view_as_real if cx else (lambda x: x)
             for i, want in enumerate(loop()):
@@ -1061,8 +1299,8 @@ def busy_in_window(events, name: str):
 
 
 def phase_trace(ozt) -> None:
-    """12. device_trace of one 4096^3 fp64_int8_9 GEMM: the exponent, split and recombine kernels in
-    the trace, and the device's busy share over the traced window."""
+    """12. device_trace of one 4096^3 fp64_int8_9 GEMM: the exponent, split, recombine and
+    epilogue kernels in the trace, and the device's busy share over the traced window."""
     from ozimmu_tpu_torch.testing import generate_input
 
     n = 4096
@@ -1084,14 +1322,14 @@ def phase_trace(ozt) -> None:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     names = {e["name"] for e in kernels}
-    for want in ("exponent_rows_kernel", "exponent_cols_kernel", "split_rows_kernel",
-                 "split_tiles_kernel", "recombine_kernel"):
+    wanted = ("exponent_rows_kernel", "exponent_cols_kernel", "split_rows_kernel",
+              "split_tiles_kernel", "recombine_kernel", "epilogue_kernel")
+    for want in wanted:
         if not any(want in nm for nm in names):
             raise AssertionError(f"{want} not in the traced kernels {sorted(names)}")
     busy, window = busy_in_window(events, "traced_gemm")
     print(f"[trace] {n}^3 fp64_int8_{NS}: {len(kernels)} device kernels traced, incl. "
-          f"exponent_rows_kernel, exponent_cols_kernel, split_rows_kernel, split_tiles_kernel "
-          f"and recombine_kernel; device busy {busy / 1e3:.3f} ms of a "
+          f"{', '.join(wanted)}; device busy {busy / 1e3:.3f} ms of a "
           f"{window / 1e3:.3f} ms window = busy share {busy / window:.4f}", flush=True)
 
 
@@ -1135,8 +1373,8 @@ def phase_intercept(ozt, label) -> dict:
     with ozi.intercept(mode=mode):
         got = a @ b
     counts = read_launches()
-    if counts != per_path(2, 1):
-        raise AssertionError(f"intercepted {N}^3 launches {counts}, expected {per_path(2, 1)}")
+    if counts != gemms(1):
+        raise AssertionError(f"intercepted {N}^3 launches {counts}, expected {gemms(1)}")
     if not bits_equal(got, want):
         raise AssertionError("intercepted a @ b differs from gemm(a, b)")
     del got, want
@@ -1156,7 +1394,7 @@ def phase_intercept(ozt, label) -> dict:
     with ozi.intercept(mode=mode):
         got = torch.einsum("bik,bkj->bij", a3, b3)
     c3 = read_launches()
-    if c3 != per_path(2, 1):
+    if c3 != gemms(1):
         raise AssertionError(f"intercepted einsum launches {c3}")
     if not bits_equal(got, ozt.gemm_batched(a3, b3, mode=mode)):
         raise AssertionError("intercepted einsum differs from gemm_batched")
@@ -1170,7 +1408,7 @@ def phase_intercept(ozt, label) -> dict:
         got = x.mH @ y
     cz = read_launches()
     want = ozt.gemm(x, y, mode=mode, op_a="C")
-    if cz != per_path(4, 4) or not bits_equal(
+    if cz != gemms(complex_=1) or not bits_equal(
             torch.view_as_real(got), torch.view_as_real(want)):
         raise AssertionError(f"intercepted x.mH @ y: launches {cz} or bits differ")
     print(f"[intercept] einsum bik,bkj->bij {B} x 1024^3: bits == gemm_batched, launches {c3}; "
@@ -1206,8 +1444,8 @@ def phase_intercept(ozt, label) -> dict:
     with ozi.intercept(mode=mode):
         routed = step()
     cl = read_launches()
-    if cl != per_path(6, 3):
-        raise AssertionError(f"nn.Linear step launches {cl}, expected 6 and 3 (addmm + 2 mm)")
+    if cl != gemms(3):
+        raise AssertionError(f"nn.Linear step launches {cl}, expected {gemms(3)} (addmm + 2 mm)")
     res = [relative_residual(r, nat) for r, nat in zip(routed, native)]
     if not max(res) < RESIDUAL_GATE:
         raise AssertionError(f"nn.Linear step differs from native f64: residuals {res}")
@@ -1234,9 +1472,9 @@ def phase_intercept(ozt, label) -> dict:
             del os.environ["OZIMMU_COMPUTE_MODE"]
         else:
             os.environ["OZIMMU_COMPUTE_MODE"] = saved
-    if c512 != per_path(0, 0):
+    if c512 != gemms():
         raise AssertionError(f"a 512^3 product under the 1024 thresholds launched {c512}")
-    if cenv != per_path(2, 1) or not bits_equal(
+    if cenv != gemms(1) or not bits_equal(
             got, ozt.gemm(a1, a1, mode=mode)):
         raise AssertionError(f"OZIMMU_COMPUTE_MODE={mode} did not route the call: {cenv}")
     print(f"[intercept] 512^3 launches {c512}; OZIMMU_COMPUTE_MODE={mode} with no pinned mode "
@@ -1261,8 +1499,8 @@ def phase_traced(ozt, label) -> dict:
     counts = read_launches()
     t_first = time.perf_counter() - t0
     want = ozt.gemm(a, b, mode=f"fp64_int8_{NS}", alpha=2.0, beta=-0.5, c=c)
-    if counts != per_path(2, 1):
-        raise AssertionError(f"compiled traced.gemm launches {counts}, expected {per_path(2, 1)}")
+    if counts != gemms(1):
+        raise AssertionError(f"compiled traced.gemm launches {counts}, expected {gemms(1)}")
     if not bits_equal(got, want):
         raise AssertionError("compiled traced.gemm differs from the eager gemm")
     ms_c = cuda_ms(lambda: f(a, b, c), iters=3)
@@ -1334,14 +1572,13 @@ def step_launches(n: int, block: int, complex_: bool = False, factorizations: in
                   matvecs: int = 0) -> dict:
     """Launches of ``factorizations`` resident factorizations of an n x n
     matrix and ``matvecs`` engine matvecs: each step that has a trailing
-    block runs two engine GEMMs, a real GEMM launches the exponent max and
-    split twice each and recombine once, a complex one four times each."""
-    gemms = 2 * (-(-n // block) - 1) * factorizations + matvecs
-    return per_path(gemms * (4 if complex_ else 2), gemms * (4 if complex_ else 1))
+    block runs two engine GEMMs (:func:`gemms`)."""
+    count = 2 * (-(-n // block) - 1) * factorizations + matvecs
+    return gemms(complex_=count) if complex_ else gemms(count)
 
 
 def expect_launches(path: str, got: dict, want: dict) -> dict:
-    if got != want or min(got.values()) < 1:
+    if got != want or min(got["split_digits"], got["recombine"], got["epilogue"] + got["zfold"]) < 1:
         raise AssertionError(f"{path}: launches {got}, the step formula gives {want}")
     return got
 
@@ -1432,17 +1669,12 @@ def products_equal_plain(products, complex_: bool) -> list:
 def memory_against_model(what: str, call, a: torch.Tensor, b: torch.Tensor) -> int:
     """Run ``call``, a GEMM of ``a`` [m, k] by ``b`` [k, n], and hold its
     peak device memory against the working-set model
-    (``schedule.working_set_bytes_chunked`` at the planned column panels)
-    plus the epilogue's temporaries: ``_EPILOGUE_TEMP_BYTES`` per output
-    element, at most what the budget leaves (and at least
-    ``EPILOGUE_BLOCK_BYTES``), as ``schedule.epilogue_block_bytes`` sizes
-    the row blocks.  The measured peak is what the call allocated on top
-    of what was allocated before it, plus the two operands, which the
-    model counts.  Returns that peak."""
-    from ozimmu_tpu_torch.core.gemm import _EPILOGUE_TEMP_BYTES
-    from ozimmu_tpu_torch.schedule import (
-        EPILOGUE_BLOCK_BYTES, auto_n_chunks, hbm_budget_bytes, working_set_bytes_chunked,
-    )
+    (``schedule.working_set_bytes_chunked`` at the planned column panels):
+    on the card the epilogue is a kernel with no temporaries, so the model
+    alone bounds the call.  The measured peak is what the call allocated
+    on top of what was allocated before it, plus the two operands, which
+    the model counts.  Returns that peak."""
+    from ozimmu_tpu_torch.schedule import auto_n_chunks, hbm_budget_bytes, working_set_bytes_chunked
 
     (m, k), n = a.shape, b.shape[1]
     torch.cuda.synchronize()
@@ -1454,14 +1686,12 @@ def memory_against_model(what: str, call, a: torch.Tensor, b: torch.Tensor) -> i
     peak = torch.cuda.max_memory_allocated() - before + (a.numel() + b.numel()) * 8
     chunks = auto_n_chunks(m, n, k, NS, device="cuda")
     model = working_set_bytes_chunked(m, n, k, NS, chunks)
-    budget = hbm_budget_bytes("cuda")
-    temps = max(EPILOGUE_BLOCK_BYTES, min(_EPILOGUE_TEMP_BYTES * m * n, budget - before))
-    limit = 1.1 * (model + temps)
+    limit = 1.1 * model
     print(f"[memory] {what} {m}x{n}x{k} fp64_int8_{NS}: peak {peak / 2**30:.3f} GiB (allocated "
           f"during the call + the operands); model {model / 2**30:.3f} GiB at {chunks} column "
-          f"panel(s) + the epilogue's temporaries {temps / 2**30:.3f} GiB (budget "
-          f"{budget / 2**30:.3f} GiB, {before / 2**30:.3f} GiB held before), limit +10 % = "
-          f"{limit / 2**30:.3f} GiB", flush=True)
+          f"panel(s) (budget {hbm_budget_bytes('cuda') / 2**30:.3f} GiB, "
+          f"{before / 2**30:.3f} GiB held before), limit +10 % = {limit / 2**30:.3f} GiB",
+          flush=True)
     if not peak <= limit:
         raise AssertionError(f"{what}: peak {peak} B above the model's limit {limit:.0f} B")
     return peak
@@ -1666,7 +1896,7 @@ def phase_solvers(ozt, label) -> dict:
     h = ozt.create(device="cuda")
     update = lambda: ozt.gemm(l21, u12, mode=mode, alpha=-1.0, beta=1.0, c=c22, handle=h)  # noqa: E731
     peak = memory_against_model("the first HPL trailing update", update, l21, u12) / 2**30
-    with hbm_budget_mb(12 << 10):  # a smaller card: the epilogue's row blocks shrink
+    with hbm_budget_mb(12 << 10):  # a smaller card's budget: the same single panel
         peak_12 = memory_against_model("the first HPL trailing update under a 12 GiB budget",
                                        update, l21, u12) / 2**30
     ms_update = cuda_ms(update, iters=2, warmup=0)
@@ -1719,14 +1949,17 @@ def phase_solvers(ozt, label) -> dict:
 # table's module); phase_parallel launches them and checks what they return.
 
 PAR_N = 4096  # the global size of the 4-rank variants but SUMMA's
-#: per-rank launches of each distributed path (split, recombine; the
-#: exponent max launches once per split, :func:`per_path`): a real
-#: variant splits its two operands, a complex one four planes; SUMMA
-#: recombines once per pass, the ring, stream and k variants sum int32
-#: group totals through torch._int_mm and launch no recombine kernel
-PAR_LAUNCHES = {"summa": (2, 1), "zsumma": (4, 4), "ring": (2, 0), "zring": (4, 0),
-                "stream": (2, 0), "k": (2, 0), "auto": (2, 1), "summa_epilogue": (2, 1),
-                "stream_1x4": (2, 0), "presharded_recheck": (2, 0)}
+#: per-rank launches of each distributed path (split, recombine,
+#: epilogue, fold; the exponent max launches once per split,
+#: :func:`per_path`): a real variant splits its two operands, a complex
+#: one four planes; SUMMA recombines once per pass, the ring, stream and k
+#: variants sum int32 group totals through torch._int_mm and launch no
+#: recombine kernel; every variant runs one epilogue (real) or one fold
+#: (complex) on each rank's block
+PAR_LAUNCHES = {"summa": (2, 1, 1, 0), "zsumma": (4, 4, 0, 1), "ring": (2, 0, 1, 0),
+                "zring": (4, 0, 0, 1), "stream": (2, 0, 1, 0), "k": (2, 0, 1, 0),
+                "auto": (2, 1, 1, 0), "summa_epilogue": (2, 1, 1, 0), "stream_1x4": (2, 0, 1, 0),
+                "presharded_recheck": (2, 0, 1, 0)}
 #: 512 x 4096 @ 4096 x 512 at ns = 9 on a 1 x 4 mesh: the chooser says "k"
 #: (15.7 MB), which pre-sharded operands cannot use; summa needs 32.25 MB,
 #: stream 30.0 MB, so under 31 MB the entry must re-check and stream
@@ -1936,8 +2169,9 @@ def phase_parallel(ozt, label) -> dict:
     if not res["equal"] or by_path["parallel_nccl_summa"] != per_path(*PAR_LAUNCHES["summa"]):
         raise AssertionError(f"NCCL 1x1 sharded_gemm {N}^3: {res}")
     print(f"[parallel] NCCL, world size 1, 1x1 mesh: sharded_gemm fp64_int8_{NS} {N}^3 == gemm "
-          f"bitwise; launches split {res['split_digits']}, recombine {res['recombine']} "
-          f"({time.perf_counter() - t0:.1f} s with the process start)", flush=True)
+          f"bitwise; launches split {res['split_digits']}, recombine {res['recombine']}, "
+          f"epilogue {res['epilogue']} ({time.perf_counter() - t0:.1f} s with the process "
+          f"start)", flush=True)
     print(f"[time] {label}: sharded_gemm {N}^3 on a 1x1 NCCL mesh: {res['ms_sharded']:.3f} ms; "
           f"gemm: {res['ms_gemm']:.3f} ms; the layer's overhead "
           f"{res['ms_sharded'] - res['ms_gemm']:+.3f} ms", flush=True)
@@ -1972,7 +2206,8 @@ def phase_parallel(ozt, label) -> dict:
             "x".join(map(str, RECHECK["shape"])) if name == "presharded_recheck" else f"{PAR_N}^3")
         print(f"[parallel] gloo {name} {size}: == one-device gemm bitwise on rank 0, the same "
               f"result on all 4 ranks; per-rank launches split {r0['split_digits']}, recombine "
-              f"{r0['recombine']}{extra}", flush=True)
+              f"{r0['recombine']}, epilogue {r0['epilogue']}, fold {r0['zfold']}{extra}",
+              flush=True)
         print(f"[time] {label}: 4 ranks sharing one card, collectives through host memory, NOT a "
               f"scaling figure: {name} {size}: {max(r['call_seconds'] for r in per_rank):.3f} s "
               f"(one call, slowest rank; the whole case with its set-up and reference "
@@ -2002,16 +2237,15 @@ def sharded_launches(n: int, block: int, p: int, rank: int, kind: str) -> dict:
     matrix over p ranks (blocks of ceil(n / p) rows): in every step that
     has a trailing block, the step's root (the owner of its first row)
     runs the U12 GEMM of LU, and a rank that owns trailing rows runs their
-    update (and for Cholesky, their panel solve first).  A real GEMM
-    launches the exponent max and split twice each and recombine once, a
-    complex one four times each; at p = 1 this is :func:`step_launches`."""
+    update (and for Cholesky, their panel solve first), each an engine
+    GEMM (:func:`gemms`); at p = 1 this is :func:`step_launches`."""
     h = -(-n // p)
     hi = min((rank + 1) * h, n)
-    gemms = 0
+    count = 0
     for j in range(0, n - block, block):
         owns_trailing = hi > j + block
-        gemms += 2 * owns_trailing if kind == "cholesky" else (j // h == rank) + owns_trailing
-    return per_path(gemms * (4 if kind == "zlu" else 2), gemms * (4 if kind == "zlu" else 1))
+        count += 2 * owns_trailing if kind == "cholesky" else (j // h == rank) + owns_trailing
+    return gemms(complex_=count) if kind == "zlu" else gemms(count)
 
 
 def _timed(call):
@@ -2207,7 +2441,7 @@ def phase_mesh_solvers(ozt, label) -> dict:
     if want != step_launches(n, blk):
         raise AssertionError(f"sharded_launches at p = 1 {want} != step_launches")
     for panel in ("device", "host"):
-        got = {k: res[f"{panel}_{k}"] for k in ("split_digits", "row_exponent", "recombine")}
+        got = {k: res[f"{panel}_{k}"] for k in KERNEL_KEYS}
         if not res[f"{panel}_equal"] or got != want or not res[f"{panel}_residual"] < 1e-14:
             raise AssertionError(f"NCCL 1x1 HPL n={n} {panel} panels: equal "
                                  f"{res[f'{panel}_equal']}, launches {got} (expected {want}), "
@@ -2260,8 +2494,9 @@ def phase_mesh_solvers(ozt, label) -> dict:
               + f", max rel diff {r0['rel']:.3e}, ||PA-LU||/||A|| (||A-LL^T||/||A||) "
               f"{r0['residual']:.3e}, a solve's scaled residual {r0['scaled_residual']:.3e} "
               f"(< 1e-14); the same factor on all 4 ranks; per-rank "
-              f"launches (split, recombine) "
-              + ", ".join(f"({g['split_digits']}, {g['recombine']})" for g in gots), flush=True)
+              f"launches (split, recombine, epilogue, fold) "
+              + ", ".join(f"({g['split_digits']}, {g['recombine']}, {g['epilogue']}, {g['zfold']})"
+                          for g in gots), flush=True)
         print(f"[time] {label}: 4 ranks sharing one card, collectives through host memory, NOT a "
               f"scaling figure: {name} n={n}: per-rank seconds "
               + ", ".join(f"{r['call_seconds']:.3f}" for r in per_rank)
@@ -2417,9 +2652,11 @@ def example_kernel_checks(name: str, r: dict) -> list:
     return []
 
 
-#: launches (split, recombine) of each single-process example at its own
-#: size (the exponent max once per split, :func:`per_path`): a real GEMM
-#: splits twice and recombines once, a complex one four times each.  01: matmul, the op_a=T gemm, a 512^2 ZGEMM (AUTO's two
+#: launches (split, recombine, epilogue, fold) of each single-process
+#: example at its own size (the exponent max once per split,
+#: :func:`per_path`): a real GEMM splits twice, recombines once and runs
+#: one epilogue, a complex one splits and recombines four times each and
+#: runs one fold.  01: matmul, the op_a=T gemm, a 512^2 ZGEMM (AUTO's two
 #: queries run no kernel); 02: three routed products, the 64^3 one below
 #: the threshold adds nothing; 04: two profiled gemms and the traced
 #: matmul; 05: one residual per refinement step (one step converges);
@@ -2427,19 +2664,21 @@ def example_kernel_checks(name: str, r: dict) -> list:
 #: gemm, a batch of two matrices (one launch of each kernel); 08: three factorizations of n = 1024 in
 #: blocks of 256, three trailing updates each (the refinement's residuals
 #: are host matvecs)
-EXAMPLE_LAUNCHES = {"torch_01_basic_gemm": (8, 6), "torch_02_interception": (6, 3),
-                    "torch_04_profiling": (6, 3), "torch_05_iterative_refinement": (2, 1),
-                    "torch_06_compiled": (10, 5), "torch_08_hpl_lu": (18, 9)}
+EXAMPLE_LAUNCHES = {"torch_01_basic_gemm": (8, 6, 2, 1), "torch_02_interception": (6, 3, 3, 0),
+                    "torch_04_profiling": (6, 3, 3, 0), "torch_05_iterative_refinement": (2, 1, 1, 0),
+                    "torch_06_compiled": (10, 5, 5, 0), "torch_08_hpl_lu": (18, 9, 9, 0)}
 #: per-rank launches of each case of example 03 on 4 ranks, the
-#: one-device reference included (2, 1 real; 4, 4 complex): SUMMA and its
-#: epilogue 2 + 1, complex SUMMA 4 + 4, AUTO's choice (an int8 mode) by
-#: SUMMA 2 + 1; the ring and the k-sharded complex product sum int32 group
-#: totals through torch._int_mm and launch no recombine (2 + 0, 4 + 0);
-#: the AUTO queries none
-EX03_LAUNCHES = {"summa": (4, 2), "epilogue": (4, 2), "zgemm": (8, 8), "ring": (4, 1),
-                 "auto_select": (0, 0), "auto_gemm": (4, 2), "tall_k": (8, 4)}
+#: one-device reference included (2, 1, 1 real; 4, 4 and a fold
+#: complex): SUMMA and its epilogue 2 + 1 + 1, complex SUMMA 4 + 4 + a
+#: fold, AUTO's choice (an int8 mode) by SUMMA 2 + 1 + 1; the ring and the
+#: k-sharded complex product sum int32 group totals through torch._int_mm
+#: and launch no recombine (2 + 0 + 1, 4 + 0 + a fold); the AUTO queries
+#: none
+EX03_LAUNCHES = {"summa": (4, 2, 2, 0), "epilogue": (4, 2, 2, 0), "zgemm": (8, 8, 0, 2),
+                 "ring": (4, 1, 2, 0), "auto_select": (0, 0, 0, 0), "auto_gemm": (4, 2, 2, 0),
+                 "tall_k": (8, 4, 0, 2)}
 #: 07's body (SUMMA + ``gemm_f64``) and 09's run (pre-sharded + dense gemm)
-EX_PAIR_LAUNCHES = (4, 2)
+EX_PAIR_LAUNCHES = (4, 2, 2, 0)
 
 
 def ex09_north_star(mesh) -> dict:

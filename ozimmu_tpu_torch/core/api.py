@@ -35,8 +35,8 @@ from ..utils.env import env_flag
 from ..utils.log import log
 from ..utils.profiling import culip_timer, synchronize
 from .gemm import (
-    _epilogue_SE, _exponent_plane, _zfold_passes, _zpasses, _zsplit, gemm_f64,
-    gemm_f64_batched, zgemm_f64, zgemm_f64_batched,
+    _epilogue_SE, _exponent_plane, _k0_result, _zfold_passes, _zk0_result, _zpasses, _zsplit,
+    gemm_f64, gemm_f64_batched, zgemm_f64, zgemm_f64_batched,
 )
 from .handle import Handle, default_handle
 
@@ -273,6 +273,9 @@ def gemm(
         raise ValueError(f"c has shape {tuple(ct.shape)}, expected {(m, n)}")
     if beta != 0.0 and ct is None:
         raise ValueError("beta != 0 requires c")
+    if k == 0:  # BLAS: C <- beta * C, in every mode
+        out = _k0_result(float(beta), ct, (m, n), dev)
+        return out.cpu().numpy() if is_np else out
 
     if mode_r is ComputeMode.FP64_INT8_AUTO:
         mode_r = _auto_mode_select_core(at, bt, k, handle.avg_mantissa_loss_threshold)
@@ -323,6 +326,9 @@ def _gemm_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, op_a, op_b, a
         raise ValueError("beta != 0 requires c")
     dev = at.device
     alpha, beta = complex(alpha), complex(beta)
+    if k == 0:  # BLAS: C <- beta * C, in every mode
+        c_planes = _planes(ct) if ct is not None else (None, None)
+        return _complex_result(*_zk0_result(beta, *c_planes, (m, n), dev), is_np)
 
     # the dgemm mode alone runs on the complex tensors themselves
     ab_planes = (*_planes(at), *_planes(bt)) if mode_r is not ComputeMode.DGEMM else None
@@ -391,6 +397,9 @@ def gemm_batched(
         raise ValueError("beta != 0 requires c")
     if any(x is not None and x.is_complex() for x in (at, bt, ct)):
         return _gemm_batched_complex(handle, at, bt, ct, mode_r, alpha, beta, is_np)
+    if k == 0:  # BLAS: C <- beta * C, in every mode
+        out = _k0_result(float(beta), ct, (B, m, n), at.device)
+        return out.cpu().numpy() if is_np else out
 
     if mode_r is ComputeMode.FP64_INT8_AUTO:
         # one mode for the whole batch, selected on the flattened batch
@@ -424,6 +433,9 @@ def _gemm_batched_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha
     b_re, b_im = _planes(bt)
     c_re, c_im = _planes(ct) if ct is not None else (None, None)
     al, be = complex(alpha), complex(beta)
+    if k == 0:  # BLAS: C <- beta * C, in every mode
+        shape = (at.shape[0], at.shape[1], bt.shape[2])
+        return _complex_result(*_zk0_result(be, c_re, c_im, shape, at.device), is_np)
     if mode_r is ComputeMode.FP64_INT8_AUTO:
         # one mode for the whole batch: the shared four-plane counter over
         # the flattened batch (rows of [B*m, k] / [B*n, k] are exactly the

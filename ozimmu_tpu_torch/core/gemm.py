@@ -10,9 +10,14 @@ orchestration layer (src/gemm.cu:344-521 ``gemm_int8<double>`` and
     triple-f32 extended precision with a single final rounding.
 
 Operands are float64 tensors; every step runs on the operands' device.
-On a CUDA device the split and the recombination are the hand-written
-kernels (ops/split_cuda.py, ops/recombine_cuda.py); on the CPU, their
-plain PyTorch versions.
+On a CUDA device the split, the recombination and the epilogue (or the
+complex fold) are the hand-written kernels (ops/split_cuda.py,
+ops/recombine_cuda.py, ops/epilogue_cuda.py), one launch of the epilogue
+per output or column panel; on the CPU, their plain PyTorch versions.
+
+BLAS defines a product with k = 0 as ``C <- beta * C``: the engine returns
+that, or zeros where beta == 0 or c is None (c is then never read), and
+launches nothing.
 
 Layout contract: row-major logical matrices.  ``gemm_f64(a, b)`` computes
 ``alpha * (a @ b) + beta * c`` for a [m, k] and b [k, n]; ``zgemm_f64``
@@ -39,13 +44,24 @@ from ..schedule import (
     working_set_bytes_chunked,
 )
 
-#: live temporaries per output element of one epilogue block, an upper
-#: estimate that sets the block height: HPL's first trailing update, with
-#: beta * c, peaked at 243.7 B per output element unblocked on an H100,
-#: the 24 B of S, E and the output included (tools/torch_ab.py, PERF.md);
-#: the complex fold keeps two accumulators and folds four passes
+#: live temporaries per output element of one block of the plain (CPU)
+#: epilogue, an upper estimate that sets the block height: HPL's first
+#: trailing update, with beta * c, peaked at 243.7 B per output element
+#: unblocked on an H100, the 24 B of S, E and the output included
+#: (tools/torch_ab.py, PERF.md); the complex fold keeps two accumulators
+#: and folds four passes.  The CUDA kernels hold no temporaries: on the
+#: card the epilogue takes what the working-set model counts (S, E and the
+#: output, schedule.BYTES_PER_OUTPUT_ELEMENT) and nothing else.
 _EPILOGUE_TEMP_BYTES = 256
 _ZFOLD_TEMP_BYTES = 512
+
+
+def _temp_bytes(complex_: bool, device) -> int:
+    """Epilogue temporaries per output element on ``device``: none where
+    the kernel runs (CUDA), the plain version's estimate elsewhere."""
+    if torch.device(device).type == "cuda":
+        return 0
+    return _ZFOLD_TEMP_BYTES if complex_ else _EPILOGUE_TEMP_BYTES
 
 
 def _row_blocks(m: int, n: int, temp_bytes: int, device):
@@ -56,27 +72,45 @@ def _row_blocks(m: int, n: int, temp_bytes: int, device):
     return [slice(r0, min(r0 + rows, m)) for r0 in range(0, m, rows)]
 
 
-def _epilogue_SE(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) -> torch.Tensor:
-    """``alpha * (S * 2^E) + beta * c`` in extended precision, rounded to
-    f64 once (reference axby, gemm.cu:124-158).
+def _on_cuda(device) -> bool:
+    """True on a CUDA device (the kernels), False on the CPU (the plain
+    versions); raises on any other device."""
+    kind = torch.device(device).type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return kind == "cuda"
 
-    Where the eager passes' temporaries would not fit what the memory
-    budget leaves, runs over row blocks into one float64 output: every
-    pass is elementwise, so the blocking leaves the bits alone (the
-    working-set model counts the output, S and E).  A batch [B, m, n] runs
-    as its [B*m, n] view, for the same reason."""
+
+def _epilogue_SE(S, E, alpha: float, beta: float, c: Optional[torch.Tensor],
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``alpha * (S * 2^E) + beta * c`` in extended precision, rounded to
+    f64 once (reference axby, gemm.cu:124-158), into ``out`` (float64
+    [m, n], e.g. a column panel of a wider output) or a new tensor.
+
+    On a CUDA device, one launch of the epilogue kernel
+    (ops/epilogue_cuda.py).  On the CPU, the plain version
+    :func:`_epilogue_block`, over row blocks where its eager passes'
+    temporaries would not fit what the memory budget leaves: every pass is
+    elementwise, so the blocking leaves the bits alone.  A batch [B, m, n]
+    runs as its [B*m, n] view, for the same reason."""
     if beta != 0.0 and c is None:
         raise ValueError("beta != 0 requires c")
     if E.dim() != 2:
         rows = lambda x: x.reshape(-1, E.shape[-1])  # noqa: E731
-        out = _epilogue_SE(tuple(map(rows, S)), rows(E), alpha, beta,
-                           None if c is None else rows(c))
-        return out.reshape(E.shape)
+        flat = _epilogue_SE(tuple(map(rows, S)), rows(E), alpha, beta,
+                            None if c is None else rows(c),
+                            None if out is None else out.view(-1, E.shape[-1]))
+        return flat.view(E.shape)
+    if _on_cuda(E.device):
+        from ..ops.epilogue_cuda import epilogue
+
+        return epilogue(S, E, alpha, beta, c, out)
     m, n = E.shape
     blocks = _row_blocks(m, n, _EPILOGUE_TEMP_BYTES, E.device)
-    if len(blocks) == 1:
+    if len(blocks) == 1 and out is None:
         return _epilogue_block(S, E, alpha, beta, c)
-    out = torch.empty((m, n), dtype=torch.float64, device=E.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float64, device=E.device)
     for rows in blocks:
         out[rows] = _epilogue_block(tuple(s[rows] for s in S), E[rows], alpha, beta,
                                     None if c is None else c[rows])
@@ -98,6 +132,34 @@ def _epilogue_block(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) 
             cE = cE + be
         S, E = aligned_add(S, E, ct, cE)
     return pack_f64(S, E)
+
+
+def _k0_result(beta: float, c: Optional[torch.Tensor], shape, device) -> torch.Tensor:
+    """A product with k = 0 (BLAS: ``C <- beta * C``): ``beta * c``, one
+    IEEE float64 multiply per element; zeros where beta == 0 or c is None,
+    c then never read."""
+    if c is not None and tuple(c.shape) != tuple(shape):
+        raise ValueError(f"c has shape {tuple(c.shape)}, expected {tuple(shape)}")
+    if beta == 0.0 or c is None:
+        return torch.zeros(shape, dtype=torch.float64, device=device)
+    return beta * c
+
+
+def _zk0_result(beta: complex, c_re, c_im, shape, device):
+    """The complex :func:`_k0_result` on planes: ``re = br*cr - bi*ci``,
+    ``im = br*ci + bi*cr``, each an IEEE float64 operation (no fused
+    multiply-add, so the bits are the same on every device); zeros where
+    beta == 0 or c is None."""
+    for x in (c_re, c_im):
+        if x is not None and tuple(x.shape) != tuple(shape):
+            raise ValueError(f"c has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if beta == 0 or (c_re is None and c_im is None):
+        return (torch.zeros(shape, dtype=torch.float64, device=device),
+                torch.zeros(shape, dtype=torch.float64, device=device))
+    cr, ci = (x if x is not None else torch.zeros(shape, dtype=torch.float64, device=device)
+              for x in (c_re, c_im))
+    br, bi = beta.real, beta.imag
+    return br * cr - bi * ci, br * ci + bi * cr
 
 
 def _exponent_plane(pa: torch.Tensor, pb: torch.Tensor, shift: int) -> torch.Tensor:
@@ -132,7 +194,8 @@ def _gemm_core_nchunked(a, b, num_split: int, n_chunks: int, alpha: float = 1.0,
     elementwise), but peak memory for the B planes / int32 partials /
     triple-f32 accumulator drops by ~n_chunks.  Any ``n`` (the last panel
     is simply narrower).  Each B panel is split where it lies in ``b`` (the
-    kernels read it through its row stride), straight into k-major planes.
+    kernels read it through its row stride), straight into k-major planes,
+    and its epilogue writes the panel's columns of the output in place.
     """
     k = a.shape[1]
     n = b.shape[1]
@@ -150,7 +213,7 @@ def _gemm_core_nchunked(a, b, num_split: int, n_chunks: int, alpha: float = 1.0,
         S = recombine(da, db, num_split, bb, k, b_kmajor=True)
         E = _exponent_plane(pa, pb, shift)
         cj = c[:, j0:j1] if c is not None else None
-        out[:, j0:j1] = _epilogue_SE(S, E, alpha, beta, cj)
+        _epilogue_SE(S, E, alpha, beta, cj, out[:, j0:j1])
     return out
 
 
@@ -175,13 +238,15 @@ def gemm_f64(
         raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
     if a.dtype != torch.float64 or b.dtype != torch.float64:
         raise TypeError(f"gemm_f64 takes float64 tensors, got {a.dtype} and {b.dtype}")
-    if bits_per_int8(a.shape[1]) <= 0:
+    if a.shape[1] > 0 and bits_per_int8(a.shape[1]) <= 0:
         raise ValueError(f"k={a.shape[1]} too large for int8 emulation")
     if b.device != a.device or (c is not None and c.device != a.device):
         raise ValueError("a, b and c must lie on one device")
-    a, b = a.contiguous(), b.contiguous()
     m, k = a.shape
     n = b.shape[1]
+    if k == 0:
+        return _k0_result(float(beta), c, (m, n), a.device)
+    a, b = a.contiguous(), b.contiguous()
     if n_chunks is None:
         n_chunks = auto_n_chunks(m, n, k, num_split, device=a.device)
     if n_chunks > 1:
@@ -203,21 +268,30 @@ ZGEMM_PASSES = ((1, 1), (0, 0), (1, 0), (0, 1))
 _EMPTY_EXP = -(2**20)
 
 
-def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im, device):
+def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im, device,
+                  out=None):
     """Fold the four pass results into the complex output (shared by the
     fused `_zgemm_core` and the staged/profiled path in core.api).
 
     ``SEs`` lists (S, E) per entry of :data:`ZGEMM_PASSES`.  Fold factors
     (reference gemm.cu:479-518): re*re -> +alpha, im*im -> -alpha, cross
     terms -> i*alpha; C is pre-scaled by beta (init_c_complex,
-    gemm.cu:199-239).  Returns the (re, im) float64 planes, written over
-    row blocks as :func:`_epilogue_SE` writes its output.
+    gemm.cu:199-239).  Returns the (re, im) float64 planes, new or written
+    into ``out`` (a pair [m, n], e.g. column panels of wider planes).  On a
+    CUDA device, one launch of the fold kernel (ops/epilogue_cuda.py); on
+    the CPU, the plain version :func:`_zfold_block` over row blocks, as
+    :func:`_epilogue_SE` runs its plain version.
     """
+    if _on_cuda(device):
+        from ..ops.epilogue_cuda import zfold
+
+        return zfold(SEs, alpha, beta, c_re, c_im, out)
     blocks = _row_blocks(m, n, _ZFOLD_TEMP_BYTES, device)
-    if len(blocks) == 1:
+    if len(blocks) == 1 and out is None:
         return _zfold_block(SEs, m, n, alpha, beta, c_re, c_im, device)
-    out_re = torch.empty((m, n), dtype=torch.float64, device=device)
-    out_im = torch.empty((m, n), dtype=torch.float64, device=device)
+    if out is None:
+        out = tuple(torch.empty((m, n), dtype=torch.float64, device=device) for _ in range(2))
+    out_re, out_im = out
     for rows in blocks:
         block = [(tuple(s[rows] for s in S), E[rows]) for S, E in SEs]
         out_re[rows], out_im[rows] = _zfold_block(
@@ -337,8 +411,8 @@ def _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split: int, n_chunks: int,
         SEs = _zpasses(a_planes, b_planes, num_split, bb, k, b_kmajor=True)
         cr = c_re[:, j0:j1] if c_re is not None else None
         ci = c_im[:, j0:j1] if c_im is not None else None
-        out_re[:, j0:j1], out_im[:, j0:j1] = _zfold_passes(
-            SEs, m, j1 - j0, alpha, beta, cr, ci, a_re.device)
+        _zfold_passes(SEs, m, j1 - j0, alpha, beta, cr, ci, a_re.device,
+                      (out_re[:, j0:j1], out_im[:, j0:j1]))
     return out_re, out_im
 
 
@@ -370,11 +444,13 @@ def zgemm_f64(
         raise ValueError("all planes must lie on one device")
     if a_im.shape != a_re.shape or b_im.shape != b_re.shape or a_re.shape[1] != b_re.shape[0]:
         raise ValueError(f"shape mismatch: {tuple(a_re.shape)} @ {tuple(b_re.shape)}")
-    if bits_per_int8(a_re.shape[1]) <= 0:
+    if a_re.shape[1] > 0 and bits_per_int8(a_re.shape[1]) <= 0:
         raise ValueError(f"k={a_re.shape[1]} too large for int8 emulation")
-    a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
     m, k = a_re.shape
     n = b_re.shape[1]
+    if k == 0:
+        return _zk0_result(complex(beta), c_re, c_im, (m, n), a_re.device)
+    a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
     if n_chunks is None:
         n_chunks = auto_n_chunks(m, n, k, num_split, complex_=True, device=a_re.device)
     args = (complex(alpha), complex(beta), c_re, c_im)
@@ -392,12 +468,12 @@ def _sub_batches(bsz: int, m: int, n: int, k: int, num_split: int, complex_: boo
     """Slices of a batch of ``bsz`` products, each run as one launch of each
     kernel: as many matrices as :func:`~ozimmu_tpu_torch.schedule.hbm_budget_bytes`
     holds at one matrix's working set (the 2-D engine's model at one
-    panel) plus its epilogue's temporaries (at least one matrix).  None
-    where a single matrix needs column panels: that batch runs matrix by
-    matrix through the 2-D engine and its panels."""
+    panel) plus its epilogue's temporaries (none on a CUDA device, at least
+    one matrix).  None where a single matrix needs column panels: that
+    batch runs matrix by matrix through the 2-D engine and its panels."""
     if auto_n_chunks(m, n, k, num_split, complex_, device=device) > 1:
         return None
-    temps = (_ZFOLD_TEMP_BYTES if complex_ else _EPILOGUE_TEMP_BYTES) * m * n
+    temps = _temp_bytes(complex_, device) * m * n
     per = working_set_bytes_chunked(m, n, k, num_split, 1, complex_) + temps
     step = max(1, min(bsz, hbm_budget_bytes(device) // per))
     return [slice(i, min(i + step, bsz)) for i in range(0, bsz, step)]
@@ -418,7 +494,7 @@ def _check_batch(ops, cs, what: str) -> None:
         raise TypeError(f"{what} takes float64 tensors")
     if any(x.device != a.device for x in (*ops, *(c for c in cs if c is not None))):
         raise ValueError(f"{what}: all operands must lie on one device")
-    if bits_per_int8(a.shape[2]) <= 0:
+    if a.shape[2] > 0 and bits_per_int8(a.shape[2]) <= 0:
         raise ValueError(f"k={a.shape[2]} too large for int8 emulation")
 
 
@@ -441,10 +517,12 @@ def gemm_f64_batched(
     _check_batch((a, b), (c,), "gemm_f64_batched")
     if beta != 0.0 and c is None:
         raise ValueError("beta != 0 requires c")
-    a, b = a.contiguous(), b.contiguous()
     bsz, m, k = a.shape
     n = b.shape[2]
     alpha, beta = float(alpha), float(beta)
+    if k == 0:
+        return _k0_result(beta, c, (bsz, m, n), a.device)
+    a, b = a.contiguous(), b.contiguous()
     parts = _sub_batches(bsz, m, n, k, num_split, False, a.device)
 
     def one(s, core):
@@ -476,10 +554,12 @@ def zgemm_f64_batched(
     recombinations (one per entry of :data:`ZGEMM_PASSES`) per sub-batch.
     Returns the (re, im) float64 planes [B, m, n]."""
     _check_batch((a_re, a_im, b_re, b_im), (c_re, c_im), "zgemm_f64_batched")
-    a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
     bsz, m, k = a_re.shape
     n = b_re.shape[2]
     alpha, beta = complex(alpha), complex(beta)
+    if k == 0:
+        return _zk0_result(beta, c_re, c_im, (bsz, m, n), a_re.device)
+    a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
     parts = _sub_batches(bsz, m, n, k, num_split, True, a_re.device)
 
     def one(s, core):

@@ -39,17 +39,20 @@ _INT32_BUDGET = 2**31 - 1
 #: device bytes the engine holds per output element, besides the operands
 #: and their digit planes: the triple-f32 accumulator (12), its exponent
 #: plane (4), an int32 group total (4) and the packed f64 result (8).  The
-#: JAX package's models count the same 28 B; here they hold up to the
-#: eager epilogue's temporaries, which take what the budget leaves
-#: (:func:`epilogue_block_bytes`).
+#: JAX package's models count the same 28 B.  On a CUDA device that is
+#: what the engine really holds: the epilogue and the complex fold are
+#: kernels (ops/epilogue_cuda.py) that read S and E and write the result
+#: with no temporaries (and the recombine kernel keeps no int32 totals).
+#: On the CPU the plain epilogue's eager passes hold temporaries beside
+#: them, which take what the budget leaves (:func:`epilogue_block_bytes`).
 BYTES_PER_OUTPUT_ELEMENT = 12 + 4 + 4 + 8
 
-#: the least device memory that the temporaries of one row block of the
-#: eager epilogue (core/gemm.py::_epilogue_SE, _zfold_passes: some 40
+#: the least memory that the temporaries of one row block of the plain
+#: (CPU) epilogue (core/gemm.py::_epilogue_block, _zfold_block: some 40
 #: unfused elementwise torch passes) may take where the budget leaves
-#: less: a block must give each pass tens of microseconds of work on the
-#: card, or the host's launches set the pace (1 GiB blocks made ZHPL
-#: 26-34 % slower on an H100, PERF.md)
+#: less: a block must give each pass enough work, or the host's launches
+#: set the pace (1 GiB blocks made ZHPL 26-34 % slower when the plain
+#: epilogue ran on an H100, PERF.md).  Not used on a CUDA device.
 EPILOGUE_BLOCK_BYTES = 4 << 30
 
 
@@ -243,11 +246,12 @@ def hbm_budget_bytes(device=None) -> int:
 
 
 def epilogue_block_bytes(device) -> int:
-    """Bytes that the temporaries of one row block of the eager epilogue
+    """Bytes that the temporaries of one row block of the plain epilogue
     may take on ``device``: what :func:`hbm_budget_bytes` leaves beside
     what is allocated there now, and at least :data:`EPILOGUE_BLOCK_BYTES`.
     An output whose temporaries fit runs as one block, exactly as
-    unblocked: row blocks cost a GEMM 2.5-6 % on an H100 (PERF.md)."""
+    unblocked.  The engine runs the plain epilogue on the CPU only (on a
+    CUDA device the kernel needs no blocks)."""
     device = torch.device(device)
     held = torch.cuda.memory_allocated(device) if device.type == "cuda" else 0
     return max(EPILOGUE_BLOCK_BYTES, hbm_budget_bytes(device) - held)

@@ -10,8 +10,9 @@ GPU machine has an oracle without importing the JAX package:
     test/main_test.cu:101-117).
 
 Plus :func:`loss_totals_literal`, the plain reference of the AUTO
-estimator's histogram form (ops/mantissa_loss.py), and the timing half of
-``ozimmu_tpu.testing`` (:func:`effective_tflops`, :func:`sustained_run`).
+estimator's histogram form (ops/mantissa_loss.py), :func:`crafted_triples`,
+the epilogue's hard cases, and the timing half of ``ozimmu_tpu.testing``
+(:func:`effective_tflops`, :func:`sustained_run`).
 """
 
 from __future__ import annotations
@@ -112,6 +113,51 @@ def loss_totals_literal(x: torch.Tensor, e_group: torch.Tensor, b: int, axis: in
 # back, timed with CUDA events (a host clock and a synchronisation on the
 # CPU, where there are no events).
 # ---------------------------------------------------------------------------
+
+
+def crafted_triples(m: int, n: int, seed: int, device="cpu"):
+    """Inputs of the epilogue whose bits hinge on its corner cases: the
+    triple S (three float32 [m, n]), the exponents E (int32) and a float64
+    c, made from ``seed``.  The rows cycle through: ordinary renormalized
+    triples; f32-subnormal tails; exact half-ulp ties (2^23 + 1/2), with or
+    without a sticky bit; a carry across 2^1024 and outright overflow;
+    signed zeros; f64-subnormal and underflowing results; exponents below
+    the complex fold's empty accumulator (-2^20); tails that cancel against
+    the head.  c holds -0.0, f64 subnormals and values near the top of the
+    range.  Every value is finite (the engine's contract)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    sign = lambda *s: rng.choice([-1.0, 1.0], size=s)  # noqa: E731
+    t0 = (rng.uniform(1, 2, (m, n)) * 2.0 ** rng.integers(-30, 30, (m, n)) * sign(m, n)).astype(f32)
+    t1 = (t0 * 2.0**-24 * rng.uniform(-1, 1, (m, n))).astype(f32)
+    t2 = (t1 * 2.0**-24 * rng.uniform(-1, 1, (m, n))).astype(f32)
+    E = rng.integers(-80, 80, (m, n)).astype(np.int32)
+    for r in range(m):
+        kind = r % 8
+        if kind == 1:
+            t0[r] = (rng.uniform(1, 2, n) * 2.0**-100 * sign(n)).astype(f32)
+            t1[r] = (rng.uniform(1, 2, n) * 2.0 ** rng.integers(-140, -127, n) * sign(n)).astype(f32)
+            t2[r] = (rng.integers(1, 100, n) * 2.0**-149 * sign(n)).astype(f32)
+        elif kind == 2:
+            t0[r], t1[r] = f32(2.0**23) * sign(n), f32(0.5) * sign(n)
+            t2[r] = np.where(rng.random(n) < 0.5, 0.0, 2.0**-30 * sign(n)).astype(f32)
+            E[r] = rng.integers(-60, 30, n)
+        elif kind == 3:
+            t0[r], t1[r], t2[r] = f32(2 - 2.0**-23) * sign(n), f32(2.0**-24), f32(2.0**-48)
+            E[r] = rng.choice([1023, 1024, 1100], size=n)
+        elif kind == 4:
+            t0[r], t1[r], t2[r] = (f32(0.0) * sign(n) for _ in range(3))
+        elif kind == 5:
+            E[r] = rng.integers(-1130, -1070, n)
+        elif kind == 6:
+            E[r] = -(2**20) - rng.integers(0, 100, n)
+        elif kind == 7:
+            t0[r], t1[r] = f32(1.0) * sign(n), (-t0[r] * 2.0**-24 * rng.uniform(0, 1, n)).astype(f32)
+    c = rng.standard_normal((m, n)) * 2.0 ** rng.integers(-40, 40, (m, n))
+    special = np.array([-0.0, 0.0, 5e-324, -1e-310, 1.7e308, -1.7e308, 2.0**-1022])
+    c.reshape(-1)[::5] = rng.choice(special, size=c.size // 5 + (c.size % 5 > 0))
+    put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
+    return (put(t0), put(t1), put(t2)), put(E), put(c)
 
 
 def _placed(a: np.ndarray, b: np.ndarray, device):

@@ -114,6 +114,16 @@ def culip_timer(name: str, sync_fn=None) -> Iterator[None]:
     print(f"[CULiP Result][{name}] {dt} [ns]", flush=True)
 
 
+#: host seconds of idle trace before and after a :func:`device_trace`
+#: block on a GPU.  torch.profiler drops the device events that fall
+#: outside its host-clock window, and the device's timestamps drift from
+#: the host's over a process's life: on an H100 a traced 1024^3 GEMM kept
+#: all 16 of its kernels in a process's first half minute and none after
+#: four minutes (``tools/torch_trace_drift.py``).  The pads keep drift of
+#: up to 0.1 s inside the window.
+TRACE_PAD_S = 0.1
+
+
 @contextlib.contextmanager
 def device_trace(log_dir: str) -> Iterator[None]:
     """Record a ``torch.profiler`` trace (host ops, and CUDA kernels where
@@ -129,16 +139,22 @@ def device_trace(log_dir: str) -> Iterator[None]:
 
     Raises ``RuntimeError`` if the block launched CUDA kernels and the
     trace holds none of them (the profiler could not trace the device):
-    an empty device trace is never written silently.
+    an empty device trace is never written silently.  On a GPU the trace
+    opens :data:`TRACE_PAD_S` before the block and closes as long after
+    the device has finished it.
     """
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
+        if cuda:
+            time.sleep(TRACE_PAD_S)
         yield
+        if cuda:
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
     path = os.path.join(log_dir, f"ozimmu_trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:

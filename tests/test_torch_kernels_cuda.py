@@ -9,11 +9,12 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+from ozimmu_tpu_torch.core import gemm as core  # noqa: E402
 from ozimmu_tpu_torch.ops import recombine as R  # noqa: E402
-from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda  # noqa: E402
+from ozimmu_tpu_torch.ops import epilogue_cuda, exponent_cuda, recombine_cuda, split_cuda  # noqa: E402
 from ozimmu_tpu_torch.ops import split as S  # noqa: E402
 from ozimmu_tpu_torch.schedule import bits_per_int8  # noqa: E402
-from ozimmu_tpu_torch.testing import generate_input  # noqa: E402
+from ozimmu_tpu_torch.testing import crafted_triples, generate_input  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -124,21 +125,32 @@ def test_recombine_reads_k_major_planes(dev, m, n, k, ns):
                                      b_kmajor=True)
 
 
+def _counters():
+    return (split_cuda.LAUNCHES, exponent_cuda.LAUNCHES, recombine_cuda.LAUNCHES,
+            epilogue_cuda.LAUNCHES, epilogue_cuda.ZFOLD_LAUNCHES)
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return tuple(x - y for x, y in zip(_counters(), before))
+
+
 def test_gemm_launches_exponent_split_and_recombine(dev):
-    """One real GEMM launches the exponent max and the split twice each
-    and recombine once; a column-chunked one once per B panel more."""
+    """One real GEMM launches the exponent max and the split twice each,
+    recombine and the epilogue once; a column-chunked one once per B panel
+    more (each panel's epilogue writing its columns in place)."""
     import ozimmu_tpu_torch as ozt
 
     a = torch.from_numpy(generate_input("normal01", (300, 777), seed=5)).to(dev)
     b = torch.from_numpy(generate_input("exp_rand-8", (777, 260), seed=6)).to(dev)
+    c = torch.from_numpy(generate_input("normal01", (300, 260), seed=7)).to(dev)
     for chunks in (1, 3):
         torch.cuda.synchronize()
-        before = (split_cuda.LAUNCHES, exponent_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
-        got = ozt.gemm_f64(a, b, 9, n_chunks=chunks)
-        torch.cuda.synchronize()
-        after = (split_cuda.LAUNCHES, exponent_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
-        assert tuple(x - y for x, y in zip(after, before)) == (1 + chunks, 1 + chunks, chunks)
-        want = ozt.gemm_f64(a.cpu(), b.cpu(), 9, n_chunks=chunks)
+        before = _counters()
+        got = ozt.gemm_f64(a, b, 9, alpha=-1.0, beta=1.0, c=c, n_chunks=chunks)
+        assert _launched(before) == (1 + chunks, 1 + chunks, chunks, chunks, 0)
+        want = ozt.gemm_f64(a.cpu(), b.cpu(), 9, alpha=-1.0, beta=1.0, c=c.cpu(),
+                            n_chunks=chunks)
         assert torch.equal(got.cpu().view(torch.int64), want.view(torch.int64))
 
 
@@ -222,10 +234,10 @@ def test_zgemm_on_the_kernels_equals_plain(dev, m, n, k, ns):
     kw = dict(alpha=2 - 0.5j, beta=0.25 + 1j)
     cpu = [torch.from_numpy(p) for p in planes]
     want = ozt.zgemm_f64(*cpu[:4], ns, c_re=cpu[4], c_im=cpu[5], **kw)
-    before = (split_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
     gpu = [t.to(dev) for t in cpu]
+    before = _counters()
     got = ozt.zgemm_f64(*gpu[:4], ns, c_re=gpu[4], c_im=gpu[5], **kw)
-    assert (split_cuda.LAUNCHES - before[0], recombine_cuda.LAUNCHES - before[1]) == (4, 4)
+    assert _launched(before) == (4, 4, 4, 0, 1)
     for w, g in zip(want, got):
         assert torch.equal(w.view(torch.int64), g.cpu().view(torch.int64))
 
@@ -256,10 +268,10 @@ def test_batched_equals_a_loop_and_plain(dev, kind):
     c = torch.from_numpy(generate_input("normal01", (3, 200, 136), seed=7, complex_=cx))
     kw = dict(mode="fp64_int8_9", alpha=1.5, beta=-0.5)
     torch.cuda.synchronize()
-    before = (split_cuda.LAUNCHES, recombine_cuda.LAUNCHES)
+    before = _counters()
     got = ozt.gemm_batched(a.to(dev), b.to(dev), c=c.to(dev), **kw)
-    launches = (split_cuda.LAUNCHES - before[0], recombine_cuda.LAUNCHES - before[1])
-    assert launches == ((4, 4) if cx else (2, 1)), launches  # for the whole batch
+    launches = _launched(before)  # for the whole batch, the fold over its [B*m, n] view
+    assert launches == ((4, 4, 4, 0, 1) if cx else (2, 2, 1, 1, 0)), launches
     as_real = torch.view_as_real if cx else (lambda t: t)
     want = ozt.gemm_batched(a, b, c=c, **kw)
     assert torch.equal(as_real(got.cpu()).view(torch.int64), as_real(want).view(torch.int64))
@@ -387,3 +399,124 @@ def test_sharded_solvers_on_the_card_equal_one_device(dev, mesh, nproc, backend)
                 assert float(r[f"{name}/rel"]) < 1e-13, name
             else:
                 assert bool(r[f"{name}/same_bits"]), name
+
+
+#: the epilogue's branches (alpha != 1, beta != 0, beta != 1), alpha = 0
+#: and scalars whose triples use all three components among them
+EPILOGUE_BRANCHES = [(1.0, 0.0), (-1.5, 0.0), (1.0, 1.0), (-1.0, 1.0), (1.0, -0.5),
+                     (2.5, -0.5), (0.0, 1.5), (0.1, 1.0 / 3.0)]
+
+
+def _recombined(dev, seed: int, m: int = 300, k: int = 777, n: int = 260):
+    """(S, E) of a real engine product on the card and a c of its shape."""
+    a = torch.from_numpy(generate_input("normal01", (m, k), seed=seed)).to(dev)
+    b = torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=seed + 1)).to(dev)
+    bb = bits_per_int8(k)
+    da, pa = S.split_f64(a, 9, bb)
+    db, pb = S.split_f64_cols(b, 9, bb)
+    SE = (R.recombine(da, db, 9, bb, k), core._exponent_plane(pa, pb, R.acc_shift(9, bb)))
+    return SE, torch.from_numpy(generate_input("normal01", (m, n), seed=seed + 2)).to(dev)
+
+
+def _window(c: torch.Tensor) -> torch.Tensor:
+    """``c`` as a strided window of a wider matrix (as HPL passes its own)."""
+    m, n = c.shape
+    wide = torch.zeros((m + 3, n + 7), dtype=c.dtype, device=c.device)
+    wide[3:, 5:5 + n] = c
+    return wide[3:, 5:5 + n]
+
+
+def _bits_equal(x, y) -> bool:
+    return x.shape == y.shape and torch.equal(x.cpu().view(torch.int64), y.cpu().view(torch.int64))
+
+
+@pytest.mark.parametrize("alpha,beta", EPILOGUE_BRANCHES)
+@pytest.mark.parametrize("inputs", ["recombine", "crafted"])
+def test_epilogue_kernel_equals_plain(dev, inputs, alpha, beta):
+    """The epilogue kernel == the plain ``_epilogue_block`` on the card and
+    on the CPU, bit for bit, for c contiguous and as a strided window, and
+    written into a column panel of a wider output; one launch each."""
+    if inputs == "recombine":
+        (Sd, E), c = _recombined(dev, seed=30)
+    else:
+        Sd, E, c = crafted_triples(203, 131, seed=31, device=dev)
+    m, n = E.shape
+    for cw in (c, _window(c)):
+        cb = cw if beta != 0.0 else None
+        want = core._epilogue_block(Sd, E, alpha, beta, cb)
+        want_cpu = core._epilogue_block(tuple(t.cpu() for t in Sd), E.cpu(), alpha, beta,
+                                        None if cb is None else cb.cpu())
+        before = _counters()
+        got = epilogue_cuda.epilogue(Sd, E, alpha, beta, cb)
+        assert _launched(before) == (0, 0, 0, 1, 0)
+        assert _bits_equal(got, want) and _bits_equal(got, want_cpu), (inputs, alpha, beta)
+        wide = torch.full((m, n + 9), 7.0, dtype=torch.float64, device=dev)
+        assert core._epilogue_SE(Sd, E, alpha, beta, cb, wide[:, 4:4 + n]).data_ptr() == \
+            wide[:, 4:].data_ptr()
+        assert _bits_equal(wide[:, 4:4 + n], want)
+        assert bool((wide[:, :4] == 7.0).all() and (wide[:, 4 + n:] == 7.0).all())
+
+
+@pytest.mark.parametrize("beta", [0.0, 1.0, -1.0, 0.75, 1.25 + 0.5j])
+@pytest.mark.parametrize("alpha", [0.0, 1.0, -1.0, 2.5, 0.5 - 1.5j])
+@pytest.mark.parametrize("inputs", ["recombine", "crafted"])
+def test_zfold_kernel_equals_plain(dev, inputs, alpha, beta):
+    """The fold kernel == the plain ``_zfold_block`` on the card and on the
+    CPU, bit for bit, with c absent, contiguous and as strided windows."""
+    if inputs == "recombine":
+        SEs, cs = [], []
+        for i in range(4):
+            SE, c = _recombined(dev, seed=40 + 3 * i, m=150, k=272, n=130)
+            SEs.append(SE)
+            cs.append(c)
+        c_re, c_im = cs[:2]
+    else:
+        SEs, cs = [], []
+        for i in range(4):
+            Sd, E, c = crafted_triples(83, 61, seed=50 + i, device=dev)
+            SEs.append((Sd, E))
+            cs.append(c)
+        c_re, c_im = cs[:2]
+    m, n = SEs[0][1].shape
+    cpu_SEs = [(tuple(t.cpu() for t in S_), E.cpu()) for S_, E in SEs]
+    for parts in ((None, None), (c_re, c_im), (_window(c_re), _window(c_im))):
+        args = (complex(alpha), complex(beta), *parts)
+        want = core._zfold_block(SEs, m, n, *args, dev)
+        want_cpu = core._zfold_block(cpu_SEs, m, n, *args[:2],
+                                     *(None if p is None else p.cpu() for p in parts), "cpu")
+        before = _counters()
+        got = epilogue_cuda.zfold(SEs, *args)
+        assert _launched(before) == (0, 0, 0, 0, 1)
+        for g, w, wc in zip(got, want, want_cpu):
+            assert _bits_equal(g, w) and _bits_equal(g, wc), (inputs, alpha, beta)
+
+
+@pytest.mark.parametrize("p", [180, 200])
+def test_epilogue_kernel_keeps_a_subnormal_sticky_bit_at_a_tie(dev, p):
+    """tests/test_torch_gemm.py's tie on the card: beta * c alone is an
+    exact half-ulp tie, and alpha * a @ b, 180-200 binades below it (an
+    f32-subnormal tail inside the kernel), breaks it downward."""
+    import ozimmu_tpu_torch as ozt
+
+    a = torch.tensor([[-(2.0 ** -(p // 2))]], dtype=torch.float64, device=dev)
+    b = torch.tensor([[2.0 ** -(p - p // 2)]], dtype=torch.float64, device=dev)
+    c = torch.tensor([[1.0 + 2.0**-52]], dtype=torch.float64, device=dev)
+    before = _counters()
+    got = ozt.gemm(a, b, mode="fp64_int8_9", beta=1.5, c=c)
+    assert _launched(before) == (2, 2, 1, 1, 0)
+    assert float(got[0, 0]) == 1.5 + 2.0**-52 and float.hex(float(got[0, 0])) == \
+        "0x1.8000000000001p+0"
+
+
+def test_epilogue_kernel_over_a_batch_view(dev):
+    """``_epilogue_SE`` on a batch [B, m, n] runs one launch over its
+    [B*m, n] view, equal to the plain version matrix by matrix."""
+    (Sd, E), c = _recombined(dev, seed=60, m=300, k=272, n=130)
+    Sb = tuple(t.reshape(3, 100, 130) for t in Sd)
+    Eb, cb = E.reshape(3, 100, 130), c.reshape(3, 100, 130)
+    before = _counters()
+    got = core._epilogue_SE(Sb, Eb, 2.5, -0.5, cb)
+    assert _launched(before) == (0, 0, 0, 1, 0) and got.shape == (3, 100, 130)
+    for i in range(3):
+        want = core._epilogue_block(tuple(t[i] for t in Sb), Eb[i], 2.5, -0.5, cb[i])
+        assert _bits_equal(got[i], want), i

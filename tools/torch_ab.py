@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B timing of two checkouts of ozimmu_tpu_torch on one CUDA GPU.
 
-    python3 tools/torch_ab.py OLD_ROOT NEW_ROOT [--rounds R] [--ci-test]
+    python3 tools/torch_ab.py OLD_ROOT NEW_ROOT [--rounds R] [--solvers] [--ci-test]
 
 Runs the same timing worker from each checkout's root, in the order old,
 new, new, old (``R`` times), each turn in a process of its own that builds
@@ -25,6 +25,11 @@ kernel:
     strided window (the operands of ``chip_smoke.py`` phase 17), also as
     its peak device memory per output element (allocated during the call,
     over m * n);
+  * the peak device memory of ``gemm`` 8192^3 (allocated during the call);
+  * with ``--solvers``, ``bench_cli hpl`` at n = 16384 and ``hpl --dtype
+    z`` at n = 8192 (block 1024, ``fp64_int8_9``, device panels, after a
+    warm-up factorization): the factor seconds and each run's peak device
+    memory;
   * with ``--ci-test``, the wall time of the bench CLI's 72-case
     ``ci_test`` at 1025 (host-bound: the long-double oracle).
 
@@ -64,7 +69,8 @@ def cuda_ms(fn, iters):
     e.synchronize()
     return s.elapsed_time(e) / iters
 
-with_ci = sys.argv[1:] == ["1"]
+with_ci = "ci" in sys.argv[1:]
+with_solvers = "solvers" in sys.argv[1:]
 dev = torch.device("cuda")
 out = {}
 for n, ns, iters in ((8192, 9, 5), (4096, 9, 10), (1024, 9, 50), (1025, 16, 20)):
@@ -85,6 +91,14 @@ for n, ns, iters in ((8192, 9, 5), (4096, 9, 10), (1024, 9, 50), (1025, 16, 20))
     if n in (8192, 1025):
         mode = f"fp64_int8_{ns}"
         out[f"gemm_{n}_{mode}_ms"] = cuda_ms(lambda: ozt.gemm(a, bm, mode=mode), 3 if n == 8192 else 10)
+    if n == 8192:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ozt.gemm(a, bm, mode=mode)
+        torch.cuda.synchronize()
+        out[f"gemm_{n}_{mode}_peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
     del a, bm, da, db
 x = torch.from_numpy(generate_input("normal01", (8, 1024, 1024), seed=60)).to(dev)
 y = torch.from_numpy(generate_input("exp_rand-8", (8, 1024, 1024), seed=61)).to(dev)
@@ -127,6 +141,20 @@ out["hpl_update_peak_bytes_per_output_element"] = (
     torch.cuda.max_memory_allocated() - before) / c22.numel()
 del l21, u12, c22
 torch.cuda.empty_cache()
+if with_solvers:
+    from ozimmu_tpu_torch import bench_cli
+    for tag, size, extra in (("hpl_16384", 16384, []), ("zhpl_8192", 8192, ["--dtype", "z"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = bench_cli.main(["hpl", "fp64_int8_9", str(size), "--block", "1024", "--warmup",
+                                 *extra])
+        line = buf.getvalue().strip().splitlines()[-1]
+        fields = dict(f.split("=") for f in line.split(",") if "=" in f)
+        if rc != 0:
+            raise SystemExit(f"bench_cli hpl {size} {extra} failed: {line}")
+        out[f"{tag}_factor_s"] = float(fields["factor_time"].rstrip("s"))
+        out[f"{tag}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
 if with_ci:
     from ozimmu_tpu_torch import oracle
     oracle.lib()  # built before the clock starts
@@ -147,10 +175,10 @@ def gpu_label() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def turn(root: str, with_ci: bool) -> dict:
+def turn(root: str, flags) -> dict:
     root = os.path.abspath(root)
     env = dict(os.environ, PYTHONPATH=root)
-    proc = subprocess.run([sys.executable, "-c", WORKER, "1" if with_ci else "0"], cwd=root, env=env,
+    proc = subprocess.run([sys.executable, "-c", WORKER, *flags], cwd=root, env=env,
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"worker failed in {root}:\n{proc.stdout}\n{proc.stderr}")
@@ -163,7 +191,10 @@ def main(argv=None) -> int:
     ap.add_argument("new")
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--ci-test", action="store_true", help="also time ci_test at 1025")
+    ap.add_argument("--solvers", action="store_true",
+                    help="also time HPL n = 16384 and ZHPL n = 8192 through bench_cli hpl")
     args = ap.parse_args(argv)
+    flags = ["ci"] * args.ci_test + ["solvers"] * args.solvers
     import torch
 
     if not torch.cuda.is_available():
@@ -174,7 +205,7 @@ def main(argv=None) -> int:
     runs = {"old": [], "new": []}
     for _ in range(args.rounds):
         for which in ("old", "new", "new", "old"):
-            got = turn(getattr(args, which), args.ci_test)
+            got = turn(getattr(args, which), flags)
             runs[which].append(got)
             print(json.dumps({"checkout": which, **got}), flush=True)
     mean = {w: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]} for w, rs in runs.items()}
