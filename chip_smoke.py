@@ -16,9 +16,16 @@ version and its bound, the transposed copy of B's planes that the k-major
 split removed and the int8 products alone through ``torch._int_mm`` as
 yardsticks, the GEMM's peak memory, and ``torch.matmul`` on float64.  Then
 the epilogue and complex-fold kernels bit for bit against their plain
-versions (the main path's S and E, crafted triples in every branch, HPL's
-15360^2 update with a strided c, a batch's [B*m, n] view, ZGEMM's four
-passes at 8192^2), each timed beside its bound and its plain version.
+versions (the main path's S and exponent parts, crafted triples in every
+branch at odd n with E as a plane and as crafted parts, a column panel
+written at an odd column, sgemm's E-plane route, HPL's 15360^2 update with
+a strided c, a batch by pa [B, m] and pb [B, n], ZGEMM's four passes at
+8192^2), each timed beside its bound, the same kernel on an exponent plane
+built in the call and its plain version, and an issue-time model from a
+SASS count; the ``[build]`` lines give each instantiation's registers,
+spills and SASS instructions, its element loops' instructions per element,
+and the probe kernels' count of one admitted element of each case
+(tools/torch_epilogue_sass.py).
 
 Then it drives the rest of the public GEMM API, each path with the launch
 counts set to 0 just before it and read just after:
@@ -120,10 +127,15 @@ RESIDUAL_GATE = 1e-15
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12  # outside the tensor cores
+F64_OPS_PER_S = 34e12  # outside the tensor cores
 #: f32 additions, subtractions and multiplications per element of the
-#: device functions of ozimmu_tpu_torch/csrc/tf32x3.cuh (what an
+#: device functions of ozimmu_tpu_torch/csrc/tf32x3.cuh on the routes the
+#: epilogue takes (an FMA counts two): mul_scalar with the FMA TwoProd,
+#: unpack_f64's three magic-number subtractions, pack_f64's
+#: renorm and tail test; and the f64 operations of pack_f64 (what an
 #: operations bound of the epilogue counts; integer work not counted)
-F32_OPS = {"mul": 109, "aligned_add": 63, "unpack": 5, "pack": 12}
+F32_OPS = {"mul": 66, "aligned_add": 63, "unpack": 3, "pack": 13}
+F64_OPS = {"pack": 12}
 HPL_UPDATE = (15360, 1024)  # m = n, k of HPL's first trailing update at n = 16384
 
 # recombine cases (m, n, k, ns): ragged edges, k % 16 != 0, one group per
@@ -237,27 +249,54 @@ def counts_of(res: dict, prefix: str = "") -> dict:
     return {k: int(res[prefix + k]) for k in KERNEL_KEYS}
 
 
+def traced_events(run, name: str = None, attempts: int = 3) -> list:
+    """The Chrome-trace events of ``device_trace`` around ``run()`` (inside
+    a ``record_function`` window called ``name``, if given), traced again,
+    ``attempts`` times in all at most, while the trace lost kernels of the
+    block's launches: torch.profiler on an H100 now and then keeps none or
+    only some of a trace's kernels (PERF.md §6).  The last attempt's
+    events are taken as they are, unless it lost every kernel."""
+    import ozimmu_tpu_torch as ozt
+    from ozimmu_tpu_torch.utils.profiling import (TRACE_OPENING_LAUNCHES, TraceLostError,
+                                                  launches_and_kernels)
+
+    for attempt in range(1, attempts + 1):
+        log_dir = tempfile.mkdtemp(prefix="oz_trace_")
+        try:
+            with ozt.device_trace(log_dir):
+                with contextlib.ExitStack() as stack:
+                    if name is not None:
+                        stack.enter_context(torch.profiler.record_function(name))
+                    run()
+                    torch.cuda.synchronize()
+        except TraceLostError as e:
+            if attempt == attempts:
+                raise
+            print(f"[trace] attempt {attempt}: {e}; tracing again", flush=True)
+            continue
+        (path,) = glob.glob(os.path.join(log_dir, "*.json"))
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        launches, kernels = launches_and_kernels(events, skip=TRACE_OPENING_LAUNCHES)
+        if kernels == launches or attempt == attempts:
+            return events
+        print(f"[trace] attempt {attempt}: {kernels} of {launches} kernels kept; tracing again",
+              flush=True)
+
+
 def kernel_ms(fn, names, iters: int = 5) -> float:
     """Mean device time (ms) per call of ``fn`` of the device kernels whose
     name contains one of ``names``, over ``iters`` calls after one, from a
     ``torch.profiler`` trace: the kernels' own time, where a call is too
     short for CUDA events around it to see past the host's issue time."""
-    from ozimmu_tpu_torch.utils.profiling import TRACE_PAD_S
-
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        time.sleep(TRACE_PAD_S)  # the device clock's drift (device_trace)
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-        time.sleep(TRACE_PAD_S)
-    with tempfile.TemporaryDirectory(prefix="oz_prof_") as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+
+    events = traced_events(run)
     total = sum(float(e["dur"]) for e in events if e.get("cat") == "kernel"
                 and any(n in e.get("name", "") for n in names))
     if total <= 0:
@@ -311,7 +350,7 @@ def main() -> int:
     import ozimmu_tpu_torch as ozt
     from ozimmu_tpu_torch import native
     from ozimmu_tpu_torch.ops import exponent_cuda, recombine_cuda, split_cuda
-    from ozimmu_tpu_torch.core.gemm import _epilogue_block, _epilogue_SE, _exponent_plane
+    from ozimmu_tpu_torch.core.gemm import Exponents, _epilogue_block, _epilogue_SE
     from ozimmu_tpu_torch.ops.recombine import (
         acc_shift, fold_group_totals, group_totals, padded_k, recombine,
     )
@@ -339,8 +378,12 @@ def main() -> int:
         if "Compiling entry function" in line and m:
             targs = re.findall(r"L[ib](-?\d+)E", m[2] or "")
             entry = m[1] + (f"<{', '.join(targs)}>" if targs else "")
+        elif "Function properties for" in line and not m:  # an out-of-line device function
+            f = re.search(r"_ZN2oz\d+(\w+?)E", line)
+            entry = f"out-of-line {f[1] if f else line.split()[-1]}"
         if "Used" in line or "spill" in line:
             print(f"[build] {entry}: {line.strip()}", flush=True)
+    sass = sass_report()
 
     max_err = {"split_digits": 0.0, "row_exponent": 0.0, "recombine": 0.0}
 
@@ -510,10 +553,8 @@ def main() -> int:
     db, pb = split_f64_cols(b, NS, bb, kp)
     phases["recombine"] = cuda_ms(lambda: recombine(da, db, NS, bb, N, b_kmajor=True), iters=3)
     S = recombine(da, db, NS, bb, N, b_kmajor=True)
-    phases["epilogue"] = cuda_ms(
-        lambda: _epilogue_SE(S, _exponent_plane(pa, pb, acc_shift(NS, bb)), 1.0, 0.0, None),
-        iters=5)
-    main_SE = (S, _exponent_plane(pa, pb, acc_shift(NS, bb)))
+    main_SE = (S, Exponents(pa, pb, acc_shift(NS, bb)))
+    phases["epilogue"] = cuda_ms(lambda: _epilogue_SE(*main_SE, 1.0, 0.0, None), iters=5)
     del S
     print(f"[time] {label}: phases of {N}^3 fp64_int8_{NS}: "
           + ", ".join(f"{k_} {v:.3f} ms" for k_, v in phases.items())
@@ -606,7 +647,7 @@ def main() -> int:
           f"{2 * N**3 / ms_dgemm / 1e9:.3f} TFLOPS", flush=True)
 
     # 7b. the epilogue and fold kernels against their plain versions
-    epi_figs = walled(phase_epilogue, label, main_SE)
+    epi_figs = walled(phase_epilogue, label, main_SE, sass)
     del main_SE
 
     # 8.-19. the rest of the public surface, each path counted on its own
@@ -666,12 +707,14 @@ def main() -> int:
     # main path, the fold on ZGEMM's: launches from that path's run, times
     # and bounds at its shape (phase 7b)
     for name, path, line in (("epilogue", "main", 40), ("zfold", "zgemm", 175)):
-        k_ms, p_ms, (b_ms, b_by), err = epi_figs[name]
+        t, err = epi_figs[name]
+        b_ms, b_by = t["bound"]
         kernels.append({
             "name": name, "route": "cuda", "source": "ozimmu_tpu_torch/csrc/epilogue.cu",
             "replaces": f"ozimmu_tpu/core/gemm.py:{line}", "launches": by_path[path][name],
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None, "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}})
         if by_path[path][name] < 1:
             raise AssertionError(f"the {path} path did not launch the {name} kernel")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -681,28 +724,86 @@ def main() -> int:
     return 0
 
 
-def epilogue_bound(elements: int, alpha: float, beta: float):
-    """The epilogue kernel's bound (ms, what sets it) over ``elements``
-    outputs: S (12 B), E (4 B), c where beta != 0 (8 B) read once, the
-    output (8 B) written once; the f32 operations of its branches."""
-    ops = F32_OPS["pack"] + (F32_OPS["mul"] if alpha != 1.0 else 0)
+def epilogue_bound(rows: int, n: int, alpha: float, beta: float):
+    """The epilogue kernel's bound (ms, what sets it) over a rows x n
+    output: S (12 B) and c where beta != 0 (8 B) read once, the exponents'
+    parts (4 B a row and a column) once, the output (8 B) written once;
+    the f32 and f64 operations of its branches on the routes the kernel
+    takes (F32_OPS, F64_OPS), each over its own peak rate."""
+    f32 = F32_OPS["pack"] + (F32_OPS["mul"] if alpha != 1.0 else 0)
     if beta != 0.0:
-        ops += F32_OPS["unpack"] + F32_OPS["aligned_add"] + (F32_OPS["mul"] if beta != 1.0 else 0)
-    return bound_ms(elements * (24 + (8 if beta != 0.0 else 0)), elements * ops, F32_OPS_PER_S)
+        f32 += F32_OPS["unpack"] + F32_OPS["aligned_add"] + (F32_OPS["mul"] if beta != 1.0 else 0)
+    n_bytes = rows * n * (20 + (8 if beta != 0.0 else 0)) + 4 * (rows + n)
+    return ops_bound(n_bytes, rows * n, f32, F64_OPS["pack"])
 
 
-def zfold_bound(elements: int, alpha: complex, beta: complex, with_c: bool):
-    """The fold kernel's bound: four (S, E) passes (16 B each) and c's two
-    parts where the plan reads them read once, both output planes written
-    once; the f32 operations of the plan's steps."""
+def zfold_bound(rows: int, n: int, alpha: complex, beta: complex, with_c: bool):
+    """The fold kernel's bound: four passes' S (12 B each) and their
+    exponents' parts, c's two parts where the plan reads them, both output
+    planes written once; the f32 and f64 operations of the plan's steps."""
     from ozimmu_tpu_torch.ops.epilogue_cuda import zfold_plan
 
     plan = zfold_plan(alpha, beta)
     reads_c = with_c and (plan.init_from_c or any(st.src >= 4 for st in plan.steps))
-    ops = (2 * F32_OPS["pack"] + len(plan.steps) * (F32_OPS["mul"] + F32_OPS["aligned_add"])
+    f32 = (2 * F32_OPS["pack"] + len(plan.steps) * (F32_OPS["mul"] + F32_OPS["aligned_add"])
            + (2 * F32_OPS["unpack"] if reads_c else 0))
-    return bound_ms(elements * (4 * 16 + 16 + (16 if reads_c else 0)), elements * ops,
-                    F32_OPS_PER_S)
+    n_bytes = rows * n * (4 * 12 + 16 + (16 if reads_c else 0)) + 4 * 4 * (rows + n)
+    return ops_bound(n_bytes, rows * n, f32, 2 * F64_OPS["pack"])
+
+
+def ops_bound(n_bytes: float, elements: int, f32: int, f64: int):
+    """:func:`bound_ms` with two kinds of operation, each at its own peak:
+    the f32 and the f64 operations per element over ``elements``."""
+    t_ops = max(elements * f32 / F32_OPS_PER_S, elements * f64 / F64_OPS_PER_S) * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def issue_ms(elements: int, per_element):
+    """A model, not a measurement: the least time for ``per_element`` SASS
+    instructions of each of ``elements`` outputs, one warp instruction a
+    cycle on each of an SM's four schedulers at the card's highest SM clock
+    (nvidia-smi); None where there is no count."""
+    if not per_element:
+        return None
+    props = torch.cuda.get_device_properties(0)
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return elements * per_element / (props.multi_processor_count * 4 * 32 * mhz * 1e6) * 1e3
+
+
+def sass_report() -> dict:
+    """[build] lines of the epilogue and fold kernels: SASS instructions,
+    registers and spills of each instantiation and its element loops'
+    instructions per element, and each case's count from the built
+    kernels and from the probes' model (tools/torch_epilogue_sass.py);
+    {} where the toolkit has no cuobjdump."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_epilogue_sass.py")
+    spec = importlib.util.spec_from_file_location("torch_epilogue_sass", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    try:
+        rep = mod.report()
+    except FileNotFoundError as e:
+        print(f"[build] SASS counts not measured: {e}", flush=True)
+        return {}
+    for name, k in rep["kernels"].items():
+        loops = ", ".join(f"{lp['instructions']} for {lp['elements']}" for lp in k["element_loops"])
+        print(f"[build] {name}: {k['sass']} SASS instructions, {k.get('registers')} registers, "
+              f"{k.get('spill_bytes')} bytes spilled; element loops: {loops or 'none found'}",
+              flush=True)
+    print("[build] SASS instructions per element of the built kernels' element loops (static: "
+          "every branch of the body): " + "; ".join(
+              f"{case} {n:.2f}" if n else f"{case} not found"
+              for case, n in rep["built_per_element"].items()), flush=True)
+    print("[build] SASS instructions per element of the probes (a model: one admitted element "
+          "of each case straight through): " + "; ".join(
+              f"{case} {n}" for case, n in rep["per_element"].items()), flush=True)
+    return {"built": rep["built_per_element"], "probe": rep["per_element"]}
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -721,33 +822,43 @@ def window_of(c: torch.Tensor, pad: int = 1024) -> torch.Tensor:
     return big[pad:, pad:]
 
 
-def phase_epilogue(label, main_SE) -> dict:
+def phase_epilogue(label, main_SE, sass) -> dict:
     """7b. The epilogue and fold kernels against their plain versions
     (``_epilogue_block``, ``_zfold_block``), bit for bit, each call one
-    launch: the main path's own S and E at 8192^2 (alpha = 1, beta = 0) and
-    with alpha, beta and c; crafted triples in every branch; HPL's first
-    trailing update, 15360^2 from the split and recombine kernels, alpha =
-    -1, beta = 1 and c the strided window of a 16384^2 matrix; the [B*m, n]
-    view of an 8 x 1024^3 batch; the fold at 8192^2 on four recombined
-    passes with alpha = 1 (ZGEMM's main path) and with complex alpha, beta
-    and c, contiguous and strided; then each kernel's ms beside its bound
-    and its plain version's.  Returns the figures of the kernels line."""
+    launch: the main path's own S and exponent parts at 8192^2 (alpha = 1,
+    beta = 0) and with alpha, beta and c; crafted triples in every branch
+    at 1031 x 1029 (odd n: the one-column tail), with E as a plane (the
+    sgemm route) and as crafted parts; HPL's first trailing update, 15360^2
+    from the split and recombine kernels, alpha = -1, beta = 1 and c the
+    strided window of a 16384^2 matrix; a column panel written in place at
+    an odd column offset; an 8 x 1024^3 batch by its parts pa [B, m] and
+    pb [B, n]; sgemm's alpha and beta through the E-plane route; the fold
+    on crafted passes and at 8192^2 on four recombined passes with alpha =
+    1 (ZGEMM's main path) and with complex alpha, beta and c, contiguous
+    and strided.  Then each timed case: the kernel, the same kernel on an
+    exponent plane built in the call (the exponents as the callers passed
+    them before: the plane's torch kernels, then the E-plane route), the
+    plain version, the bound and the issue time of its SASS count.
+    Returns the figures of the kernels line."""
+    import ozimmu_tpu_torch as ozt
     from ozimmu_tpu_torch.core.gemm import (
-        _epilogue_block, _epilogue_SE, _exponent_plane, _zfold_block, _zpasses, _zsplit,
+        Exponents, _epilogue_block, _epilogue_SE, _zfold_block, _zpasses, _zsplit,
     )
     from ozimmu_tpu_torch.ops import epilogue_cuda
+    from ozimmu_tpu_torch.ops.pack import unpack_f64
     from ozimmu_tpu_torch.ops.recombine import acc_shift, padded_k, recombine
     from ozimmu_tpu_torch.ops.split import split_f64, split_f64_cols
     from ozimmu_tpu_torch.schedule import bits_per_int8
-    from ozimmu_tpu_torch.testing import crafted_triples, generate_input
+    from ozimmu_tpu_torch.testing import crafted_exponents, crafted_triples, generate_input
 
     err = {"epilogue": 0.0, "zfold": 0.0}
     cases = {"epilogue": 0, "zfold": 0}
+    plane = lambda E: E.plane() if isinstance(E, Exponents) else E  # noqa: E731
 
-    def check_epilogue(what, S, E, alpha, beta, c, via=None):
-        want = _epilogue_block(S, E, alpha, beta, c if beta != 0.0 else None)
+    def check_epilogue(what, S, E, alpha, beta, c, via=None, out=None):
+        want = _epilogue_block(S, plane(E), alpha, beta, c if beta != 0.0 else None)
         before = epilogue_cuda.LAUNCHES
-        got = (via or epilogue_cuda.epilogue)(S, E, alpha, beta, c if beta != 0.0 else None)
+        got = (via or epilogue_cuda.epilogue)(S, E, alpha, beta, c if beta != 0.0 else None, out)
         torch.cuda.synchronize()
         if epilogue_cuda.LAUNCHES - before != 1 or not bits_equal(got, want.view(got.shape)):
             raise AssertionError(f"epilogue kernel != plain: {what} alpha={alpha} beta={beta}")
@@ -755,7 +866,7 @@ def phase_epilogue(label, main_SE) -> dict:
         cases["epilogue"] += 1
 
     def check_zfold(what, SEs, alpha, beta, c_re, c_im):
-        m, n = SEs[0][1].shape
+        m, n = SEs[0][0][0].shape
         want = _zfold_block(SEs, m, n, complex(alpha), complex(beta), c_re, c_im, "cuda")
         before = epilogue_cuda.ZFOLD_LAUNCHES
         got = epilogue_cuda.zfold(SEs, alpha, beta, c_re, c_im)
@@ -767,32 +878,70 @@ def phase_epilogue(label, main_SE) -> dict:
         cases["zfold"] += 1
         del want, got
 
+    times = {}
+
+    def time_epilogue(key, S, E, alpha, beta, cc, plain_iters):
+        m_, n_ = S[0].shape
+        times[key] = dict(
+            ms=cuda_ms(lambda: epilogue_cuda.epilogue(S, E, alpha, beta, cc), iters=10),
+            plane_ms=cuda_ms(lambda: epilogue_cuda.epilogue(S, E.plane(), alpha, beta, cc),
+                             iters=10),
+            plain_ms=cuda_ms(lambda: _epilogue_block(S, E.plane(), alpha, beta, cc),
+                             iters=plain_iters),
+            bound=epilogue_bound(m_, n_, alpha, beta), elements=m_ * n_)
+
     rng = np.random.default_rng(7)
     S, E = main_SE
     c = torch.from_numpy(generate_input("normal01", (N, N), seed=20)).cuda()
     check_epilogue(f"main path {N}^2", S, E, 1.0, 0.0, None)
     check_epilogue(f"main path {N}^2 with c", S, E, 2.0, -0.5, c)
-    times = {}
-    for key, (alpha, beta, cc) in {"main": (1.0, 0.0, None), "scaled": (2.0, -0.5, c)}.items():
-        times[key] = (cuda_ms(lambda: epilogue_cuda.epilogue(S, E, alpha, beta, cc), iters=10),
-                      cuda_ms(lambda: _epilogue_block(S, E, alpha, beta, cc), iters=2),
-                      epilogue_bound(N * N, alpha, beta))
-    del S, E, c, main_SE
+    check_epilogue(f"main path {N}^2, E as a plane", S, E.plane(), 2.0, -0.5, c)
+    time_epilogue("main", S, E, 1.0, 0.0, None, 2)
+    time_epilogue("scaled", S, E, 2.0, -0.5, c, 2)
+    # a column panel written in place at an odd column offset (one-double
+    # stores), the window's c at another
+    w = N // 4
+    wide = torch.full((N, w + 5), 7.0, dtype=torch.float64, device="cuda")
+    Sp = tuple(s[:, :w].contiguous() for s in S)
+    Ep = Exponents(E.pa, E.pb[:w].contiguous(), E.shift)
+    check_epilogue(f"{N} x {w} panel at column 3 of a wider output", Sp, Ep, -1.0, 1.0,
+                   window_of(c[:, :w], 5), via=_epilogue_SE, out=wide[:, 3:3 + w])
+    if not bool((wide[:, :3] == 7.0).all() and (wide[:, 3 + w:] == 7.0).all()):
+        raise AssertionError("the panel's epilogue wrote outside its columns")
+    del S, E, c, main_SE, wide, Sp, Ep
     torch.cuda.empty_cache()
 
+    # crafted triples: odd n (every column through the one-column tail),
+    # E as a plane and as crafted parts, in every branch
     St, Et, ct = crafted_triples(1031, 1029, seed=21, device="cuda")
+    Ex = Exponents(*crafted_exponents(1031, 1029, seed=22, device="cuda"))
     for alpha, beta in ((1.0, 0.0), (-1.5, 0.0), (1.0, 1.0), (-1.0, 1.0), (1.0, -0.5),
                         (2.5, -0.5), (0.0, 1.5), (0.1, 1.0 / 3.0)):
         for cc in (ct, window_of(ct, 7)):
-            check_epilogue("crafted 1031x1029", St, Et, alpha, beta, cc)
+            for EE in (Et, Ex):
+                check_epilogue("crafted 1031x1029", St, EE, alpha, beta, cc)
     passes = [crafted_triples(515, 517, seed=22 + i, device="cuda") for i in range(4)]
-    SEs = [(p[0], p[1]) for p in passes]
+    SEs = [(p[0], Exponents(*crafted_exponents(515, 517, seed=40 + i, device="cuda")))
+           for i, p in enumerate(passes)]
     for alpha, beta in ((1.0, 0.0), (-1.0, 1.0), (0.5 - 1.5j, 1.25 + 0.5j), (0.0, -1.0),
-                        (2.5, 0.75)):
+                        (2.5, 0.75), (1j, 2j)):
         for parts in ((None, None), (passes[0][2], passes[1][2]),
                       (window_of(passes[2][2], 5), window_of(passes[3][2], 3))):
             check_zfold("crafted 515x517", SEs, alpha, beta, *parts)
-    del St, Et, ct, passes, SEs
+    del St, Et, ct, Ex, passes, SEs
+
+    # sgemm's alpha and beta: the E-plane route on the unpacked result
+    xa = torch.from_numpy(generate_input("normal01", (1000, 777), seed=27)).cuda()
+    xb = torch.from_numpy(generate_input("normal01", (777, 1234), seed=28)).cuda()
+    xc = torch.from_numpy(generate_input("normal01", (1000, 1234), seed=29)).cuda()
+    before = epilogue_cuda.LAUNCHES
+    got = ozt.gemm(xa, xb, mode="sgemm", alpha=-2.5, beta=0.75, c=xc)
+    t, Eu = unpack_f64(ozt.gemm(xa, xb, mode="sgemm"))
+    if epilogue_cuda.LAUNCHES - before != 1 or not bits_equal(
+            got, _epilogue_block(t, Eu, -2.5, 0.75, xc)):
+        raise AssertionError("sgemm's epilogue (the E-plane route) != plain")
+    cases["epilogue"] += 1
+    del xa, xb, xc, got, t, Eu
 
     # HPL's first trailing update: 15360^2 x 1024 through the kernels
     m, k = HPL_UPDATE
@@ -802,18 +951,16 @@ def phase_epilogue(label, main_SE) -> dict:
     da, pa = split_f64(l21, NS, bb, padded_k(k))
     db, pb = split_f64_cols(u12, NS, bb, padded_k(k))
     S = recombine(da, db, NS, bb, k, b_kmajor=True)
-    E = _exponent_plane(pa, pb, acc_shift(NS, bb))
+    E = Exponents(pa, pb, acc_shift(NS, bb))
     del l21, u12, da, db
     a_hpl = torch.from_numpy(rng.uniform(-1, 1, (m + k, m + k))).cuda()
     c22 = a_hpl[k:, k:]
     check_epilogue(f"HPL update {m}^2, c a window of {m + k}^2", S, E, -1.0, 1.0, c22)
-    times["hpl"] = (cuda_ms(lambda: epilogue_cuda.epilogue(S, E, -1.0, 1.0, c22), iters=5),
-                    cuda_ms(lambda: _epilogue_block(S, E, -1.0, 1.0, c22), iters=1),
-                    epilogue_bound(m * m, -1.0, 1.0))
+    time_epilogue("hpl", S, E, -1.0, 1.0, c22, 1)
     del S, E, a_hpl, c22
     torch.cuda.empty_cache()
 
-    # the [B*m, n] view of a batch, through the dispatch
+    # a batch by its parts: pa [B, m], pb [B, n], through the dispatch
     bsz, n1 = 8, 1024
     xa = torch.from_numpy(generate_input("normal01", (bsz, n1, n1), seed=23)).cuda()
     xb = torch.from_numpy(generate_input("exp_rand-8", (bsz, n1, n1), seed=24)).cuda()
@@ -822,8 +969,10 @@ def phase_epilogue(label, main_SE) -> dict:
     da, pa = split_f64(xa, NS, bb, padded_k(n1))
     db, pb = split_f64_cols(xb, NS, bb, padded_k(n1))
     Sb = recombine(da, db, NS, bb, n1, b_kmajor=True)
-    Eb = _exponent_plane(pa, pb, acc_shift(NS, bb))
-    check_epilogue(f"batch {bsz} x {n1}^2 as its [B*m, n] view", Sb, Eb, 1.5, -0.5, xc,
+    Eb = Exponents(pa, pb, acc_shift(NS, bb))
+    check_epilogue(f"batch {bsz} x {n1}^2 by pa [B, m] and pb [B, n]", Sb, Eb, 1.5, -0.5, xc,
+                   via=_epilogue_SE)
+    check_epilogue(f"batch {bsz} x {n1}^2, E as a plane", Sb, Eb.plane(), 1.5, -0.5, xc,
                    via=_epilogue_SE)
     del xa, xb, xc, da, db, Sb, Eb
 
@@ -844,30 +993,48 @@ def phase_epilogue(label, main_SE) -> dict:
     check_zfold(f"ZGEMM {N}^2 with c", SEs, za, zb, c_re, c_im)
     check_zfold(f"ZGEMM {N}^2 with c windows", SEs, za, zb, window_of(c_re, 64),
                 window_of(c_im, 64))
-    times["zfold"] = (cuda_ms(lambda: epilogue_cuda.zfold(SEs, 1.0, 0.0), iters=5),
-                      cuda_ms(lambda: _zfold_block(SEs, N, N, 1 + 0j, 0j, None, None, "cuda"),
-                              iters=1),
-                      zfold_bound(N * N, 1.0, 0.0, False))
-    times["zfold_c"] = (cuda_ms(lambda: epilogue_cuda.zfold(SEs, za, zb, c_re, c_im), iters=5),
-                        cuda_ms(lambda: _zfold_block(SEs, N, N, za, zb, c_re, c_im, "cuda"),
-                                iters=1),
-                        zfold_bound(N * N, za, zb, True))
+    four_planes = cuda_ms(lambda: [E.plane() for _, E in SEs], iters=5)
+    for key, (alpha, beta, cs) in {"zfold": (1.0, 0.0, (None, None)),
+                                   "zfold_c": (za, zb, (c_re, c_im))}.items():
+        times[key] = dict(
+            ms=cuda_ms(lambda: epilogue_cuda.zfold(SEs, alpha, beta, *cs), iters=5),
+            planes_ms=four_planes,
+            plain_ms=cuda_ms(lambda: _zfold_block(SEs, N, N, complex(alpha), complex(beta),
+                                                  *cs, "cuda"), iters=1),
+            bound=zfold_bound(N, N, alpha, beta, cs[0] is not None), elements=N * N)
     del SEs, c_re, c_im
     torch.cuda.empty_cache()
     print(f"[epilogue] epilogue kernel == plain bitwise in {cases['epilogue']} cases, fold "
-          f"kernel == plain in {cases['zfold']} (the main path's S and E, crafted triples in "
-          f"every branch, c contiguous and as strided windows, HPL's 15360^2 update, a batch's "
-          f"[B*m, n] view, ZGEMM's four passes at {N}^2), one launch each", flush=True)
-    names = {"main": f"epilogue {N}^2 alpha=1 beta=0 (the main path)",
-             "scaled": f"epilogue {N}^2 alpha=2 beta=-0.5 with c",
-             "hpl": f"epilogue {m}^2 alpha=-1 beta=1, c a strided window (HPL's first update)",
-             "zfold": f"fold {N}^2 alpha=1 beta=0 (ZGEMM's main path)",
-             "zfold_c": f"fold {N}^2 alpha=2-0.5i beta=0.25+1i with c"}
-    for key, (k_ms, p_ms, (b_ms, b_by)) in times.items():
-        print(f"[time] {label}: {names[key]}: kernel {k_ms:.4f} ms, plain PyTorch {p_ms:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), {b_ms / k_ms:.1%} of the bound", flush=True)
-    return {"epilogue": (*times["main"][:2], times["main"][2], err["epilogue"]),
-            "zfold": (*times["zfold"][:2], times["zfold"][2], err["zfold"])}
+          f"kernel == plain in {cases['zfold']} (the main path's S and exponent parts, crafted "
+          f"triples in every branch with E as a plane and as crafted parts at odd n, c "
+          f"contiguous and as strided windows, a panel at an odd column, sgemm's E-plane "
+          f"route, HPL's 15360^2 update, a batch by pa [B, m] and pb [B, n], ZGEMM's four "
+          f"passes at {N}^2), one launch each", flush=True)
+    names = {"main": (f"epilogue {N}^2 alpha=1 beta=0 (the main path)",
+                      "epilogue alpha=1 beta=0"),
+             "scaled": (f"epilogue {N}^2 alpha=2 beta=-0.5 with c", "epilogue alpha beta"),
+             "hpl": (f"epilogue {m}^2 alpha=-1 beta=1, c a strided window (HPL's first update)",
+                     "epilogue alpha beta=1 (HPL: -1, 1)"),
+             "zfold": (f"fold {N}^2 alpha=1 beta=0 (ZGEMM's main path)",
+                       "fold alpha=1 (4 steps)"),
+             "zfold_c": (f"fold {N}^2 alpha=2-0.5i beta=0.25+1i with c",
+                         "fold complex alpha, beta, c (12 steps)")}
+    for key, t in times.items():
+        what, case = names[key]
+        b_ms, b_by = t["bound"]
+        models = []
+        for kind, per in (("built element loop", sass.get("built", {}).get(case)),
+                          ("probe", sass.get("probe", {}).get(case))):
+            issue = issue_ms(t["elements"], per)
+            models.append(f"{kind} not counted" if issue is None else
+                          f"{kind} {per:.2f} SASS instructions an element, {issue:.4f} ms")
+        model = "issue model (not a measurement): " + "; ".join(models)
+        before = (f"on a plane built in the call {t['plane_ms']:.4f} ms" if "plane_ms" in t else
+                  f"the four planes it no longer takes {t['planes_ms']:.4f} ms to build")
+        print(f"[time] {label}: {what}: kernel {t['ms']:.4f} ms ({before}), plain PyTorch "
+              f"{t['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / t['ms']:.1%} of the "
+              f"bound; {model}", flush=True)
+    return {"epilogue": (times["main"], err["epilogue"]), "zfold": (times["zfold"], err["zfold"])}
 
 
 def phase_auto(ozt, a, b, a_np, b_np, mats, label, rng) -> dict:
@@ -1093,19 +1260,12 @@ def wall_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def busy_ms(ozt, fn, name: str):
+def busy_ms(fn, name: str):
     """(busy ms, window ms, device kernels) of one traced call of ``fn``:
     the union of the device's spans inside it (``busy_in_window``) and the
     kernels that ran in it."""
     torch.cuda.synchronize()
-    log_dir = tempfile.mkdtemp(prefix="oz_trace_")
-    with ozt.device_trace(log_dir):
-        with torch.profiler.record_function(name):
-            fn()
-            torch.cuda.synchronize()
-    (path,) = glob.glob(os.path.join(log_dir, "*.json"))
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
+    events = traced_events(fn, name)
     busy, window = busy_in_window(events, name)
     (win,) = [e for e in events if e.get("name") == name and e.get("cat") == "user_annotation"]
     t0 = float(win["ts"])
@@ -1249,9 +1409,9 @@ def phase_batched(ozt, label):
                     raise AssertionError(f"batched {what}: matrix {i} differs from the 2-D gemm")
             del out
             ms_b = wall_ms(batched)
-            busy, window, n_kernels = busy_ms(ozt, batched, "batched_gemm")
+            busy, window, n_kernels = busy_ms(batched, "batched_gemm")
             ms_loop = wall_ms(loop)
-            busy_loop, _, n_loop = busy_ms(ozt, loop, "loop_of_gemm")
+            busy_loop, _, n_loop = busy_ms(loop, "loop_of_gemm")
         ms_mm = cuda_ms(lambda: torch.matmul(a, b), iters=3)
         print(f"[batched] {what} {mode} with c: bits == loop of 2-D gemm; launches {got} in "
               f"{len(parts)} sub-batch(es); peak {peak / 2**30:.3f} GiB allocated during the call",
@@ -1308,26 +1468,17 @@ def phase_trace(ozt) -> None:
     b = torch.from_numpy(generate_input("urand01", (n, n), seed=71)).cuda()
     ozt.gemm(a, b, mode=f"fp64_int8_{NS}")  # warm
     torch.cuda.synchronize()
-    log_dir = tempfile.mkdtemp(prefix="oz_trace_")
-    with ozt.device_trace(log_dir):
-        # the trace can miss the first kernel of a session (on an H100 it
-        # dropped the GEMM's first, A's exponent max): one small op first
-        torch.ones(1, device="cuda").add_(1)
-        torch.cuda.synchronize()
-        with torch.profiler.record_function("traced_gemm"):
-            ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
-            torch.cuda.synchronize()
-    (path,) = glob.glob(os.path.join(log_dir, "*.json"))
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
+    events = traced_events(lambda: ozt.gemm(a, b, mode=f"fp64_int8_{NS}"), "traced_gemm")
+    busy, window = busy_in_window(events, "traced_gemm")
+    (win,) = [e for e in events if e.get("name") == "traced_gemm" and e.get("cat") == "user_annotation"]
+    t0 = float(win["ts"])
+    kernels = [e for e in events if e.get("cat") == "kernel" and t0 <= float(e["ts"]) <= t0 + window]
     names = {e["name"] for e in kernels}
     wanted = ("exponent_rows_kernel", "exponent_cols_kernel", "split_rows_kernel",
               "split_tiles_kernel", "recombine_kernel", "epilogue_kernel")
     for want in wanted:
         if not any(want in nm for nm in names):
             raise AssertionError(f"{want} not in the traced kernels {sorted(names)}")
-    busy, window = busy_in_window(events, "traced_gemm")
     print(f"[trace] {n}^3 fp64_int8_{NS}: {len(kernels)} device kernels traced, incl. "
           f"{', '.join(wanted)}; device busy {busy / 1e3:.3f} ms of a "
           f"{window / 1e3:.3f} ms window = busy share {busy / window:.4f}", flush=True)
@@ -1929,14 +2080,9 @@ def phase_solvers(ozt, label) -> dict:
     a = bench_cli._hpl_matrix(8192, 1, False, torch.device("cuda"))
     linalg.lu_factor(a, mode=mode, block=1024, panel="device")  # warm
     torch.cuda.synchronize()
-    log_dir = tempfile.mkdtemp(prefix="oz_trace_")
-    with ozt.device_trace(log_dir):
-        with torch.profiler.record_function("traced_lu"):
-            linalg.lu_factor(a, mode=mode, block=1024, panel="device")
-            torch.cuda.synchronize()
-    (path,) = glob.glob(os.path.join(log_dir, "*.json"))
-    with open(path) as f:
-        busy, window = busy_in_window(json.load(f)["traceEvents"], "traced_lu")
+    events = traced_events(lambda: linalg.lu_factor(a, mode=mode, block=1024, panel="device"),
+                           "traced_lu")
+    busy, window = busy_in_window(events, "traced_lu")
     print(f"[trace] LU n=8192 block=1024 {mode} device panels: device busy {busy / 1e3:.3f} ms "
           f"of a {window / 1e3:.3f} ms window = busy share {busy / window:.4f}", flush=True)
     return counts
@@ -2606,7 +2752,8 @@ def _single_example_checks(name: str, r: dict) -> str:
     if name == "torch_04_profiling":
         if not any(f.endswith(".json") for f in r["trace_files"]) or not r["phases"]:
             raise AssertionError(f"04: phases {r['phases']}, trace files {r['trace_files']}")
-        return f"phases {r['phases']}, trace {r['trace_files']}"
+        return (f"phases {r['phases']}, trace {r['trace_files']} "
+                f"(traced {r['trace_attempts']} time(s))")
     if name == "torch_05_iterative_refinement":
         if not r["converged"]:
             raise AssertionError(f"05: not converged: {r['errors']}")
@@ -2745,10 +2892,14 @@ def phase_examples(ozt, label) -> dict:
             r = ex.main(device="cuda", **kw)
             counts = read_launches()
             checked = _single_example_checks(name, r)
+            r_attempts = r.get("trace_attempts", 1)
         kernels = example_kernel_checks(name, r)
         del r
-        if counts != per_path(*EXAMPLE_LAUNCHES[name]):
-            raise AssertionError(f"{name}: launches {counts}, expected {EXAMPLE_LAUNCHES[name]}")
+        expected = EXAMPLE_LAUNCHES[name]
+        if name == "torch_04_profiling":  # one traced matmul more for each lost trace
+            expected = tuple(x + (r_attempts - 1) * y for x, y in zip(expected, (2, 1, 1, 0)))
+        if counts != per_path(*expected):
+            raise AssertionError(f"{name}: launches {counts}, expected {expected}")
         by_path[f"examples/{name}"] = counts
         print(f"[examples] {name} on cuda: launches {counts}; {checked} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)

@@ -19,6 +19,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import ozimmu_tpu_torch as ozt  # noqa: E402
+from ozimmu_tpu_torch.utils.profiling import TraceLostError  # noqa: E402
+
+#: traced calls at most (see step 3)
+TRACE_ATTEMPTS = 3
 
 
 def _device(name: str) -> torch.device:
@@ -50,12 +54,22 @@ def main(device="cuda", n=1024, trace_dir=None) -> dict:
     #    OZIMMU_ENABLE_CULIP_PROFILING=1 prints one line per intercepted call
 
     # 3. deep kernel timeline -> Perfetto / chrome://tracing
+    #    (torch.profiler on a GPU now and then keeps none of a trace's
+    #    kernels; device_trace raises TraceLostError then, and the call is
+    #    traced again, at most TRACE_ATTEMPTS times in all)
     trace_dir = trace_dir or tempfile.mkdtemp(prefix="ozimmu_trace_")
-    with ozt.device_trace(trace_dir):
-        c = ozt.matmul(a, b, mode="fp64_int8_9", device=dev)
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        try:
+            with ozt.device_trace(trace_dir):
+                c = ozt.matmul(a, b, mode="fp64_int8_9", device=dev)
+            break
+        except TraceLostError as e:
+            if attempt == TRACE_ATTEMPTS:
+                raise
+            print(f"{e}; tracing the call again")
     print("trace written to", trace_dir)
     return dict(a=a, b=b, c=c, phases=phases, trace_dir=trace_dir,
-                trace_files=sorted(os.listdir(trace_dir)))
+                trace_files=sorted(os.listdir(trace_dir)), trace_attempts=attempt)
 
 
 if __name__ == "__main__":

@@ -35,7 +35,7 @@ from ..utils.env import env_flag
 from ..utils.log import log
 from ..utils.profiling import culip_timer, synchronize
 from .gemm import (
-    _epilogue_SE, _exponent_plane, _k0_result, _zfold_passes, _zk0_result, _zpasses, _zsplit,
+    Exponents, _epilogue_SE, _k0_result, _zfold_passes, _zk0_result, _zpasses, _zsplit,
     gemm_f64, gemm_f64_batched, zgemm_f64, zgemm_f64_batched,
 )
 from .handle import Handle, default_handle
@@ -181,7 +181,7 @@ def _gemm_staged(handle: Handle, a, b, num_split: int, alpha: float, beta: float
     with prof.phase("int8tc+accumulate_in_f64", sync=dev):
         S = recombine(da, db, num_split, bb, k, b_kmajor=True)
     with prof.phase("copy_result", sync=dev):
-        E = _exponent_plane(pa, pb, acc_shift(num_split, bb))
+        E = Exponents(pa, pb, acc_shift(num_split, bb))
         out = _epilogue_SE(S, E, float(alpha), float(beta), c)
     return out
 

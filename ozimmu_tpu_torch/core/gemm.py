@@ -31,7 +31,7 @@ API (core/api.py).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -81,44 +81,68 @@ def _on_cuda(device) -> bool:
     return kind == "cuda"
 
 
+class Exponents(NamedTuple):
+    """The exponent of every output element by its parts: ``pa[r] + pb[c]
+    - shift`` in int32, the plane :meth:`plane` builds.  ``pa`` int32 [m]
+    and ``pb`` [n] (each operand's split scales), or a batch's [B, m] and
+    [B, n].  The CUDA kernels form each element's exponent from the parts
+    and never build the plane; the plain versions take the plane."""
+
+    pa: torch.Tensor
+    pb: torch.Tensor
+    shift: int
+
+    def plane(self) -> torch.Tensor:
+        return _exponent_plane(self.pa, self.pb, self.shift)
+
+
+def _as_plane(E) -> torch.Tensor:
+    """The exponent plane of ``E``, :class:`Exponents` or a plane already."""
+    return E.plane() if isinstance(E, Exponents) else E
+
+
 def _epilogue_SE(S, E, alpha: float, beta: float, c: Optional[torch.Tensor],
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``alpha * (S * 2^E) + beta * c`` in extended precision, rounded to
     f64 once (reference axby, gemm.cu:124-158), into ``out`` (float64
-    [m, n], e.g. a column panel of a wider output) or a new tensor.
+    [m, n], e.g. a column panel of a wider output) or a new tensor.  ``E``
+    is :class:`Exponents` or an int32 plane of S's shape.
 
     On a CUDA device, one launch of the epilogue kernel
-    (ops/epilogue_cuda.py).  On the CPU, the plain version
-    :func:`_epilogue_block`, over row blocks where its eager passes'
-    temporaries would not fit what the memory budget leaves: every pass is
-    elementwise, so the blocking leaves the bits alone.  A batch [B, m, n]
-    runs as its [B*m, n] view, for the same reason."""
+    (ops/epilogue_cuda.py), a batch [B, m, n] included.  On the CPU, the
+    plain version :func:`_epilogue_block` on the exponent plane, over row
+    blocks where its eager passes' temporaries would not fit what the
+    memory budget leaves: every pass is elementwise, so the blocking leaves
+    the bits alone.  A batch [B, m, n] runs as its [B*m, n] view, for the
+    same reason."""
     if beta != 0.0 and c is None:
         raise ValueError("beta != 0 requires c")
-    if E.dim() != 2:
-        rows = lambda x: x.reshape(-1, E.shape[-1])  # noqa: E731
-        flat = _epilogue_SE(tuple(map(rows, S)), rows(E), alpha, beta,
-                            None if c is None else rows(c),
-                            None if out is None else out.view(-1, E.shape[-1]))
-        return flat.view(E.shape)
-    if _on_cuda(E.device):
+    if _on_cuda(S[0].device):
         from ..ops.epilogue_cuda import epilogue
 
         return epilogue(S, E, alpha, beta, c, out)
-    m, n = E.shape
-    blocks = _row_blocks(m, n, _EPILOGUE_TEMP_BYTES, E.device)
+    E = _as_plane(E)
+    shape, n = E.shape, E.shape[-1]
+    E2 = E
+    if E.dim() != 2:
+        rows2 = lambda x: x.reshape(-1, n)  # noqa: E731
+        S, E2 = tuple(map(rows2, S)), rows2(E)
+        c = None if c is None else rows2(c)
+    blocks = _row_blocks(E2.shape[0], n, _EPILOGUE_TEMP_BYTES, E.device)
     if len(blocks) == 1 and out is None:
-        return _epilogue_block(S, E, alpha, beta, c)
+        return _epilogue_block(S, E2, alpha, beta, c).view(shape)
     if out is None:
-        out = torch.empty((m, n), dtype=torch.float64, device=E.device)
+        out = torch.empty(shape, dtype=torch.float64, device=E.device)
+    o = out if out.dim() == 2 else out.view(-1, n)
     for rows in blocks:
-        out[rows] = _epilogue_block(tuple(s[rows] for s in S), E[rows], alpha, beta,
-                                    None if c is None else c[rows])
+        o[rows] = _epilogue_block(tuple(s[rows] for s in S), E2[rows], alpha, beta,
+                                  None if c is None else c[rows])
     return out
 
 
 def _epilogue_block(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) -> torch.Tensor:
     """:func:`_epilogue_SE` on one block of rows."""
+    E = _as_plane(E)
     dev = E.device
     if alpha != 1.0:
         at, ae = scalar_triple(alpha, device=dev)
@@ -181,8 +205,7 @@ def _gemm_core(a, b, num_split: int, alpha: float, beta: float, c=None) -> torch
     da, pa = split_f64(a, num_split, bb, kp)
     db, pb = split_f64_cols(b, num_split, bb, kp)
     S = recombine(da, db, num_split, bb, k, b_kmajor=True)
-    E = _exponent_plane(pa, pb, acc_shift(num_split, bb))
-    return _epilogue_SE(S, E, alpha, beta, c)
+    return _epilogue_SE(S, Exponents(pa, pb, acc_shift(num_split, bb)), alpha, beta, c)
 
 
 def _gemm_core_nchunked(a, b, num_split: int, n_chunks: int, alpha: float = 1.0,
@@ -211,9 +234,8 @@ def _gemm_core_nchunked(a, b, num_split: int, n_chunks: int, alpha: float = 1.0,
         j1 = min(j0 + w, n)
         db, pb = split_f64_cols(b[:, j0:j1], num_split, bb, kp)
         S = recombine(da, db, num_split, bb, k, b_kmajor=True)
-        E = _exponent_plane(pa, pb, shift)
         cj = c[:, j0:j1] if c is not None else None
-        _epilogue_SE(S, E, alpha, beta, cj, out[:, j0:j1])
+        _epilogue_SE(S, Exponents(pa, pb, shift), alpha, beta, cj, out[:, j0:j1])
     return out
 
 
@@ -273,7 +295,9 @@ def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im
     """Fold the four pass results into the complex output (shared by the
     fused `_zgemm_core` and the staged/profiled path in core.api).
 
-    ``SEs`` lists (S, E) per entry of :data:`ZGEMM_PASSES`.  Fold factors
+    ``SEs`` lists (S, E) per entry of :data:`ZGEMM_PASSES`, S [m, n] and E
+    :class:`Exponents` (or, on the CPU, a plane; a batch's S by its
+    [B*m, n] rows, its Exponents [B, m] and [B, n]).  Fold factors
     (reference gemm.cu:479-518): re*re -> +alpha, im*im -> -alpha, cross
     terms -> i*alpha; C is pre-scaled by beta (init_c_complex,
     gemm.cu:199-239).  Returns the (re, im) float64 planes, new or written
@@ -286,6 +310,7 @@ def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im
         from ..ops.epilogue_cuda import zfold
 
         return zfold(SEs, alpha, beta, c_re, c_im, out)
+    SEs = [(S, _as_plane(E).reshape(m, n)) for S, E in SEs]
     blocks = _row_blocks(m, n, _ZFOLD_TEMP_BYTES, device)
     if len(blocks) == 1 and out is None:
         return _zfold_block(SEs, m, n, alpha, beta, c_re, c_im, device)
@@ -302,6 +327,7 @@ def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im
 
 def _zfold_block(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im, device):
     """:func:`_zfold_passes` on one block of rows."""
+    SEs = [(S, _as_plane(E).reshape(m, n)) for S, E in SEs]
 
     def empty():
         return (tf32x3.zeros((m, n), device=device),
@@ -357,8 +383,7 @@ def _zpasses(a_planes, b_planes, num_split: int, bb: int, k: int, b_kmajor: bool
     for ap, bp in ZGEMM_PASSES:
         da, pa = a_planes[ap]
         db, pb = b_planes[bp]
-        SEs.append((recombine(da, db, num_split, bb, k, b_kmajor),
-                    _exponent_plane(pa, pb, shift)))
+        SEs.append((recombine(da, db, num_split, bb, k, b_kmajor), Exponents(pa, pb, shift)))
     return SEs
 
 
@@ -383,8 +408,8 @@ def _zgemm_core(a_re, a_im, b_re, b_im, num_split: int, alpha: complex, beta: co
     SEs = _zpasses(a_planes, b_planes, num_split, bb, k, b_kmajor=True)
     n = shape[-1]
     rows = lambda x: None if x is None else x.reshape(-1, n)  # noqa: E731
-    SEs = [(tuple(map(rows, S)), rows(E)) for S, E in SEs]
-    re, im = _zfold_passes(SEs, SEs[0][1].shape[0], n, alpha, beta, rows(c_re), rows(c_im),
+    SEs = [(tuple(map(rows, S)), E) for S, E in SEs]
+    re, im = _zfold_passes(SEs, SEs[0][0][0].shape[0], n, alpha, beta, rows(c_re), rows(c_im),
                            a_re.device)
     return re.reshape(shape), im.reshape(shape)
 

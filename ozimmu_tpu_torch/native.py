@@ -130,14 +130,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p, p, p, p, i32, i32, i32, p,
     ]
     lib.oz_recombine.restype = i32
-    f32 = ctypes.c_float
     lib.oz_epilogue.argtypes = [
-        p, p, p, p, i64, i64, f32, f32, f32, i32, f32, f32, f32, i32, i32, p, i64, i64, p, i64,
-        i64, p,
+        p, p, p, p, i32, i64, i64, i64, p, p, i32, p, i32, i32, p, i64, i64, p, i64, p,
     ]
     lib.oz_epilogue.restype = i32
     lib.oz_zfold.argtypes = [
-        p, p, i64, i64, p, p, p, p, p, i64, i64, i32, i32, p, p, p, p, i64, p,
+        p, p, p, i32, i64, i64, p, p, p, p, p, p, i64, i64, i32, i32, p, p, p,
     ]
     lib.oz_zfold.restype = i32
     lib.oz_error_string.argtypes = [i32]

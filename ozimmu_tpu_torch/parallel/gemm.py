@@ -56,7 +56,7 @@ import torch
 
 from ..core.api import _apply_op, _complex_result, _planes
 from ..core.bits import exponent_field
-from ..core.gemm import ZGEMM_PASSES, _epilogue_SE, _exponent_plane, _zfold_passes, _zpasses
+from ..core.gemm import ZGEMM_PASSES, Exponents, _epilogue_SE, _zfold_passes, _zpasses
 from ..ops.mantissa_loss import loss_totals_with_group_exp, select_mode_from_totals
 from ..ops.recombine import acc_shift, fold_group_totals, group_totals, recombine
 from ..ops.split import row_exponent, split_with_exp
@@ -175,7 +175,7 @@ def sharded_gemm_fn(mesh, num_split: int, k_global: int, axis_x: str = "x", axis
         db = comm.all_gather(db, mesh, axis_x, dim=1)  # [ns, k, n/y]
         S = recombine(da, db, num_split, b, k_global)
         del da, db
-        return _epilogue_local(S, _exponent_plane(pa, pb, shift), alpha, beta, c)
+        return _epilogue_local(S, Exponents(pa, pb, shift), alpha, beta, c)
 
     return fn
 
@@ -203,7 +203,7 @@ def sharded_gemm_k_fn(mesh, num_split: int, k_global: int, axis_k: str = "k",
         S = fold_group_totals(totals, num_split, k_global, b)
         m_local = totals[0].shape[0]
         row0 = comm.axis_index(mesh, axis_k) * m_local
-        E = _exponent_plane(pa[row0:row0 + m_local], pb, shift)
+        E = Exponents(pa[row0:row0 + m_local], pb, shift)
         return _epilogue_local(S, E, alpha, beta, c)
 
     return fn
@@ -232,8 +232,8 @@ def sharded_zgemm_k_fn(mesh, num_split: int, k_global: int, axis_k: str = "k",
             m_local = totals[0].shape[0]
             row0 = comm.axis_index(mesh, axis_k) * m_local
             SEs.append((fold_group_totals(totals, num_split, k_global, b),
-                        _exponent_plane(pa[ap][row0:row0 + m_local], pb[bp], shift)))
-        m_l, n_l = SEs[0][1].shape
+                        Exponents(pa[ap][row0:row0 + m_local], pb[bp], shift)))
+        m_l, n_l = SEs[0][0][0].shape
         return _zfold_passes(SEs, m_l, n_l, alpha, beta, c_re, c_im, a_re.device)
 
     return fn
@@ -267,7 +267,7 @@ def sharded_gemm_ring_fn(mesh, num_split: int, k_global: int, axis_x: str = "x",
             totals = _accumulate(totals, group_totals(da, db, num_split, k_global, b))
         del da, db
         S = fold_group_totals(totals, num_split, k_global, b)
-        return _epilogue_local(S, _exponent_plane(pa, pb, shift), alpha, beta, c)
+        return _epilogue_local(S, Exponents(pa, pb, shift), alpha, beta, c)
 
     return fn
 
@@ -299,7 +299,7 @@ def sharded_gemm_stream_fn(mesh, num_split: int, k_global: int, axis_x: str = "x
             totals = _accumulate(totals, group_totals(a_pan, b_pan, num_split, k_global, b))
         del da, db
         S = fold_group_totals(totals, num_split, k_global, b)
-        return _epilogue_local(S, _exponent_plane(pa, pb, shift), alpha, beta, c)
+        return _epilogue_local(S, Exponents(pa, pb, shift), alpha, beta, c)
 
     return fn
 
@@ -326,7 +326,7 @@ def sharded_zgemm_fn(mesh, num_split: int, k_global: int, axis_x: str = "x", axi
             b_planes[idx] = (comm.all_gather(d, mesh, axis_x, dim=1), p)
         SEs = _zpasses(a_planes, b_planes, num_split, b, k_global)
         del a_planes, b_planes
-        m_l, n_l = SEs[0][1].shape
+        m_l, n_l = SEs[0][0][0].shape
         return _zfold_passes(SEs, m_l, n_l, alpha, beta, c_re, c_im, a_re.device)
 
     return fn
@@ -353,8 +353,8 @@ def _complex_streamed(mesh, num_split: int, k_global: int, b: int, alpha: comple
                     totals[(ap, bp)], group_totals(sa[ap], sb[bp], num_split, k_global, b))
         del da, db
         SEs = [(fold_group_totals(totals[(ap, bp)], num_split, k_global, b),
-                _exponent_plane(pa[ap], pb[bp], shift)) for ap, bp in ZGEMM_PASSES]
-        m_l, n_l = SEs[0][1].shape
+                Exponents(pa[ap], pb[bp], shift)) for ap, bp in ZGEMM_PASSES]
+        m_l, n_l = SEs[0][0][0].shape
         return _zfold_passes(SEs, m_l, n_l, alpha, beta, c_re, c_im, a_re.device)
 
     return fn

@@ -39,10 +39,12 @@ _INT32_BUDGET = 2**31 - 1
 #: device bytes the engine holds per output element, besides the operands
 #: and their digit planes: the triple-f32 accumulator (12), its exponent
 #: plane (4), an int32 group total (4) and the packed f64 result (8).  The
-#: JAX package's models count the same 28 B.  On a CUDA device that is
-#: what the engine really holds: the epilogue and the complex fold are
-#: kernels (ops/epilogue_cuda.py) that read S and E and write the result
-#: with no temporaries (and the recombine kernel keeps no int32 totals).
+#: JAX package's models count the same 28 B, and so does this one.  On a
+#: CUDA device the engine holds less: the epilogue and the complex fold
+#: are kernels (ops/epilogue_cuda.py) that read S, form each exponent from
+#: the split's row and column scales (no exponent plane) and write the
+#: result with no temporaries, and the recombine kernel keeps no int32
+#: totals.
 #: On the CPU the plain epilogue's eager passes hold temporaries beside
 #: them, which take what the budget leaves (:func:`epilogue_block_bytes`).
 BYTES_PER_OUTPUT_ELEMENT = 12 + 4 + 4 + 8

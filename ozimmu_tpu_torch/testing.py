@@ -121,7 +121,10 @@ def crafted_triples(m: int, n: int, seed: int, device="cpu"):
     c, made from ``seed``.  The rows cycle through: ordinary renormalized
     triples; f32-subnormal tails; exact half-ulp ties (2^23 + 1/2), with or
     without a sticky bit; a carry across 2^1024 and outright overflow;
-    signed zeros; f64-subnormal and underflowing results; exponents below
+    signed zeros; f64-subnormal and underflowing results, and results on,
+    just above and just below the tie 2^-1022 - 2^-1075 (the largest
+    subnormal's upper half-step: 1 - 2^-53 rounds to itself in f64, 2^-1022
+    times it to even); exponents below
     the complex fold's empty accumulator (-2^20); tails that cancel against
     the head.  c holds -0.0, f64 subnormals and values near the top of the
     range.  Every value is finite (the engine's contract)."""
@@ -149,6 +152,12 @@ def crafted_triples(m: int, n: int, seed: int, device="cpu"):
             t0[r], t1[r], t2[r] = (f32(0.0) * sign(n) for _ in range(3))
         elif kind == 5:
             E[r] = rng.integers(-1130, -1070, n)
+            # even columns: (1 - 2^-53 + t2) * 2^-1022 with t2 = 0, +-2^-80
+            # lies on or beside the tie 2^-1022 - 2^-1075 of the subnormal grid
+            s = sign(n)[::2]
+            t0[r, ::2], t1[r, ::2] = f32(1.0) * s, f32(-(2.0**-53)) * s
+            t2[r, ::2] = (rng.choice([-(2.0**-80), 0.0, 2.0**-80], size=s.size) * s).astype(f32)
+            E[r, ::2] = -1022
         elif kind == 6:
             E[r] = -(2**20) - rng.integers(0, 100, n)
         elif kind == 7:
@@ -158,6 +167,32 @@ def crafted_triples(m: int, n: int, seed: int, device="cpu"):
     c.reshape(-1)[::5] = rng.choice(special, size=c.size // 5 + (c.size % 5 > 0))
     put = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)  # noqa: E731
     return (put(t0), put(t1), put(t2)), put(E), put(c)
+
+
+def crafted_exponents(m: int, n: int, seed: int, device="cpu"):
+    """Exponent parts ``(pa, pb, shift)`` (int32 [m] and [n]) whose plane
+    ``pa[r] + pb[c] - shift`` reaches what :func:`crafted_triples`' E
+    reaches, for the kernels that take the parts: rows cycle through
+    ordinary scales, the split's zero-row sentinel (-2^20, alone and
+    beside a zero column, far below the fold's empty accumulator), scales
+    that make f64-subnormal and underflowing results, and scales near the
+    top of the range (a carry to inf, overflow); one column in seven is
+    a zero column.  Rows 5 mod 8, where :func:`crafted_triples` puts the
+    triples beside the subnormal grid's tie, meet columns 3 mod 7 at E =
+    -1022 (the tie's own exponent) and columns 4 mod 7 at -1023."""
+    from .ops.split import ZERO_ROW_PEXP
+
+    rng = np.random.default_rng(seed)
+    pa = rng.integers(-40, 40, m)
+    pa[1::5] = ZERO_ROW_PEXP
+    pa[2::5] = rng.integers(-1110, -1060, len(pa[2::5]))
+    pa[3::5] = rng.integers(1000, 1060, len(pa[3::5]))
+    pb = rng.integers(-40, 40, n)
+    pa[5::8] = -1016
+    pb[::7] = ZERO_ROW_PEXP
+    pb[3::7], pb[4::7] = 0, -1
+    put = lambda x: torch.from_numpy(x.astype(np.int32)).to(device)  # noqa: E731
+    return put(pa), put(pb), 6
 
 
 def _placed(a: np.ndarray, b: np.ndarray, device):

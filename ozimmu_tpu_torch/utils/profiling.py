@@ -114,14 +114,43 @@ def culip_timer(name: str, sync_fn=None) -> Iterator[None]:
     print(f"[CULiP Result][{name}] {dt} [ns]", flush=True)
 
 
-#: host seconds of idle trace before and after a :func:`device_trace`
-#: block on a GPU.  torch.profiler drops the device events that fall
-#: outside its host-clock window, and the device's timestamps drift from
-#: the host's over a process's life: on an H100 a traced 1024^3 GEMM kept
-#: all 16 of its kernels in a process's first half minute and none after
-#: four minutes (``tools/torch_trace_drift.py``).  The pads keep drift of
-#: up to 0.1 s inside the window.
-TRACE_PAD_S = 0.1
+#: one-element adds that open a traced window on a GPU, ahead of the
+#: traced block.  On an H100 (torch 2.11, CUDA 12.8) torch.profiler drops
+#: the kernels of a trace's first launches, more of them the older the
+#: process: none at 10 s, 4 at 90 s, 13 at 200 s and every one of a
+#: 14-launch call from 240 s on, while their launches stay in the trace;
+#: pads of idle time around the block did not help.  With 64 adds and a
+#: synchronisation first, the trace kept every kernel of that call at
+#: every age to 300 s, in three processes (``tools/torch_trace_drift.py``).
+TRACE_OPENING_LAUNCHES = 64
+
+
+def launches_and_kernels(events, skip: int = 0) -> tuple:
+    """(kernel launches, their device kernels) among a Chrome trace's
+    events, leaving out the first ``skip`` launches (in issue order) and
+    their kernels; a kernel is joined to its launch by correlation id."""
+    launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
+                       and "LaunchKernel" in e.get("name", "")),
+                      key=lambda e: float(e["ts"]))[skip:]
+    ids = {e.get("args", {}).get("correlation") for e in launches}
+    kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                  and e.get("args", {}).get("correlation") in ids)
+    return len(launches), kernels
+
+
+def open_trace_window() -> None:
+    """Launch :data:`TRACE_OPENING_LAUNCHES` one-element adds on the current
+    GPU and wait for them: called first inside a ``torch.profiler`` trace,
+    they take the launches whose kernels the trace would drop."""
+    x = torch.empty(1, device="cuda")
+    for _ in range(TRACE_OPENING_LAUNCHES):
+        x.add_(1)
+    torch.cuda.synchronize()
+
+
+class TraceLostError(RuntimeError):
+    """A :func:`device_trace` whose trace kept none of the kernels its
+    block launched."""
 
 
 @contextlib.contextmanager
@@ -137,11 +166,11 @@ def device_trace(log_dir: str) -> Iterator[None]:
         with ozt.device_trace("oz_trace"):
             c = ozt.matmul(a, b, mode="fp64_int8_9")
 
-    Raises ``RuntimeError`` if the block launched CUDA kernels and the
-    trace holds none of them (the profiler could not trace the device):
-    an empty device trace is never written silently.  On a GPU the trace
-    opens :data:`TRACE_PAD_S` before the block and closes as long after
-    the device has finished it.
+    Raises :class:`TraceLostError` (a ``RuntimeError``) if the block
+    launched CUDA kernels and the trace holds none of those kernels (the
+    profiler lost them): an empty device trace is never written silently.  On a GPU the trace
+    opens with :func:`open_trace_window` and closes once the device has
+    finished the block.
     """
     from torch.profiler import ProfilerActivity, profile
 
@@ -150,20 +179,17 @@ def device_trace(log_dir: str) -> Iterator[None]:
     os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         if cuda:
-            time.sleep(TRACE_PAD_S)
+            open_trace_window()
         yield
         if cuda:
             torch.cuda.synchronize()
-            time.sleep(TRACE_PAD_S)
     path = os.path.join(log_dir, f"ozimmu_trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
-        events = json.load(f).get("traceEvents", [])
-    launches = sum(1 for e in events if e.get("cat") == "cuda_runtime"
-                   and "LaunchKernel" in e.get("name", ""))
-    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        launches, kernels = launches_and_kernels(json.load(f).get("traceEvents", []),
+                                                 skip=TRACE_OPENING_LAUNCHES if cuda else 0)
     if launches and not kernels:
-        raise RuntimeError(
+        raise TraceLostError(
             f"device_trace: {launches} kernel launches in the block but no device "
             f"kernel in the trace ({path}); the profiler cannot trace this GPU"
         )

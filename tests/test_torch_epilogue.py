@@ -166,11 +166,26 @@ def test_cuda_wrappers_raise_on_cpu_tensors(monkeypatch):
 
 
 def test_launch_grid():
-    assert epilogue_cuda.launch_grid(1, 132) == 1
-    assert epilogue_cuda.launch_grid(256 * 10 + 1, 132) == 11
-    assert epilogue_cuda.launch_grid(8192 * 8192, 132) == 132 * epilogue_cuda.BLOCKS_PER_SM
+    """The 2-D grid: a block of 256 threads, as many across a row as it
+    has steps (a power of two from 32), the rest down the rows; bands of
+    rows until the grid holds two waves of eight blocks per SM; the x axis
+    covers every column; odd n and misaligned planes go one column at a
+    time; the row blocks spill from y into z."""
+    plan = epilogue_cuda.launch_plan(1, 8192, 8192, 132, True)
+    assert plan.n_body == 8192 and plan.block == (256, 1) and plan.grid[0] == 8
+    assert plan.band == 8 * 8192 // (132 * 16) and plan.grid[1] == plan.bands == plan.blocks
+    assert plan.bands * plan.band >= 8192 > (plan.bands - 1) * plan.band
+    assert epilogue_cuda.launch_plan(1, 8192, 8192, 132, False).n_body == 0
+    odd = epilogue_cuda.launch_plan(1, 1031, 1029, 132, True)
+    assert odd.n_body == 0 and odd.block == (256, 1) and odd.grid[0] == 5
+    small = epilogue_cuda.launch_plan(64, 256, 256, 132, True)
+    assert small.block == (64, 4) and small.grid[0] == 1 and small.band % 4 == 0
+    assert small.blocks == 64 * small.bands and small.grid[1] * small.grid[2] >= small.blocks
+    assert epilogue_cuda.launch_plan(1, 1, 1, 132, True).ints() == (1, 1, 1, 32, 8, 1, 1, 1)
+    tall = epilogue_cuda.launch_plan(70000, 3, 2, 132, True)
+    assert tall.block == (32, 8) and tall.grid[1] == 65535 and tall.grid[1] * tall.grid[2] >= tall.blocks
     with pytest.raises(ValueError):
-        epilogue_cuda.launch_grid(0, 132)
+        epilogue_cuda.launch_plan(1, 0, 8, 132, True)
 
 
 def test_sub_batches_hold_no_epilogue_temporaries_on_the_card(monkeypatch):

@@ -98,6 +98,36 @@ def test_profiling_writes_phases_and_a_trace(tmp_path):
     assert r["phases"] and set(r["phases"].values()) == {2}
     assert {"split_A", "split_B"} <= set(r["phases"])
     assert r["trace_dir"] == str(tmp_path) and any(f.endswith(".json") for f in r["trace_files"])
+    assert r["trace_attempts"] == 1
+
+
+@pytest.mark.parametrize("lost", [1, 3])
+def test_profiling_traces_again_when_the_trace_is_lost(tmp_path, monkeypatch, lost):
+    import contextlib
+
+    import ozimmu_tpu_torch as ozt
+    from ozimmu_tpu_torch.utils.profiling import TraceLostError
+
+    calls = []
+
+    @contextlib.contextmanager
+    def losing_trace(log_dir):  # the first ``lost`` traces keep no kernel
+        calls.append(log_dir)
+        yield
+        if len(calls) <= lost:
+            raise TraceLostError("device_trace: 14 kernel launches in the block but no device "
+                                 "kernel in the trace")
+
+    ex = load("torch_04_profiling")
+    monkeypatch.setattr(ozt, "device_trace", losing_trace)
+    if lost < ex.TRACE_ATTEMPTS:
+        r = ex.main(device="cpu", n=64, trace_dir=str(tmp_path))
+        assert r["trace_attempts"] == lost + 1 == len(calls)
+        _same_bits(r["c"], oz.matmul(r["a"], r["b"], mode="fp64_int8_9"))
+    else:
+        with pytest.raises(TraceLostError):
+            ex.main(device="cpu", n=64, trace_dir=str(tmp_path))
+        assert len(calls) == ex.TRACE_ATTEMPTS
 
 
 def test_iterative_refinement_follows_the_jax_package():

@@ -183,6 +183,58 @@ def test_device_trace_writes_a_trace_file(tmp_path):
     np.testing.assert_array_equal(_u64(got), _u64(oz.gemm(a, b, mode="fp64_int8_9")))
 
 
+def _launch(ts, corr):
+    return {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "ts": ts,
+            "args": {"correlation": corr}}
+
+
+def _kernel(ts, corr):
+    return {"cat": "kernel", "name": "k", "ts": ts, "args": {"correlation": corr}}
+
+
+def test_trace_check_leaves_out_the_opening_launches():
+    from ozimmu_tpu_torch.utils.profiling import launches_and_kernels
+
+    # three opening launches (their kernels kept), then a block of two
+    # launches whose kernels the trace dropped: the block has none
+    events = [_launch(3.0, 3), _launch(1.0, 1), _launch(2.0, 2), _kernel(5.0, 1),
+              _kernel(6.0, 2), _kernel(7.0, 3), _launch(10.0, 4),
+              {"cat": "cuda_runtime", "name": "cuLaunchKernelEx", "ts": 11.0,
+               "args": {"correlation": 5}},
+              {"cat": "cuda_runtime", "name": "cudaMemcpyAsync", "ts": 12.0,
+               "args": {"correlation": 6}},
+              {"cat": "cpu_op", "name": "aten::add_", "ts": 0.5, "args": {}}]
+    assert launches_and_kernels(events, skip=3) == (2, 0)
+    assert launches_and_kernels(events + [_kernel(12.0, 5)], skip=3) == (2, 1)
+    assert launches_and_kernels(events) == (5, 3)
+    assert launches_and_kernels([]) == (0, 0)
+
+
+def test_device_trace_raises_when_the_block_lost_every_kernel(tmp_path, monkeypatch):
+    from ozimmu_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(profiling, "launches_and_kernels", lambda events, skip=0: (14, 0))
+    with pytest.raises(RuntimeError, match="14 kernel launches in the block but no device"):
+        with ozt.device_trace(str(tmp_path / "trace")):
+            torch.ones(4).add_(1)
+    monkeypatch.setattr(profiling, "launches_and_kernels", lambda events, skip=0: (14, 1))
+    with ozt.device_trace(str(tmp_path / "trace2")):
+        torch.ones(4).add_(1)
+    assert len(list((tmp_path / "trace2").iterdir())) == 1
+
+
+def test_device_trace_opens_no_window_without_a_gpu(tmp_path, monkeypatch):
+    from ozimmu_tpu_torch.utils import profiling
+
+    def fail():
+        raise AssertionError("open_trace_window called without a GPU")
+
+    monkeypatch.setattr(profiling, "open_trace_window", fail)
+    with ozt.device_trace(str(tmp_path / "trace")):
+        torch.ones(4).add_(1)
+    assert len(list((tmp_path / "trace").iterdir())) == 1
+
+
 def test_bad_operands_raise(monkeypatch):
     a, b, c = _operands(seed=61)
     with pytest.raises(ValueError, match="shape mismatch"):

@@ -14,7 +14,7 @@ from ozimmu_tpu_torch.ops import recombine as R  # noqa: E402
 from ozimmu_tpu_torch.ops import epilogue_cuda, exponent_cuda, recombine_cuda, split_cuda  # noqa: E402
 from ozimmu_tpu_torch.ops import split as S  # noqa: E402
 from ozimmu_tpu_torch.schedule import bits_per_int8  # noqa: E402
-from ozimmu_tpu_torch.testing import crafted_triples, generate_input  # noqa: E402
+from ozimmu_tpu_torch.testing import crafted_exponents, crafted_triples, generate_input  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -408,13 +408,14 @@ EPILOGUE_BRANCHES = [(1.0, 0.0), (-1.5, 0.0), (1.0, 1.0), (-1.0, 1.0), (1.0, -0.
 
 
 def _recombined(dev, seed: int, m: int = 300, k: int = 777, n: int = 260):
-    """(S, E) of a real engine product on the card and a c of its shape."""
+    """(S, Exponents) of a real engine product on the card and a c of its
+    shape."""
     a = torch.from_numpy(generate_input("normal01", (m, k), seed=seed)).to(dev)
     b = torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=seed + 1)).to(dev)
     bb = bits_per_int8(k)
     da, pa = S.split_f64(a, 9, bb)
     db, pb = S.split_f64_cols(b, 9, bb)
-    SE = (R.recombine(da, db, 9, bb, k), core._exponent_plane(pa, pb, R.acc_shift(9, bb)))
+    SE = (R.recombine(da, db, 9, bb, k), core.Exponents(pa, pb, R.acc_shift(9, bb)))
     return SE, torch.from_numpy(generate_input("normal01", (m, n), seed=seed + 2)).to(dev)
 
 
@@ -430,21 +431,32 @@ def _bits_equal(x, y) -> bool:
     return x.shape == y.shape and torch.equal(x.cpu().view(torch.int64), y.cpu().view(torch.int64))
 
 
+def _plane(E):
+    return E.plane() if isinstance(E, core.Exponents) else E
+
+
 @pytest.mark.parametrize("alpha,beta", EPILOGUE_BRANCHES)
-@pytest.mark.parametrize("inputs", ["recombine", "crafted"])
+@pytest.mark.parametrize("inputs", ["recombine", "recombine-plane", "crafted", "crafted-parts"])
 def test_epilogue_kernel_equals_plain(dev, inputs, alpha, beta):
     """The epilogue kernel == the plain ``_epilogue_block`` on the card and
-    on the CPU, bit for bit, for c contiguous and as a strided window, and
-    written into a column panel of a wider output; one launch each."""
-    if inputs == "recombine":
+    on the CPU, bit for bit, with the exponents as parts (formed in the
+    kernel) and as a plane (the sgemm route), for c contiguous and as a
+    strided window, and written into a column panel of a wider output; one
+    launch each."""
+    if inputs.startswith("recombine"):
         (Sd, E), c = _recombined(dev, seed=30)
     else:
         Sd, E, c = crafted_triples(203, 131, seed=31, device=dev)
-    m, n = E.shape
+        if inputs == "crafted-parts":
+            E = core.Exponents(*crafted_exponents(203, 131, seed=32, device=dev))
+    if inputs.endswith("plane"):
+        E = _plane(E)
+    m, n = Sd[0].shape
+    Ep = _plane(E)
     for cw in (c, _window(c)):
         cb = cw if beta != 0.0 else None
-        want = core._epilogue_block(Sd, E, alpha, beta, cb)
-        want_cpu = core._epilogue_block(tuple(t.cpu() for t in Sd), E.cpu(), alpha, beta,
+        want = core._epilogue_block(Sd, Ep, alpha, beta, cb)
+        want_cpu = core._epilogue_block(tuple(t.cpu() for t in Sd), Ep.cpu(), alpha, beta,
                                         None if cb is None else cb.cpu())
         before = _counters()
         got = epilogue_cuda.epilogue(Sd, E, alpha, beta, cb)
@@ -457,31 +469,89 @@ def test_epilogue_kernel_equals_plain(dev, inputs, alpha, beta):
         assert bool((wide[:, :4] == 7.0).all() and (wide[:, 4 + n:] == 7.0).all())
 
 
+#: the launch plan's layouts: (m, n, output column offset in a wider
+#: matrix, c's pad) — odd n through the one-column tail, n % 4 == 2, a
+#: column panel at an odd offset (vector loads, one-double stores), an
+#: aligned panel, c contiguous or a window at an odd column
+LAYOUTS = [(1031, 1029, 0, 0), (515, 1026, 0, 3), (300, 260, 3, 0), (300, 260, 2, 5),
+           (64, 4, 1, 1), (1, 1, 0, 0), (7, 3, 5, 2)]
+
+
+@pytest.mark.parametrize("m,n,offset,pad", LAYOUTS)
+def test_epilogue_and_fold_layouts_equal_plain(dev, m, n, offset, pad):
+    """Both kernels == plain, bit for bit, in each layout of the launch
+    plan, HPL's alpha = -1, beta = 1 among the branches."""
+    rng = np.random.default_rng(m * n + offset)
+    (Sd, E), c = _recombined(dev, seed=70 + n % 7, m=m, k=272, n=n)
+    if pad:
+        big = torch.zeros((m + pad, n + pad), dtype=torch.float64, device=dev)
+        big[pad:, pad:] = c
+        c = big[pad:, pad:]
+    for alpha, beta in ((1.0, 0.0), (-1.0, 1.0), (2.5, -0.5)):
+        cb = c if beta != 0.0 else None
+        want = core._epilogue_block(Sd, E.plane(), alpha, beta, cb)
+        wide = torch.full((m, n + offset + 3), 7.0, dtype=torch.float64, device=dev)
+        before = _counters()
+        core._epilogue_SE(Sd, E, alpha, beta, cb, wide[:, offset:offset + n])
+        assert _launched(before) == (0, 0, 0, 1, 0)
+        assert _bits_equal(wide[:, offset:offset + n], want), (m, n, offset, alpha, beta)
+        assert bool((wide[:, :offset] == 7.0).all() and (wide[:, offset + n:] == 7.0).all())
+    SEs = [(Sd, E)] + [_recombined(dev, seed=80 + i, m=m, k=272, n=n)[0] for i in range(3)]
+    planes = [(S_, E_.plane()) for S_, E_ in SEs]
+    c_im = torch.from_numpy(rng.uniform(-1, 1, (m, n))).to(dev)
+    for alpha, beta in ((1.0, 0.0), (0.5 - 1.5j, 1.25 + 0.5j), (1.0, 1.0)):
+        want = core._zfold_block(planes, m, n, complex(alpha), complex(beta), c, c_im, dev)
+        outs = [torch.full((m, n + offset + 3), 7.0, dtype=torch.float64, device=dev)
+                for _ in range(2)]
+        before = _counters()
+        epilogue_cuda.zfold(SEs, alpha, beta, c, c_im,
+                            tuple(o[:, offset:offset + n] for o in outs))
+        assert _launched(before) == (0, 0, 0, 0, 1)
+        for o, w in zip(outs, want):
+            assert _bits_equal(o[:, offset:offset + n], w), (m, n, offset, alpha, beta)
+
+
+def test_epilogue_kernel_on_the_sgemm_route(dev):
+    """``gemm(..., mode="sgemm")`` with alpha and beta folds them through
+    the epilogue's E-plane route (the unpacked result has no row and
+    column parts): one launch, == the plain epilogue on the same plane."""
+    import ozimmu_tpu_torch as ozt
+    from ozimmu_tpu_torch.ops.pack import unpack_f64
+
+    rng = np.random.default_rng(90)
+    a, b, c = (torch.from_numpy(rng.standard_normal(s)).to(dev)
+               for s in ((257, 300), (300, 131), (257, 131)))
+    before = _counters()
+    got = ozt.gemm(a, b, mode="sgemm", alpha=-2.5, beta=0.75, c=c)
+    assert _launched(before) == (0, 0, 0, 1, 0)
+    t, E = unpack_f64(ozt.gemm(a, b, mode="sgemm"))
+    assert _bits_equal(got, core._epilogue_block(t, E, -2.5, 0.75, c))
+
+
 @pytest.mark.parametrize("beta", [0.0, 1.0, -1.0, 0.75, 1.25 + 0.5j])
 @pytest.mark.parametrize("alpha", [0.0, 1.0, -1.0, 2.5, 0.5 - 1.5j])
 @pytest.mark.parametrize("inputs", ["recombine", "crafted"])
 def test_zfold_kernel_equals_plain(dev, inputs, alpha, beta):
     """The fold kernel == the plain ``_zfold_block`` on the card and on the
-    CPU, bit for bit, with c absent, contiguous and as strided windows."""
-    if inputs == "recombine":
-        SEs, cs = [], []
-        for i in range(4):
+    CPU, bit for bit, with c absent, contiguous and as strided windows;
+    crafted triples take crafted exponent parts (the kernel forms every
+    exponent from pa and pb)."""
+    SEs, cs = [], []
+    for i in range(4):
+        if inputs == "recombine":
             SE, c = _recombined(dev, seed=40 + 3 * i, m=150, k=272, n=130)
-            SEs.append(SE)
-            cs.append(c)
-        c_re, c_im = cs[:2]
-    else:
-        SEs, cs = [], []
-        for i in range(4):
-            Sd, E, c = crafted_triples(83, 61, seed=50 + i, device=dev)
-            SEs.append((Sd, E))
-            cs.append(c)
-        c_re, c_im = cs[:2]
-    m, n = SEs[0][1].shape
-    cpu_SEs = [(tuple(t.cpu() for t in S_), E.cpu()) for S_, E in SEs]
+        else:
+            Sd, _, c = crafted_triples(83, 61, seed=50 + i, device=dev)
+            SE = (Sd, core.Exponents(*crafted_exponents(83, 61, seed=60 + i, device=dev)))
+        SEs.append(SE)
+        cs.append(c)
+    c_re, c_im = cs[:2]
+    m, n = SEs[0][0][0].shape
+    planes = [(S_, E.plane()) for S_, E in SEs]
+    cpu_SEs = [(tuple(t.cpu() for t in S_), E.cpu()) for S_, E in planes]
     for parts in ((None, None), (c_re, c_im), (_window(c_re), _window(c_im))):
         args = (complex(alpha), complex(beta), *parts)
-        want = core._zfold_block(SEs, m, n, *args, dev)
+        want = core._zfold_block(planes, m, n, *args, dev)
         want_cpu = core._zfold_block(cpu_SEs, m, n, *args[:2],
                                      *(None if p is None else p.cpu() for p in parts), "cpu")
         before = _counters()
@@ -509,14 +579,31 @@ def test_epilogue_kernel_keeps_a_subnormal_sticky_bit_at_a_tie(dev, p):
 
 
 def test_epilogue_kernel_over_a_batch_view(dev):
-    """``_epilogue_SE`` on a batch [B, m, n] runs one launch over its
-    [B*m, n] view, equal to the plain version matrix by matrix."""
-    (Sd, E), c = _recombined(dev, seed=60, m=300, k=272, n=130)
-    Sb = tuple(t.reshape(3, 100, 130) for t in Sd)
-    Eb, cb = E.reshape(3, 100, 130), c.reshape(3, 100, 130)
+    """``_epilogue_SE`` on a batch [B, m, n] runs one launch, with the
+    exponents as a batch's parts (pa [B, m], pb [B, n]; the kernel finds
+    each row band's matrix) and as a plane over the [B*m, n] view, equal to
+    the plain version matrix by matrix; the fold likewise on the rows."""
+    bsz, m, k, n = 3, 100, 272, 132
+    xa = torch.from_numpy(generate_input("normal01", (bsz, m, k), seed=60)).to(dev)
+    xb = torch.from_numpy(generate_input("exp_rand-8", (bsz, k, n), seed=61)).to(dev)
+    cb = torch.from_numpy(generate_input("normal01", (bsz, m, n), seed=62)).to(dev)
+    bb = bits_per_int8(k)
+    da, pa = S.split_f64(xa, 9, bb)
+    db, pb = S.split_f64_cols(xb, 9, bb)
+    Sb = R.recombine(da, db, 9, bb, k)
+    Eb = core.Exponents(pa, pb, R.acc_shift(9, bb))
+    for E in (Eb, Eb.plane()):
+        before = _counters()
+        got = core._epilogue_SE(Sb, E, 2.5, -0.5, cb)
+        assert _launched(before) == (0, 0, 0, 1, 0) and got.shape == (bsz, m, n)
+        for i in range(bsz):
+            want = core._epilogue_block(tuple(t[i] for t in Sb), Eb.plane()[i], 2.5, -0.5, cb[i])
+            assert _bits_equal(got[i], want), i
+    rows = lambda x: x.reshape(bsz * m, n)  # noqa: E731
+    SEs = [(tuple(map(rows, Sb)), Eb)] * 4
     before = _counters()
-    got = core._epilogue_SE(Sb, Eb, 2.5, -0.5, cb)
-    assert _launched(before) == (0, 0, 0, 1, 0) and got.shape == (3, 100, 130)
-    for i in range(3):
-        want = core._epilogue_block(tuple(t[i] for t in Sb), Eb[i], 2.5, -0.5, cb[i])
-        assert _bits_equal(got[i], want), i
+    got = core._zfold_passes(SEs, bsz * m, n, 0.5 - 1.5j, 1.25 + 0.5j, rows(cb), None, dev)
+    assert _launched(before) == (0, 0, 0, 0, 1)
+    want = core._zfold_block([(tuple(map(rows, Sb)), rows(Eb.plane()))] * 4, bsz * m, n,
+                             0.5 - 1.5j, 1.25 + 0.5j, rows(cb), None, dev)
+    assert all(_bits_equal(g, w) for g, w in zip(got, want))
