@@ -25,7 +25,11 @@ built in the call and its plain version, and an issue-time model from a
 SASS count; the ``[build]`` lines give each instantiation's registers,
 spills and SASS instructions, its element loops' instructions per element,
 and the probe kernels' count of one admitted element of each case
-(tools/torch_epilogue_sass.py).
+(tools/torch_epilogue_sass.py).  Then the recombine kernel's totals mode
+(stored on a first k panel, added on the others, in both tile classes)
+against the plain group totals summed, and the totals fold against the
+plain fold, bit for bit, also over the whole int32 range, both timed at
+the main-path shape beside their bounds (phase 4b).
 
 Then it drives the rest of the public GEMM API, each path with the launch
 counts set to 0 just before it and read just after:
@@ -63,14 +67,19 @@ counts set to 0 just before it and read just after:
     step, and the first HPL trailing update staged, its peak memory held
     against the working-set model, also under a 12 GiB budget;
   * the distributed layer (``parallel``), each rank a process of its own:
-    SUMMA at 8192^3 on a 1 x 1 mesh over NCCL, bitwise equal to ``gemm``
-    and timed beside it; then four ranks sharing the card over gloo (the
-    collectives staged through host memory): SUMMA at 8192^3, the ring,
-    streamed, k-sharded, complex SUMMA and complex ring variants, AUTO,
-    alpha / beta / c and the pre-sharded entry's budget re-check at 4096^3
-    or below, each bitwise equal to the one-device ``gemm`` on every rank,
-    with each rank's kernel launches; and the 8192^3 GEMM's peak memory
-    against the working-set model;
+    on a 1 x 1 mesh over NCCL SUMMA, the ring, streamed and k-sharded
+    variants at 8192^3, ``sharded_gemm_auto`` on a tall 2048 x 65536 x
+    2048 product (the chooser's k-sharded variant) and the complex ring at
+    4096^3, each bitwise equal to ``gemm``, timed beside it, with its
+    launches (the totals mode and the totals fold for the streamed ones)
+    and the ring's and k variants' peak memory against their models; then
+    four ranks sharing the card over gloo (the collectives staged through
+    host memory): SUMMA at 8192^3, the ring, streamed, k-sharded, complex
+    SUMMA and complex ring variants, AUTO, alpha / beta / c and the
+    pre-sharded entry's budget re-check at 4096^3 or below, each bitwise
+    equal to the one-device ``gemm`` on every rank, with each rank's
+    kernel launches; no case calls ``torch._int_mm`` or the plain fold;
+    and the 8192^3 GEMM's peak memory against the working-set model;
   * the solvers' ``mesh=`` (row-sharded, each rank a process): HPL at
     n = 16384 on a 1 x 1 mesh over NCCL with device and host panels,
     bitwise equal to the one-device ``lu_factor`` and timed beside it;
@@ -202,7 +211,9 @@ def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
 
 
 #: the kernels' launch counters, by the name each has in the results
-KERNEL_KEYS = ("split_digits", "row_exponent", "recombine", "epilogue", "zfold")
+#: (``recombine_totals``: the recombine kernel's totals mode)
+KERNEL_KEYS = ("split_digits", "row_exponent", "recombine", "recombine_totals", "totals_fold",
+               "epilogue", "zfold")
 
 
 def reset_launches() -> None:
@@ -212,6 +223,8 @@ def reset_launches() -> None:
     split_cuda.LAUNCHES = 0
     exponent_cuda.LAUNCHES = 0
     recombine_cuda.LAUNCHES = 0
+    recombine_cuda.TOTALS_LAUNCHES = 0
+    recombine_cuda.FOLD_LAUNCHES = 0
     epilogue_cuda.LAUNCHES = 0
     epilogue_cuda.ZFOLD_LAUNCHES = 0
 
@@ -221,18 +234,50 @@ def read_launches() -> dict:
 
     torch.cuda.synchronize()
     return {"split_digits": split_cuda.LAUNCHES, "row_exponent": exponent_cuda.LAUNCHES,
-            "recombine": recombine_cuda.LAUNCHES, "epilogue": epilogue_cuda.LAUNCHES,
+            "recombine": recombine_cuda.LAUNCHES,
+            "recombine_totals": recombine_cuda.TOTALS_LAUNCHES,
+            "totals_fold": recombine_cuda.FOLD_LAUNCHES, "epilogue": epilogue_cuda.LAUNCHES,
             "zfold": epilogue_cuda.ZFOLD_LAUNCHES}
 
 
-def per_path(split: int, recombine: int, epilogue: int = 0, zfold: int = 0) -> dict:
+def per_path(split: int, recombine: int, epilogue: int = 0, zfold: int = 0, totals: int = 0,
+             fold: int = 0) -> dict:
     """The launch counts of a path that splits ``split`` operands (each
     split is one exponent-max launch and one split launch), runs
     ``recombine`` recombine launches, ``epilogue`` epilogue launches (one
-    per real GEMM, column panel or sub-batch) and ``zfold`` complex folds
-    (one per ZGEMM, panel or sub-batch)."""
+    per real GEMM, column panel or sub-batch), ``zfold`` complex folds
+    (one per ZGEMM, panel or sub-batch), ``totals`` launches of the
+    recombine kernel's totals mode (one per k panel and pass of a streamed
+    distributed product) and ``fold`` totals folds (one per pass)."""
     return {"split_digits": split, "row_exponent": split, "recombine": recombine,
-            "epilogue": epilogue, "zfold": zfold}
+            "recombine_totals": totals, "totals_fold": fold, "epilogue": epilogue,
+            "zfold": zfold}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts, in the dict it yields, the calls inside the block of the
+    plain versions that a path on the card must not reach:
+    ``torch._int_mm`` (the plain group totals' products) and
+    ``ops.recombine.fold_group_totals`` (the plain fold)."""
+    from ozimmu_tpu_torch.ops import recombine as R
+
+    counts = {"plain_int_mm": 0, "plain_fold": 0}
+    int_mm, fold = torch._int_mm, R.fold_group_totals
+
+    def counted_int_mm(*args, **kw):
+        counts["plain_int_mm"] += 1
+        return int_mm(*args, **kw)
+
+    def counted_fold(*args, **kw):
+        counts["plain_fold"] += 1
+        return fold(*args, **kw)
+
+    torch._int_mm, R.fold_group_totals = counted_int_mm, counted_fold
+    try:
+        yield counts
+    finally:
+        torch._int_mm, R.fold_group_totals = int_mm, fold
 
 
 def gemms(real: int = 0, complex_: int = 0) -> dict:
@@ -649,6 +694,8 @@ def main() -> int:
     # 7b. the epilogue and fold kernels against their plain versions
     epi_figs = walled(phase_epilogue, label, main_SE, sass)
     del main_SE
+    # 4b. the totals mode and the totals fold against theirs
+    totals_figs = walled(phase_totals, label, a, b)
 
     # 8.-19. the rest of the public surface, each path counted on its own
     print(f"[wall] phases 1-7 (build, kernels vs plain, main path, timing): "
@@ -717,11 +764,160 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
         if by_path[path][name] < 1:
             raise AssertionError(f"the {path} path did not launch the {name} kernel")
+    # the totals mode and the totals fold on the path of the ring variant at
+    # 8192^3 on one NCCL rank (phase 18(a)): launches from that path's run,
+    # times and bounds at the main-path shape (phase 4b)
+    for name, source, replaces in (
+            ("recombine_totals", "recombine.cu", "ozimmu_tpu/ops/recombine_pallas.py:182"),
+            ("totals_fold", "recombine.cu", "ozimmu_tpu/ops/recombine.py:127")):
+        k_ms, p_ms, (b_ms, b_by), err = totals_figs[name]
+        path = "parallel_nccl_ring"
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"ozimmu_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": by_path[path][name], "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+        if by_path[path][name] < 1:
+            raise AssertionError(f"the {path} path did not launch the {name} kernel")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+#: the totals mode's cases (m, n, k, ns, k panels) beside the main path's
+#: shape in three panels of 2731, 2731 and 2730 (off 16): ragged edges, k
+#: and panel widths off 16, odd n (the scalar stores) and even, 16 planes
+#: in five panels, and the k of phase 18(a)'s tall product (25 groups) in
+#: four panels
+TOTALS_CASES = ((1000, 1234, 777, 9, 3), (17, 9, 32, 3, 2), (1025, 1023, 1025, 16, 5),
+                (513, 255, 99, 9, 1), (65, 72, 65536, 9, 4))
+
+
+def _panel_planes(a: torch.Tensor, b: torch.Tensor, ns: int, bb: int, panels: int):
+    """The k-major planes of ``panels`` k panels of a [m, k] @ [k, n], each
+    split against the whole rows' and columns' exponents and padded to its
+    own multiple of 16, as a rank of a streamed variant splits them."""
+    from ozimmu_tpu_torch.ops.recombine import padded_k
+    from ozimmu_tpu_torch.ops.split import row_exponent, split_with_exp
+
+    ea, eb = row_exponent(a, 1), row_exponent(b, 0)
+    edges = np.linspace(0, a.shape[1], panels + 1).astype(int)
+    return [(split_with_exp(a[:, lo:hi], ea, ns, bb, 1, padded_k(int(hi - lo)))[0],
+             split_with_exp(b[lo:hi], eb, ns, bb, 0, padded_k(int(hi - lo)))[0])
+            for lo, hi in zip(edges[:-1], edges[1:])]
+
+
+def phase_totals(label, a: torch.Tensor, b: torch.Tensor) -> dict:
+    """4b. The recombine kernel's totals mode and the totals fold against
+    their plain versions, bit for bit: the mode stored on the first k
+    panel and added on the others, in both tile classes, == the plain
+    group totals (``torch._int_mm``) summed; the fold == the plain
+    ``fold_group_totals``, also over the whole int32 range; then both
+    timed at the main-path shape beside their bounds and plain versions
+    (``a``, ``b``: the main path's operands).  The plain group totals run on the card for products of 2048^2 outputs
+    and more, and on CPU copies of the same planes below that: cuBLASLt's
+    int8 product refuses some small shapes on the card (513 x 112 @ 112 x
+    256: CUBLAS_STATUS_NOT_SUPPORTED on an H100)."""
+    from ozimmu_tpu_torch.ops import recombine_cuda
+    from ozimmu_tpu_torch.ops.recombine import fold_group_totals, group_totals
+    from ozimmu_tpu_torch.schedule import bits_per_int8, group_schedule
+    from ozimmu_tpu_torch.testing import generate_input
+
+    dev = torch.device("cuda")
+    err = {"recombine_totals": 0.0, "totals_fold": 0.0}
+
+    def plain_totals(planes, ns, k, bb, on_card=True):
+        total = None
+        for pa, pb in planes:
+            if not on_card:
+                pa, pb = pa.cpu(), pb.cpu()
+            step = torch.stack(group_totals(pa, pb, ns, k, bb, b_kmajor=True))
+            total = step if total is None else total.add_(step)
+        return total.to(dev)
+
+    def check_fold(what, t, ns, k, bb):
+        want = fold_group_totals(t, ns, k, bb)
+        got = recombine_cuda.fold_totals(t, ns, k, bb)
+        err["totals_fold"] = max(err["totals_fold"], max_abs_err(torch.stack(got),
+                                                                 torch.stack(want)))
+        if not all(bits_equal(w, g) for w, g in zip(want, got)):
+            raise AssertionError(f"totals fold mismatch: {what}")
+
+    cases = [(a, b, NS, 3)] + [
+        (torch.from_numpy(generate_input("normal01", (m, k), seed=m)).to(dev),
+         torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=n)).to(dev), ns, panels)
+        for m, n, k, ns, panels in TOTALS_CASES]
+    for x, y, ns, panels in cases:
+        (m, k), n = x.shape, y.shape[1]
+        bb = bits_per_int8(k)
+        planes = _panel_planes(x, y, ns, bb, panels)
+        want = plain_totals(planes, ns, k, bb, on_card=m * n >= 2048 * 2048)
+        for tile in range(len(recombine_cuda.TILES)):
+            got = None
+            for pa, pb in planes:
+                got = recombine_cuda.group_totals(pa, pb, ns, bb, k, got, tile=tile)
+            err["recombine_totals"] = max(err["recombine_totals"],
+                                          float((got - want).abs().max().item()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"totals mode mismatch at m,n,k={m},{n},{k} ns={ns} "
+                                     f"panels={panels} tile={tile}")
+        check_fold(f"m,n,k={m},{n},{k} ns={ns}", want, ns, k, bb)
+        print(f"[totals] totals mode == plain group totals summed, bitwise, in tile classes "
+              f"{list(range(len(recombine_cuda.TILES)))} (stored on the first of {panels} k "
+              f"panel(s), added on the rest), and the totals fold == fold_group_totals at "
+              f"m,n,k={m},{n},{k} ns={ns} b={bb}: {len(group_schedule(ns, k, bb))} groups",
+              flush=True)
+        del planes, want, got
+    del cases
+    gen = torch.Generator(device=dev).manual_seed(13)
+    groups = []
+    for ns, k in ((NS, N), (NS, 65536), (18, 4096)):
+        bb = bits_per_int8(k)
+        G = len(group_schedule(ns, k, bb))
+        groups.append(str(G))
+        t = torch.randint(-(2**31), 2**31 - 1, (G, N, N), generator=gen, device=dev,
+                          dtype=torch.int32)
+        t[:, 0, :3] = torch.tensor([-(2**31), 2**31 - 1, -(2**31 - 1)], dtype=torch.int32,
+                                   device=dev)
+        check_fold(f"int32 range at {N}^2, ns={ns} k={k}", t, ns, k, bb)
+        del t
+    print(f"[totals] totals fold == fold_group_totals bitwise over the whole int32 range at "
+          f"{N}^2 (INT32_MIN and +-(2^31 - 1) among the values), {', '.join(groups)} groups",
+          flush=True)
+
+    # timing at the main-path shape: one panel of the full k, 9 groups
+    bb = bits_per_int8(N)
+    ((da, db),) = _panel_planes(a, b, NS, bb, 1)
+    G = len(group_schedule(NS, N, bb))
+    totals = recombine_cuda.group_totals(da, db, NS, bb, N)
+    pairs = NS * (NS + 1) // 2
+    ms = {"recombine_totals": cuda_ms(lambda: recombine_cuda.group_totals(da, db, NS, bb, N),
+                                      iters=3),
+          "totals_fold": cuda_ms(lambda: recombine_cuda.fold_totals(totals, NS, N, bb), iters=10)}
+    ms_add = cuda_ms(lambda: recombine_cuda.group_totals(da, db, NS, bb, N, totals), iters=3)
+    ms_recombine = cuda_ms(lambda: recombine_cuda.recombine(da, db, NS, bb, N, b_kmajor=True),
+                           iters=3)
+    plain_ms = {"recombine_totals": cuda_ms(lambda: plain_totals([(da, db)], NS, N, bb), iters=2),
+                "totals_fold": cuda_ms(lambda: fold_group_totals(totals, NS, N, bb), iters=3)}
+    bounds = {
+        # both operands' planes read once, the totals written once; 2mnk
+        # int8 operations per scheduled pair
+        "recombine_totals": bound_ms(da.numel() + db.numel() + 4 * G * N * N,
+                                     pairs * 2 * N**3, INT8_OPS_PER_S),
+        # the totals read once, the triple written once
+        "totals_fold": bound_ms((4 * G + 12) * N * N, 0, INT8_OPS_PER_S),
+    }
+    for name in ms:
+        print(f"[time] {label}: {name} at {N}^3 ns={NS} ({G} groups): kernel {ms[name]:.3f} ms"
+              + (f" (adding to the totals: {ms_add:.3f} ms)" if name == "recombine_totals" else "")
+              + f", plain PyTorch {plain_ms[name]:.3f} ms, bound {bounds[name][0]:.3f} ms "
+              f"({bounds[name][1]}), {bounds[name][0] / ms[name]:.1%} of the bound", flush=True)
+    print(f"[time] {label}: totals mode + totals fold {ms['recombine_totals'] + ms['totals_fold']:.3f}"
+          f" ms against the recombine kernel folding in place {ms_recombine:.3f} ms at {N}^3, the "
+          f"same planes", flush=True)
+    return {name: (ms[name], plain_ms[name], bounds[name], err[name]) for name in ms}
 
 
 def epilogue_bound(rows: int, n: int, alpha: float, beta: float):
@@ -2095,21 +2291,33 @@ def phase_solvers(ozt, label) -> dict:
 # table's module); phase_parallel launches them and checks what they return.
 
 PAR_N = 4096  # the global size of the 4-rank variants but SUMMA's
-#: per-rank launches of each distributed path (split, recombine,
-#: epilogue, fold; the exponent max launches once per split,
-#: :func:`per_path`): a real variant splits its two operands, a complex
-#: one four planes; SUMMA recombines once per pass, the ring, stream and k
-#: variants sum int32 group totals through torch._int_mm and launch no
-#: recombine kernel; every variant runs one epilogue (real) or one fold
-#: (complex) on each rank's block
-PAR_LAUNCHES = {"summa": (2, 1, 1, 0), "zsumma": (4, 4, 0, 1), "ring": (2, 0, 1, 0),
-                "zring": (4, 0, 0, 1), "stream": (2, 0, 1, 0), "k": (2, 0, 1, 0),
-                "auto": (2, 1, 1, 0), "summa_epilogue": (2, 1, 1, 0), "stream_1x4": (2, 0, 1, 0),
-                "presharded_recheck": (2, 0, 1, 0)}
-#: 512 x 4096 @ 4096 x 512 at ns = 9 on a 1 x 4 mesh: the chooser says "k"
-#: (15.7 MB), which pre-sharded operands cannot use; summa needs 32.25 MB,
-#: stream 30.0 MB, so under 31 MB the entry must re-check and stream
-RECHECK = dict(shape=(512, 4096, 512), budget_mb=31)
+#: per-rank launches of each distributed path (split, recombine, epilogue,
+#: fold, totals mode, totals fold; the exponent max launches once per
+#: split, :func:`per_path`): a real variant splits its two operands, a
+#: complex one four planes; SUMMA recombines once per pass, the kernel
+#: folding; the ring, stream and k variants run the recombine kernel's
+#: totals mode once per k panel and pass (the ring q = 2 steps, the stream
+#: lcm(x, y) panels, k one) and the totals fold once per pass; every
+#: variant runs one epilogue (real) or one complex fold on each rank's
+#: block
+PAR_LAUNCHES = {"summa": (2, 1, 1, 0), "zsumma": (4, 4, 0, 1), "ring": (2, 0, 1, 0, 2, 1),
+                "zring": (4, 0, 0, 1, 8, 4), "stream": (2, 0, 1, 0, 2, 1),
+                "k": (2, 0, 1, 0, 1, 1), "auto": (2, 1, 1, 0), "summa_epilogue": (2, 1, 1, 0),
+                "stream_1x4": (2, 0, 1, 0, 4, 1), "presharded_recheck": (2, 0, 1, 0, 4, 1)}
+#: the same on one NCCL rank: one k panel per pass in every streamed
+#: variant (auto_k: ``sharded_gemm_auto`` on the tall 2048 x 65536 x 2048
+#: product, which the chooser sends to "k")
+PAR_NCCL_LAUNCHES = {"summa": (2, 1, 1, 0), "ring": (2, 0, 1, 0, 1, 1),
+                     "stream": (2, 0, 1, 0, 1, 1), "k": (2, 0, 1, 0, 1, 1),
+                     "auto_k": (2, 0, 1, 0, 1, 1), "zring": (4, 0, 0, 1, 4, 4)}
+#: the tall Gram-type product of phase 18(a): m = n, k (G = 25 groups)
+TALL = (2048, 65536)
+PAR_ZN = 4096  # complex ring on one rank
+#: 512 x 8192 @ 8192 x 512 at ns = 9 on a 1 x 4 mesh: the chooser says "k"
+#: (52.2 MiB with its planes and totals), which pre-sharded operands
+#: cannot use; summa needs 62.8 MiB, stream 58.2, so under 60 MiB the
+#: entry must re-check and stream
+RECHECK = dict(shape=(512, 8192, 512), budget_mb=60)
 
 
 def _par_operands(n: int, seed: int, cx: bool = False, k: int = None):
@@ -2122,11 +2330,12 @@ def _par_operands(n: int, seed: int, cx: bool = False, k: int = None):
 
 def _par_call(call, want, gather=None) -> dict:
     """One distributed call on every rank, between barriers: its seconds
-    and staged bytes, this rank's kernel launches, a digest of the global
-    result it returns (through ``gather``, untimed, where it returns
-    shards), and on rank 0 whether that equals ``want()`` (the one-device
-    result) bit for bit.  The operands' set-up and the reference stay out
-    of ``call_seconds``; the launcher's ``case_seconds`` has them."""
+    and staged bytes, this rank's kernel launches and calls of the plain
+    versions (:func:`plain_calls`), a digest of the global result it
+    returns (through ``gather``, untimed, where it returns shards), and on
+    rank 0 whether that equals ``want()`` (the one-device result) bit for
+    bit.  The operands' set-up and the reference stay out of
+    ``call_seconds``; the launcher's ``case_seconds`` has them."""
     import hashlib
 
     import torch.distributed as dist
@@ -2136,13 +2345,14 @@ def _par_call(call, want, gather=None) -> dict:
     reset_launches()
     comm.STAGED_BYTES = 0
     t0 = time.perf_counter()
-    out = call()
-    torch.cuda.synchronize()
+    with plain_calls() as plain:
+        out = call()
+        torch.cuda.synchronize()
     dist.barrier()
     seconds = time.perf_counter() - t0
     counts = read_launches()
     out = np.ascontiguousarray(gather(out) if gather else out)
-    res = {"call_seconds": seconds, **counts, "call_staged_bytes": comm.STAGED_BYTES,
+    res = {"call_seconds": seconds, **counts, **plain, "call_staged_bytes": comm.STAGED_BYTES,
            "digest": hashlib.sha256(out.tobytes()).hexdigest()}
     if dist.get_rank() == 0:
         ref = np.ascontiguousarray(want())
@@ -2157,24 +2367,155 @@ def _one_device(a, b, **kw):
     return lambda: ozt.gemm(a, b, mode=f"fp64_int8_{NS}", device="cuda", **kw)
 
 
+def peak_against(what: str, call, operand_bytes: int, model: int, model_what: str,
+                 jax_model: int = None) -> int:
+    """Run ``call`` and hold its peak device memory (allocated during the
+    call, plus ``operand_bytes``, which the model counts) against
+    ``model`` + 10 %, in the ``[memory]`` form of
+    :func:`memory_against_model`; ``jax_model``: the JAX package's count
+    of the same, printed beside it.  Returns the peak."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + operand_bytes
+    limit = 1.1 * model
+    jax = ("" if jax_model is None else f"; the JAX package's model {jax_model / 2**30:.3f} GiB "
+           f"(peak / it = {peak / jax_model:.3f})")
+    print(f"[memory] {what}: peak {peak / 2**30:.3f} GiB (allocated during the call + the "
+          f"operands); model {model / 2**30:.3f} GiB ({model_what}), limit +10 % = "
+          f"{limit / 2**30:.3f} GiB{jax}", flush=True)
+    if not peak <= limit:
+        raise AssertionError(f"{what}: peak {peak} B above the model's limit {limit:.0f} B")
+    return peak
+
+
+_NCCL_OPERANDS = {}
+
+
+def _nccl_operands(n: int, seed: int, cx: bool = False, k: int = None):
+    """The operands of a one-rank case on the card, made once (the last
+    shape's only)."""
+    key = (n, seed, cx, k)
+    if key not in _NCCL_OPERANDS:
+        _NCCL_OPERANDS.clear()
+        _NCCL_OPERANDS[key] = tuple(torch.from_numpy(x).cuda() for x in _par_operands(n, seed, cx, k))
+    return _NCCL_OPERANDS[key]
+
+
+def _nccl_case(call, one_device, memory=None) -> dict:
+    """A distributed call on one NCCL rank, on tensors on the card: bits
+    against ``one_device()`` (the one-device ``gemm``), its launches and
+    calls of the plain versions, both timed (CUDA events); ``memory``
+    (what, operand bytes, model, model's name, the JAX package's model):
+    the call's peak against the model, its ``[memory]`` line kept."""
+    want = one_device()
+    reset_launches()
+    with plain_calls() as plain:
+        got = call()
+        counts = read_launches()
+    real = (lambda x: torch.view_as_real(x)) if got.is_complex() else (lambda x: x)  # noqa: E731
+    res = {"equal": bits_equal(real(got), real(want)) and bool(torch.isfinite(real(got)).all()),
+           **counts, **plain}
+    del got, want
+    res["ms_sharded"] = cuda_ms(call, iters=3)
+    res["ms_gemm"] = cuda_ms(one_device, iters=3)
+    if memory is not None:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res["peak"] = peak_against(memory[0], call, *memory[1:])
+        res["memory_lines"] = buf.getvalue()
+    return res
+
+
 def par_nccl_summa(mesh) -> dict:
     """(a) SUMMA 8192^3 on a 1 x 1 mesh over NCCL, on tensors on the card:
     bits against ``gemm``, launches, and both timed (CUDA events)."""
-    import ozimmu_tpu_torch as ozt
     from ozimmu_tpu_torch import parallel as par
 
-    a_np, b_np = _par_operands(N, 0)
-    a, b = torch.from_numpy(a_np).cuda(), torch.from_numpy(b_np).cuda()
-    mode = f"fp64_int8_{NS}"
-    want = ozt.gemm(a, b, mode=mode)
-    reset_launches()
-    got = par.sharded_gemm(a, b, NS, mesh)
-    counts = read_launches()
-    res = {"equal": bits_equal(got, want) and bool(torch.isfinite(got).all()), **counts}
-    del got, want
-    res["ms_sharded"] = cuda_ms(lambda: par.sharded_gemm(a, b, NS, mesh), iters=3)
-    res["ms_gemm"] = cuda_ms(lambda: ozt.gemm(a, b, mode=mode), iters=3)
+    a, b = _nccl_operands(N, 0)
+    return _nccl_case(lambda: par.sharded_gemm(a, b, NS, mesh), _one_device(a, b))
+
+
+def _nccl_memory(what: str, m: int, n: int, k: int, model: int, model_what: str,
+                 jax_model: int = None):
+    """The ``memory`` argument of :func:`_nccl_case`: the operands' bytes,
+    and the model plus the global result that the host wrappers assemble
+    on the card for tensor operands (``_result_device_bytes``)."""
+    from ozimmu_tpu_torch.parallel.gemm import _result_device_bytes
+
+    extra = _result_device_bytes(m, n)
+    return (f"{what} {m}x{n}x{k} fp64_int8_{NS} on one NCCL rank", 8 * (m + n) * k,
+            model + extra, f"{model_what} + the {extra / 2**30:.3f} GiB result",
+            None if jax_model is None else jax_model + extra)
+
+
+def par_nccl_ring(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+
+    a, b = _nccl_operands(N, 0)
+    model = par.ring_device_bytes(N, N, N, NS, 1)
+    return _nccl_case(lambda: par.sharded_gemm(a, b, NS, mesh, variant="ring"), _one_device(a, b),
+                      _nccl_memory("ring", N, N, N, model, "ring_device_bytes at q = 1"))
+
+
+def par_nccl_stream(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+
+    a, b = _nccl_operands(N, 0)
+    return _nccl_case(lambda: par.sharded_gemm(a, b, NS, mesh, variant="stream"),
+                      _one_device(a, b))
+
+
+def _jax_k_test(m: int, n: int, k: int, p: int = 1) -> int:
+    """The JAX package's k test of ``select_variant``: the output term
+    over m x n and the operand blocks (``ozimmu_tpu/parallel/gemm.py``)."""
+    from ozimmu_tpu_torch.schedule import BYTES_PER_OUTPUT_ELEMENT
+
+    return BYTES_PER_OUTPUT_ELEMENT * m * n + 8 * (m + n) * (-(-k // p))
+
+
+def par_nccl_k(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+
+    kmesh = _mesh((1,), ("k",))
+    a, b = _nccl_operands(N, 0)
+    model = par.k_device_bytes(N, N, N, NS, 1)
+    return _nccl_case(lambda: par.sharded_gemm_k(a, b, NS, kmesh), _one_device(a, b),
+                      _nccl_memory("k-sharded", N, N, N, model, "k_device_bytes at p = 1",
+                                   _jax_k_test(N, N, N)))
+
+
+def par_nccl_auto_k(mesh) -> dict:
+    """``sharded_gemm_auto(a, b, num_split=9)`` on the tall product, whose
+    variant the chooser makes "k" (25 groups at k = 65536)."""
+    from ozimmu_tpu_torch import parallel as par
+    from ozimmu_tpu_torch.parallel.gemm import _result_device_bytes
+    from ozimmu_tpu_torch.schedule import hbm_budget_bytes
+
+    m, k = TALL
+    gen = torch.Generator(device="cuda").manual_seed(30)  # made on the card: 2 x 1 GiB
+    a, b = (torch.rand(shape, generator=gen, dtype=torch.float64, device="cuda")
+            for shape in ((m, k), (k, m)))
+    chosen = par.select_variant(m, m, k, NS, mesh, hbm_bytes=hbm_budget_bytes("cuda")
+                                - _result_device_bytes(m, m))
+    model = par.k_device_bytes(m, m, k, NS, 1)
+    res = _nccl_case(lambda: par.sharded_gemm_auto(a, b, num_split=NS, mesh=mesh),
+                     _one_device(a, b),
+                     _nccl_memory("sharded_gemm_auto (k-sharded)", m, m, k, model,
+                                  "k_device_bytes at p = 1", _jax_k_test(m, m, k)))
+    res["variant"] = chosen
     return res
+
+
+def par_nccl_zring(mesh) -> dict:
+    from ozimmu_tpu_torch import parallel as par
+
+    a, b = _nccl_operands(PAR_ZN, 40, cx=True)
+    return _nccl_case(lambda: par.sharded_gemm(a, b, NS, mesh, variant="ring"),
+                      _one_device(a, b))
 
 
 def par_summa(mesh) -> dict:
@@ -2267,7 +2608,8 @@ def par_presharded_recheck(mesh) -> dict:
     return res
 
 
-PARALLEL_NCCL = {"summa": par_nccl_summa}
+PARALLEL_NCCL = {"summa": par_nccl_summa, "ring": par_nccl_ring, "stream": par_nccl_stream,
+                 "k": par_nccl_k, "auto_k": par_nccl_auto_k, "zring": par_nccl_zring}
 PARALLEL_GLOO = {
     "summa": par_summa,
     "ring": _par_variant("ring"),
@@ -2294,13 +2636,32 @@ def _par_results(ranks: list, table: dict, what: str) -> dict:
     return out
 
 
+#: what each one-rank case of phase 18(a) computes, for its lines
+NCCL_SIZES = {"summa": f"sharded_gemm {N}^3", "ring": f"sharded_gemm variant=ring {N}^3",
+              "stream": f"sharded_gemm variant=stream {N}^3",
+              "k": f"sharded_gemm_k {N}^3",
+              "auto_k": f"sharded_gemm_auto {TALL[0]}x{TALL[0]}x{TALL[1]}",
+              "zring": f"complex sharded_gemm variant=ring {PAR_ZN}^3"}
+
+
+def _no_plain_calls(what: str, res: dict) -> None:
+    if res["plain_int_mm"] or res["plain_fold"]:
+        raise AssertionError(f"{what} reached the plain versions on the card: "
+                             f"{res['plain_int_mm']} torch._int_mm, {res['plain_fold']} "
+                             "fold_group_totals calls")
+
+
 def phase_parallel(ozt, label) -> dict:
     """18. The distributed layer, each rank a process started by
     ``ozimmu_tpu_torch.parallel.local`` (killed if it fails or hangs):
-    (a) world size 1 over NCCL, (b) four ranks sharing the card over gloo,
-    every result bitwise equal to the one-device ``gemm`` and every rank's
-    launches equal to the table; then (c) the 8192^3 GEMM's peak memory
-    against the model."""
+    (a) world size 1 over NCCL: SUMMA, ring, stream and k-sharded at
+    8192^3, AUTO's k-sharded choice on a tall product and the complex ring,
+    each timed beside ``gemm``, the ring's and the k variants' peak memory
+    against their models; (b) four ranks sharing the card over gloo; every
+    result bitwise equal to the one-device ``gemm``, every rank's launches
+    equal to the table, and no call of ``torch._int_mm`` or of the plain
+    fold in any case; then (c) the 8192^3 GEMM's peak memory against the
+    model."""
     from ozimmu_tpu_torch.parallel import local
 
     here = os.path.abspath(__file__)
@@ -2309,18 +2670,26 @@ def phase_parallel(ozt, label) -> dict:
 
     # (a) one rank, NCCL
     t0 = time.perf_counter()
-    ranks = local.run(f"{here}:PARALLEL_NCCL", "1x1", nproc=1, device="cuda", timeout=300)
-    (res,) = _par_results(ranks, PARALLEL_NCCL, "NCCL 1x1")["summa"]
-    by_path["parallel_nccl_summa"] = counts_of(res)
-    if not res["equal"] or by_path["parallel_nccl_summa"] != per_path(*PAR_LAUNCHES["summa"]):
-        raise AssertionError(f"NCCL 1x1 sharded_gemm {N}^3: {res}")
-    print(f"[parallel] NCCL, world size 1, 1x1 mesh: sharded_gemm fp64_int8_{NS} {N}^3 == gemm "
-          f"bitwise; launches split {res['split_digits']}, recombine {res['recombine']}, "
-          f"epilogue {res['epilogue']} ({time.perf_counter() - t0:.1f} s with the process "
-          f"start)", flush=True)
-    print(f"[time] {label}: sharded_gemm {N}^3 on a 1x1 NCCL mesh: {res['ms_sharded']:.3f} ms; "
-          f"gemm: {res['ms_gemm']:.3f} ms; the layer's overhead "
-          f"{res['ms_sharded'] - res['ms_gemm']:+.3f} ms", flush=True)
+    ranks = local.run(f"{here}:PARALLEL_NCCL", "1x1", nproc=1, device="cuda", timeout=420)
+    print(f"[parallel] NCCL, world size 1, 1x1 mesh: {len(PARALLEL_NCCL)} cases in "
+          f"{time.perf_counter() - t0:.1f} s with the process start", flush=True)
+    for name, (res,) in _par_results(ranks, PARALLEL_NCCL, "NCCL 1x1").items():
+        got, want = counts_of(res), per_path(*PAR_NCCL_LAUNCHES[name])
+        by_path[f"parallel_nccl_{name}"] = got
+        if not res["equal"] or got != want:
+            raise AssertionError(f"NCCL 1x1 {name}: equal {res['equal']}, launches {got}, "
+                                 f"expected {want}")
+        _no_plain_calls(f"NCCL 1x1 {name}", res)
+        if name == "auto_k" and res["variant"] != "k":
+            raise AssertionError(f"the chooser took {res['variant']} for {NCCL_SIZES[name]}")
+        print(f"[parallel] NCCL 1x1 {NCCL_SIZES[name]} fp64_int8_{NS} == gemm bitwise; launches "
+              f"{got}; 0 torch._int_mm and 0 plain folds"
+              + ("; the chooser says k" if name == "auto_k" else ""), flush=True)
+        print(f"[time] {label}: {NCCL_SIZES[name]} on a 1x1 NCCL mesh: "
+              f"{res['ms_sharded']:.3f} ms; gemm: {res['ms_gemm']:.3f} ms; the layer's overhead "
+              f"{res['ms_sharded'] - res['ms_gemm']:+.3f} ms", flush=True)
+        if "memory_lines" in res:
+            print(str(res["memory_lines"]).rstrip(), flush=True)
 
     # (b) four ranks sharing the card, gloo
     t0 = time.perf_counter()
@@ -2338,6 +2707,8 @@ def phase_parallel(ozt, label) -> dict:
             raise AssertionError(f"gloo {name}: equal {r0['equal']}, per-rank launches {counts} "
                                  f"(expected {per_path(*PAR_LAUNCHES[name])}), {len(digests)} "
                                  f"digests")
+        for r, rank_res in enumerate(per_rank):
+            _no_plain_calls(f"gloo {name} on rank {r}", rank_res)
         by_path[f"parallel_gloo_{name}"] = counts[0]
         extra = ""
         if name == "auto":
@@ -2351,9 +2722,10 @@ def phase_parallel(ozt, label) -> dict:
         size = f"{N}^3" if name == "summa" else (
             "x".join(map(str, RECHECK["shape"])) if name == "presharded_recheck" else f"{PAR_N}^3")
         print(f"[parallel] gloo {name} {size}: == one-device gemm bitwise on rank 0, the same "
-              f"result on all 4 ranks; per-rank launches split {r0['split_digits']}, recombine "
-              f"{r0['recombine']}, epilogue {r0['epilogue']}, fold {r0['zfold']}{extra}",
-              flush=True)
+              f"result on all 4 ranks, 0 torch._int_mm and 0 plain folds on every rank; per-rank "
+              f"launches split {r0['split_digits']}, recombine {r0['recombine']}, its totals mode "
+              f"{r0['recombine_totals']}, totals fold {r0['totals_fold']}, epilogue "
+              f"{r0['epilogue']}, fold {r0['zfold']}{extra}", flush=True)
         print(f"[time] {label}: 4 ranks sharing one card, collectives through host memory, NOT a "
               f"scaling figure: {name} {size}: {max(r['call_seconds'] for r in per_rank):.3f} s "
               f"(one call, slowest rank; the whole case with its set-up and reference "
@@ -2817,13 +3189,13 @@ EXAMPLE_LAUNCHES = {"torch_01_basic_gemm": (8, 6, 2, 1), "torch_02_interception"
 #: per-rank launches of each case of example 03 on 4 ranks, the
 #: one-device reference included (2, 1, 1 real; 4, 4 and a fold
 #: complex): SUMMA and its epilogue 2 + 1 + 1, complex SUMMA 4 + 4 + a
-#: fold, AUTO's choice (an int8 mode) by SUMMA 2 + 1 + 1; the ring and the
-#: k-sharded complex product sum int32 group totals through torch._int_mm
-#: and launch no recombine (2 + 0 + 1, 4 + 0 + a fold); the AUTO queries
-#: none
+#: fold, AUTO's choice (an int8 mode) by SUMMA 2 + 1 + 1; the ring on the
+#: 2 x 2 mesh (2 + 0 + 1, the totals mode once per step, 2, and one totals
+#: fold) and the k-sharded complex product (4 + 0 + a fold, the totals
+#: mode and the totals fold once per pass, 4 each); the AUTO queries none
 EX03_LAUNCHES = {"summa": (4, 2, 2, 0), "epilogue": (4, 2, 2, 0), "zgemm": (8, 8, 0, 2),
-                 "ring": (4, 1, 2, 0), "auto_select": (0, 0, 0, 0), "auto_gemm": (4, 2, 2, 0),
-                 "tall_k": (8, 4, 0, 2)}
+                 "ring": (4, 1, 2, 0, 2, 1), "auto_select": (0, 0, 0, 0),
+                 "auto_gemm": (4, 2, 2, 0), "tall_k": (8, 4, 0, 2, 4, 4)}
 #: 07's body (SUMMA + ``gemm_f64``) and 09's run (pre-sharded + dense gemm)
 EX_PAIR_LAUNCHES = (4, 2, 2, 0)
 

@@ -56,6 +56,17 @@
 // digits add zero products, and TMA fills the rest of the last k tile and
 // the rows beyond m or n with zeros.
 //
+// The totals mode (MODE == kTotals; oz_recombine_totals) is the same kernel
+// with the fold left out: at each group's end the int32 accumulator goes
+// to an int32 totals tensor [G, batch, m, n], stored (the first k panel of
+// a streamed product) or added to what is there (the later panels: exact,
+// the schedule's cap bounds the whole contraction).  The ring, stream and
+// k-sharded variants of ozimmu_tpu_torch/parallel/ sum their totals over
+// k panels (or reduce-scatter them across ranks) before one fold, so they
+// take this mode, then totals_fold_kernel below; its plain version is
+// group_totals summed, then fold_group_totals.  The group schedule comes
+// from the global k, the k tiles from the panel's own k_pad.
+//
 // A batch (the TPU kernel under jax.vmap, one call with a leading grid
 // axis) is one launch, and a 2-D call is its batch-1 case.  The planes are
 // [ns, batch, rows, k_pad]; the tensor maps see them as [ns * batch] planes
@@ -80,6 +91,9 @@ constexpr int kGroupM = 8;       // cluster tile rows per band of the persistent
 
 // The schedule travels by value, as a kernel parameter: about 2 KB, read
 // uniformly by every thread.
+// what the kernel does with a finished group total
+enum Mode { kFold = 0, kTotals = 1 };
+
 struct Schedule {
   int n_groups;
   uint16_t start[kMaxGroups + 1];  // group g has pairs [start[g], start[g+1])
@@ -348,6 +362,59 @@ __device__ __forceinline__ void fold_group(const int (&d)[R],
   }
 }
 
+// Writes one finished group total to its int32 plane t [m, n] (the
+// totals mode), or with `add` adds it to what is there.  Accumulator
+// registers r and r + 1 (r even) hold columns col and col + 1 of one row
+// (fold_group's map); col is even, so where n is even too both go in one
+// 8-byte access.  The loads of kBatch registers are issued before the
+// first of them is used.
+template <int R>
+__device__ __forceinline__ void store_group(const int (&d)[R], int* __restrict__ t,
+                                            int row0, int col0, int m, int n,
+                                            bool add) {
+  constexpr int kBatch = 16;
+  const bool pairs = (n & 1) == 0;
+#pragma unroll
+  for (int b0 = 0; b0 < R; b0 += kBatch) {
+    int old[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) old[q] = 0;
+    if (add) {
+#pragma unroll
+      for (int q = 0; q < kBatch; q += 2) {
+        const int r = b0 + q;
+        const int row = row0 + 8 * ((r >> 1) & 1);
+        const int col = col0 + (r >> 2) * 8;
+        if (row >= m) continue;
+        const int* p = t + (int64_t)row * n + col;
+        if (pairs && col + 1 < n) {
+          const int2 v = *reinterpret_cast<const int2*>(p);
+          old[q] = v.x;
+          old[q + 1] = v.y;
+        } else {
+          if (col < n) old[q] = p[0];
+          if (col + 1 < n) old[q + 1] = p[1];
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; q += 2) {
+      const int r = b0 + q;
+      const int row = row0 + 8 * ((r >> 1) & 1);
+      const int col = col0 + (r >> 2) * 8;
+      if (row >= m) continue;
+      int* p = t + (int64_t)row * n + col;
+      const int x = d[r] + old[q], y = d[r + 1] + old[q + 1];
+      if (pairs && col + 1 < n) {
+        *reinterpret_cast<int2*>(p) = make_int2(x, y);
+      } else {
+        if (col < n) p[0] = x;
+        if (col + 1 < n) p[1] = y;
+      }
+    }
+  }
+}
+
 template <int NC, int BN, int STAGES, int CM>
 struct Tile {
   static constexpr int BM = 64 * NC;
@@ -363,14 +430,16 @@ struct Tile {
 // warpgroup (NC).  k_tiles = ceil(k_pad / BK).  CM > 1: the block is one
 // of a cluster of CM blocks that take CM vertically adjacent output tiles
 // of one B column panel; each loads 1/CM of the B tile and multicasts it
-// to all of them.
-template <int NC, int BN, int STAGES, int CM>
+// to all of them.  MODE kFold folds into the triple o0/o1/o2 (tot unused);
+// kTotals writes group g of matrix i to tot + (g * batch + i) * m * n
+// (adds to it where `add`; o0/o1/o2 unused).
+template <int NC, int BN, int STAGES, int CM, int MODE>
 __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
     recombine_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b,
                      float* __restrict__ o0, float* __restrict__ o1,
-                     float* __restrict__ o2, int m, int n, int k_tiles,
-                     int batch, const Schedule sch) {
+                     float* __restrict__ o2, int* __restrict__ tot, int add, int m,
+                     int n, int k_tiles, int batch, const Schedule sch) {
   using T = Tile<NC, BN, STAGES, CM>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -494,9 +563,11 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
         wgmma_wait<0>();
         fence_regs(d);
         release(prev);
-        fold_group(d, o0 + out0, o1 + out0, o2 + out0, row0, col0, m, n, sch.scale_hi[g],
-                   sch.scale_lo[g],
-                   g == 0, g == sch.n_groups - 1);
+        if constexpr (MODE == kFold)
+          fold_group(d, o0 + out0, o1 + out0, o2 + out0, row0, col0, m, n, sch.scale_hi[g],
+                     sch.scale_lo[g], g == 0, g == sch.n_groups - 1);
+        else
+          store_group(d, tot + (int64_t)g * batch * m * n + out0, row0, col0, m, n, add != 0);
       }
     }
   }
@@ -543,17 +614,17 @@ bool plane_map(CUtensorMap* map, const void* planes, int n_planes, int rows, int
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int NC, int BN, int STAGES, int CM>
-int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int m,
-           int n, int ns, int k_pad, int batch, const Schedule& sch, int grid,
-           int smem_bytes, cudaStream_t stream) {
+template <int NC, int BN, int STAGES, int CM, int MODE>
+int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int* tot,
+           int add, int m, int n, int ns, int k_pad, int batch, const Schedule& sch,
+           int grid, int smem_bytes, cudaStream_t stream) {
   using T = Tile<NC, BN, STAGES, CM>;
   if (smem_bytes != T::SMEM_BYTES || grid % CM != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
   if (!plane_map(&map_a, da, ns * batch, m, k_pad, T::BM) ||
       !plane_map(&map_b, dbt, ns * batch, n, k_pad, BN / CM))
     return (int)cudaErrorInvalidValue;
-  auto kernel = recombine_kernel<NC, BN, STAGES, CM>;
+  auto kernel = recombine_kernel<NC, BN, STAGES, CM, MODE>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return (int)e;
@@ -577,9 +648,108 @@ int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int
     if (fit < 1) return (int)cudaErrorInvalidConfiguration;
     if (grid > fit * CM) cfg.gridDim = dim3(fit * CM);
   }
-  e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, o0, o1, o2, m, n,
+  e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, o0, o1, o2, tot, add, m, n,
                          (k_pad + BK - 1) / BK, batch, sch);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+// The checks both entries share, and the schedule from its host arrays
+// (the scales only where given).
+bool make_schedule(Schedule& sch, const void* da, const void* dbt, int m, int n, int ns,
+                   int k_pad, int batch, int n_groups, const int32_t* group_start,
+                   const int32_t* pair_i, const int32_t* pair_j, const float* scale_hi,
+                   const float* scale_lo, int grid) {
+  if (n_groups < 1 || n_groups > kMaxGroups || group_start[n_groups] > kMaxPairs ||
+      k_pad < 16 || k_pad % 16 != 0 || m < 1 || n < 1 || ns < 1 || batch < 1 || grid < 1 ||
+      (uintptr_t)da % 16 != 0 || (uintptr_t)dbt % 16 != 0)
+    return false;
+  sch.n_groups = n_groups;
+  for (int g = 0; g <= n_groups; ++g) sch.start[g] = (uint16_t)group_start[g];
+  for (int p = 0; p < group_start[n_groups]; ++p) {
+    sch.pi[p] = (uint8_t)pair_i[p];
+    sch.pj[p] = (uint8_t)pair_j[p];
+  }
+  for (int g = 0; g < n_groups; ++g) {
+    sch.scale_hi[g] = scale_hi ? scale_hi[g] : 0.0f;
+    sch.scale_lo[g] = scale_lo ? scale_lo[g] : 0.0f;
+  }
+  return true;
+}
+
+template <int MODE>
+int launch_tile(int tile, const void* da, const void* dbt, float* o0, float* o1, float* o2,
+                int* tot, int add, int m, int n, int ns, int k_pad, int batch,
+                const Schedule& sch, int grid, int smem_bytes, cudaStream_t s) {
+  switch (tile) {
+    case 0:
+      return launch<2, 256, 4, 2, MODE>(da, dbt, o0, o1, o2, tot, add, m, n, ns, k_pad,
+                                        batch, sch, grid, smem_bytes, s);
+    case 1:
+      return launch<1, 128, 8, 1, MODE>(da, dbt, o0, o1, o2, tot, add, m, n, ns, k_pad,
+                                        batch, sch, grid, smem_bytes, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The totals fold (replaces ozimmu_tpu_torch/ops/recombine.py::
+// fold_group_totals, plain XLA in the JAX package: ozimmu_tpu/ops/
+// recombine.py:127): int32 group totals [G, elems] -> the triple's three
+// f32 planes [3, elems], elementwise, in fold_group_totals' order (per
+// group ascending: the hi term then the lo term through add_term, then
+// renorm), with fold_group's round-to-nearest steps, so bit for bit.
+// Bound by bytes: 4 G + 12 per element.  V consecutive elements a thread,
+// each group's V totals in one load (16 bytes where V = 4) and each
+// plane's V results in one store.
+struct Scales {
+  int n_groups;
+  float hi[kMaxGroups];  // 2^(w+16)
+  float lo[kMaxGroups];  // 2^w
+};
+
+template <int V>
+__global__ void __launch_bounds__(256)
+    totals_fold_kernel(const int* __restrict__ tot, float* __restrict__ out, int64_t elems,
+                       const Scales sc) {
+  const int64_t units = elems / V;
+  for (int64_t u = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; u < units;
+       u += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t e0 = u * V;
+    float t0[V], t1[V], t2[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) t0[q] = t1[q] = t2[q] = 0.0f;
+    for (int g = 0; g < sc.n_groups; ++g) {
+      int v[V];
+      const int* src = tot + (int64_t)g * elems + e0;
+      if constexpr (V == 4) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(src));
+        v[0] = x.x;
+        v[1] = x.y;
+        v[2] = x.z;
+        v[3] = x.w;
+      } else {
+        v[0] = __ldg(src);
+      }
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const int hi = v[q] >> 16;     // arithmetic: [-2^15, 2^15)
+        const int lo = v[q] & 0xFFFF;  // == v - hi * 2^16, in [0, 2^16)
+        add_term(t0[q], t1[q], t2[q], __fmul_rn(__int2float_rn(hi), sc.hi[g]));
+        add_term(t0[q], t1[q], t2[q], __fmul_rn(__int2float_rn(lo), sc.lo[g]));
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < V; ++q) renorm(t0[q], t1[q], t2[q]);
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(out + e0) = make_float4(t0[0], t0[1], t0[2], t0[3]);
+      *reinterpret_cast<float4*>(out + elems + e0) = make_float4(t1[0], t1[1], t1[2], t1[3]);
+      *reinterpret_cast<float4*>(out + 2 * elems + e0) = make_float4(t2[0], t2[1], t2[2], t2[3]);
+    } else {
+      out[e0] = t0[0];
+      out[elems + e0] = t1[0];
+      out[2 * elems + e0] = t2[0];
+    }
+  }
 }
 
 }  // namespace
@@ -603,31 +773,54 @@ extern "C" int oz_recombine(const void* da, const void* dbt, void* o0, void* o1,
                             const int32_t* pair_j, const float* scale_hi,
                             const float* scale_lo, int tile, int grid, int smem_bytes,
                             void* stream) {
-  if (n_groups < 1 || n_groups > kMaxGroups || group_start[n_groups] > kMaxPairs ||
-      k_pad < 16 || k_pad % 16 != 0 || m < 1 || n < 1 || ns < 1 || batch < 1 || grid < 1 ||
-      (uintptr_t)da % 16 != 0 || (uintptr_t)dbt % 16 != 0)
-    return (int)cudaErrorInvalidValue;
   Schedule sch;
-  sch.n_groups = n_groups;
-  for (int g = 0; g <= n_groups; ++g) sch.start[g] = (uint16_t)group_start[g];
-  for (int p = 0; p < group_start[n_groups]; ++p) {
-    sch.pi[p] = (uint8_t)pair_i[p];
-    sch.pj[p] = (uint8_t)pair_j[p];
-  }
+  if (!make_schedule(sch, da, dbt, m, n, ns, k_pad, batch, n_groups, group_start, pair_i,
+                     pair_j, scale_hi, scale_lo, grid))
+    return (int)cudaErrorInvalidValue;
+  return launch_tile<kFold>(tile, da, dbt, (float*)o0, (float*)o1, (float*)o2, nullptr, 0, m,
+                            n, ns, k_pad, batch, sch, grid, smem_bytes, (cudaStream_t)stream);
+}
+
+// The totals mode: the same operands, plan and schedule as oz_recombine
+// (no scales); totals: int32 [n_groups, batch, m, n], 8-byte aligned,
+// stored (add == 0) or added to (add != 0).  Returns a cudaError_t code.
+extern "C" int oz_recombine_totals(const void* da, const void* dbt, void* totals, int add,
+                                   int m, int n, int ns, int k_pad, int batch, int n_groups,
+                                   const int32_t* group_start, const int32_t* pair_i,
+                                   const int32_t* pair_j, int tile, int grid,
+                                   int smem_bytes, void* stream) {
+  Schedule sch;
+  if ((uintptr_t)totals % 8 != 0 ||
+      !make_schedule(sch, da, dbt, m, n, ns, k_pad, batch, n_groups, group_start, pair_i,
+                     pair_j, nullptr, nullptr, grid))
+    return (int)cudaErrorInvalidValue;
+  return launch_tile<kTotals>(tile, da, dbt, nullptr, nullptr, nullptr, (int*)totals, add, m,
+                              n, ns, k_pad, batch, sch, grid, smem_bytes,
+                              (cudaStream_t)stream);
+}
+
+// The totals fold: totals int32 [n_groups, elems] -> out float32
+// [3, elems]; vec 4 (elems a multiple of 4, both 16-byte aligned) or 1;
+// scale_hi / scale_lo: host arrays of the groups' two f32 factors; a
+// grid-stride loop over `grid` blocks of `threads`
+// (ops/recombine_cuda.py::fold_plan).  Returns a cudaError_t code.
+extern "C" int oz_totals_fold(const void* totals, void* out, int64_t elems, int n_groups,
+                              const float* scale_hi, const float* scale_lo, int vec,
+                              int grid, int threads, void* stream) {
+  if (n_groups < 1 || n_groups > kMaxGroups || elems < 1 || grid < 1 || threads != 256 ||
+      (vec != 1 && vec != 4) ||
+      (vec == 4 && (elems % 4 != 0 || (uintptr_t)totals % 16 != 0 || (uintptr_t)out % 16 != 0)))
+    return (int)cudaErrorInvalidValue;
+  Scales sc;
+  sc.n_groups = n_groups;
   for (int g = 0; g < n_groups; ++g) {
-    sch.scale_hi[g] = scale_hi[g];
-    sch.scale_lo[g] = scale_lo[g];
+    sc.hi[g] = scale_hi[g];
+    sc.lo[g] = scale_lo[g];
   }
   cudaStream_t s = (cudaStream_t)stream;
-  float *p0 = (float*)o0, *p1 = (float*)o1, *p2 = (float*)o2;
-  switch (tile) {
-    case 0:
-      return launch<2, 256, 4, 2>(da, dbt, p0, p1, p2, m, n, ns, k_pad, batch, sch, grid,
-                                  smem_bytes, s);
-    case 1:
-      return launch<1, 128, 8, 1>(da, dbt, p0, p1, p2, m, n, ns, k_pad, batch, sch, grid,
-                                  smem_bytes, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (vec == 4)
+    totals_fold_kernel<4><<<grid, threads, 0, s>>>((const int*)totals, (float*)out, elems, sc);
+  else
+    totals_fold_kernel<1><<<grid, threads, 0, s>>>((const int*)totals, (float*)out, elems, sc);
+  return (int)cudaGetLastError();
 }

@@ -130,6 +130,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p, p, p, p, i32, i32, i32, p,
     ]
     lib.oz_recombine.restype = i32
+    lib.oz_recombine_totals.argtypes = [
+        p, p, p, i32, i32, i32, i32, i32, i32, i32, p, p, p, i32, i32, i32, p,
+    ]
+    lib.oz_recombine_totals.restype = i32
+    lib.oz_totals_fold.argtypes = [p, p, i64, i32, p, p, i32, i32, i32, p]
+    lib.oz_totals_fold.restype = i32
     lib.oz_epilogue.argtypes = [
         p, p, p, p, i32, i64, i64, i64, p, p, i32, p, i32, i32, p, i64, i64, p, i64, p,
     ]

@@ -23,12 +23,17 @@ kept exactly as the JAX package has it: bitwise parity depends on it.
 :func:`group_totals` + :func:`fold_group_totals` are the plain PyTorch
 version of the CUDA kernel in :mod:`.recombine_cuda`.  :func:`recombine`
 picks by the operands' device alone: CUDA tensors always go through the
-kernel, CPU tensors through the plain version.
+kernel, CPU tensors through the plain version.  So do
+:func:`group_totals_into` (the kernel's totals mode: the int32 group
+totals of one k panel, stored or added in place, as the streamed
+distributed variants sum them) and :func:`fold_totals` (the totals-fold
+kernel), whose plain versions are :func:`group_totals` summed and
+:func:`fold_group_totals`.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -138,6 +143,47 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
     if da.device.type == "cpu":
         return fold_group_totals(group_totals(da, db, num_split, k, b, b_kmajor), num_split, k, b)
     raise ValueError(f"unsupported device {da.device}")
+
+
+def group_totals_into(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
+                      totals: Optional[torch.Tensor] = None,
+                      b_kmajor: bool = False) -> torch.Tensor:
+    """The int32 group totals of one k panel's planes as ONE tensor
+    [G, (B,) m, n] (group g in ascending-t schedule order), written to a
+    new tensor, or added to ``totals`` in place (exact: the schedule's cap
+    bounds the full contraction, so pass the GLOBAL ``k``) and returned.
+
+    On a CUDA device the recombine kernel's totals mode, one launch; its
+    planes must come k-major and padded (``b_kmajor``, as the split writes
+    them), or the call raises.  On the CPU the plain :func:`group_totals`,
+    stacked or added."""
+    if da.device.type == "cuda":
+        from .recombine_cuda import group_totals as totals_kernel
+
+        if not b_kmajor:
+            raise ValueError("the totals mode reads k-major planes only: B [ns, (B,) n, k_pad]")
+        return totals_kernel(da, db, num_split, b, k, totals)
+    if da.device.type == "cpu":
+        step = group_totals(da, db, num_split, k, b, b_kmajor)
+        if totals is None:
+            return torch.stack(step)
+        for t, d in zip(totals, step):
+            t.add_(d)
+        return totals
+    raise ValueError(f"unsupported device {da.device}")
+
+
+def fold_totals(totals: torch.Tensor, num_split: int, k: int, b: int) -> Triple:
+    """:func:`fold_group_totals` of the totals tensor [G, ...] on its
+    device: the totals-fold kernel on a CUDA device (one launch), the
+    plain version on the CPU."""
+    if totals.device.type == "cuda":
+        from .recombine_cuda import fold_totals as fold_kernel
+
+        return fold_kernel(totals, num_split, k, b)
+    if totals.device.type == "cpu":
+        return fold_group_totals(totals, num_split, k, b)
+    raise ValueError(f"unsupported device {totals.device}")
 
 
 #: the JAX package's name for the dispatching entry

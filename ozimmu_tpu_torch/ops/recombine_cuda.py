@@ -1,14 +1,21 @@
-"""Wrapper of the CUDA recombine kernel (csrc/recombine.cu).
+"""Wrappers of the CUDA recombine kernel (csrc/recombine.cu) and of its
+totals fold.
 
 Port of the TPU kernel ``ozimmu_tpu/ops/recombine_pallas.py::recombine_pallas``.
-Its plain PyTorch version is :func:`.recombine.group_totals` followed by
-:func:`.recombine.fold_group_totals`; the two are bitwise equal on all
-three f32 planes.  The wrapper takes CUDA tensors only and raises on
-anything else — there is no fallback.
+:func:`recombine` folds straight to the triple; its plain PyTorch version
+is :func:`.recombine.group_totals` followed by
+:func:`.recombine.fold_group_totals`, and the two are bitwise equal on all
+three f32 planes.  The same kernel's totals mode (:func:`group_totals`,
+for the streamed variants of ``parallel/``, which sum int32 group totals
+over k panels before one fold) writes or adds the int32 group totals
+instead, and :func:`fold_totals` folds them (plain versions:
+``group_totals`` summed, and ``fold_group_totals``).  The wrappers take
+CUDA tensors only and raise on anything else — there is no fallback.
 
-:func:`launch_plan` decides everything about a launch that depends on the
-shape (tile class, padded k, grid, shared memory) in plain Python, so that
-the CPU tests can check it.
+:func:`launch_plan` decides everything about a launch of the kernel that
+depends on the shape (tile class, padded k, grid, shared memory), and
+:func:`fold_plan` the fold's, in plain Python, so that the CPU tests can
+check them.
 """
 
 from __future__ import annotations
@@ -31,6 +38,10 @@ from .tf32x3 import Triple
 #: kernel launches by :func:`recombine` since the process started (or
 #: since a caller last reset it)
 LAUNCHES = 0
+#: launches of the kernel's totals mode by :func:`group_totals`, and of
+#: the totals fold by :func:`fold_totals`, counted the same way
+TOTALS_LAUNCHES = 0
+FOLD_LAUNCHES = 0
 
 #: the kernel's tile classes, as csrc/recombine.cu instantiates them:
 #: (consumer warpgroups, block columns, ring stages, cluster size); a block
@@ -106,6 +117,32 @@ def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
     )
 
 
+#: the totals fold's blocks: threads each, and at most this many per SM
+#: in its grid-stride loop
+FOLD_THREADS = 256
+FOLD_BLOCKS_PER_SM = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldPlan:
+    vec: int  # consecutive elements a thread: 4 (16-byte accesses) or 1
+    grid: int  # blocks of FOLD_THREADS
+    threads: int
+
+
+def fold_plan(elems: int, sms: int, aligned: bool) -> FoldPlan:
+    """The totals fold's launch over ``elems`` output elements on ``sms``
+    SMs: 4 elements a thread where ``elems`` is a multiple of 4 and both
+    tensors are 16-byte ``aligned``, else 1; as many blocks as the
+    elements need, at most :data:`FOLD_BLOCKS_PER_SM` an SM."""
+    if elems < 1 or sms < 1:
+        raise ValueError(f"no totals fold for {elems} elements on {sms} SMs")
+    vec = 4 if aligned and elems % 4 == 0 else 1
+    units = elems // vec
+    return FoldPlan(vec=vec, grid=min(math.ceil(units / FOLD_THREADS), sms * FOLD_BLOCKS_PER_SM),
+                    threads=FOLD_THREADS)
+
+
 @functools.lru_cache(maxsize=64)
 def _schedule_arrays(num_split: int, k: int, b: int):
     """The group schedule as the C entry takes it: pair offsets, 0-based
@@ -148,27 +185,13 @@ def _k_major(planes: torch.Tensor, k_pad: int, name: str) -> torch.Tensor:
     return planes
 
 
-def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
-              tile: Optional[int] = None, b_kmajor: bool = False) -> Triple:
-    """The 2^ACC_SHIFT-scaled triple-f32 accumulator [m, n] of the digit
-    planes ``da`` int8 [ns, m, k] and ``db`` int8 [ns, k, n]; or, in one
-    launch, [B, m, n] of a batch ``da`` [ns, B, m, k], ``db`` [ns, B, k, n],
-    matrix i the product of the planes of matrix i.  ``k`` is the true
-    contraction length, which sets the group caps.  ``tile`` forces a tile
-    class of :data:`TILES` (the launch plan chooses otherwise).
-
-    The kernel reads both operands k-contiguous (8-bit ``wgmma`` takes only
-    K-major operands), k zero-padded to a multiple of :data:`K_ALIGN`.
-    With ``b_kmajor`` the planes come so, as the engine's split writes
-    them: ``da`` [ns, (B,) m, k_pad], ``db`` [ns, (B,) n, k_pad]; anything
-    else raises, and nothing is copied.  Without it (the planes of the
-    distributed layer and of the plain tests) B's planes are transposed
-    into a copy of ns*B*k*n bytes and A's padded where k is not a
-    multiple."""
-    global LAUNCHES
+def _operands(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
+              b_kmajor: bool, what: str):
+    """The checks the kernel's wrappers share: ``(batched, da, db, bsz, m,
+    n, k_in)`` with a 2-D call's planes given a batch axis of 1."""
     if da.device.type != "cuda" or db.device != da.device:
         raise ValueError(
-            f"recombine needs CUDA tensors on one device, got {da.device} and {db.device}"
+            f"{what} needs CUDA tensors on one device, got {da.device} and {db.device}"
         )
     for name, t in (("da", da), ("db", db)):
         if t.dtype != torch.int8 or t.dim() != da.dim() or t.dim() not in (3, 4) \
@@ -191,6 +214,36 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
         raise ValueError(f"unsupported sizes m={m} n={n} k={k_in} (true k={k})")
     if not 3 <= num_split <= 18 or not 1 <= b <= 7:
         raise ValueError(f"unsupported num_split={num_split}, b={b}")
+    return batched, da, db, bsz, m, n, k_in
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _host_ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
+              tile: Optional[int] = None, b_kmajor: bool = False) -> Triple:
+    """The 2^ACC_SHIFT-scaled triple-f32 accumulator [m, n] of the digit
+    planes ``da`` int8 [ns, m, k] and ``db`` int8 [ns, k, n]; or, in one
+    launch, [B, m, n] of a batch ``da`` [ns, B, m, k], ``db`` [ns, B, k, n],
+    matrix i the product of the planes of matrix i.  ``k`` is the true
+    contraction length, which sets the group caps.  ``tile`` forces a tile
+    class of :data:`TILES` (the launch plan chooses otherwise).
+
+    The kernel reads both operands k-contiguous (8-bit ``wgmma`` takes only
+    K-major operands), k zero-padded to a multiple of :data:`K_ALIGN`.
+    With ``b_kmajor`` the planes come so, as the engine's split and the
+    distributed layer's gathers write them: ``da`` [ns, (B,) m, k_pad],
+    ``db`` [ns, (B,) n, k_pad]; anything else raises, and nothing is
+    copied.  Without it (the plain tests' planes) B's planes are
+    transposed into a copy of ns*B*k*n bytes and A's padded where k is not
+    a multiple."""
+    global LAUNCHES
+    batched, da, db, bsz, m, n, k_in = _operands(da, db, num_split, b, k, b_kmajor, "recombine")
     out = tuple(torch.empty((bsz, m, n), dtype=torch.float32, device=da.device) for _ in range(3))
     if min(bsz, m, n, k_in) == 0:
         out = tuple(o.zero_() for o in out)
@@ -202,14 +255,85 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
         db = _pad_k_major(db.transpose(2, 3), plan.k_pad)
     da, dbt = _k_major(da, plan.k_pad, "A"), _k_major(db, plan.k_pad, "B")
     n_groups, start, pi, pj, shi, slo = _schedule_arrays(num_split, k, b)
-    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    ptr = _host_ptr
     with torch.cuda.device(da.device):
-        stream = torch.cuda.current_stream(da.device).cuda_stream
         code = native.lib().oz_recombine(
             da.data_ptr(), dbt.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            m, n, ns, plan.k_pad, bsz, n_groups, ptr(start), ptr(pi), ptr(pj), ptr(shi), ptr(slo),
-            plan.tile, plan.grid, plan.smem_bytes, stream,
+            m, n, num_split, plan.k_pad, bsz, n_groups, ptr(start), ptr(pi), ptr(pj), ptr(shi),
+            ptr(slo), plan.tile, plan.grid, plan.smem_bytes, _stream(da.device),
         )
     native.check(code, "recombine launch")
     LAUNCHES += 1
     return out if batched else tuple(o[0] for o in out)
+
+
+def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
+                 totals: Optional[torch.Tensor] = None,
+                 tile: Optional[int] = None) -> torch.Tensor:
+    """The int32 group totals [G, m, n] (a batch: [G, B, m, n]) of the
+    k-major planes ``da`` [ns, (B,) m, k_pad] and ``db`` [ns, (B,) n,
+    k_pad], group g the exact sum of its pairs' products, in one launch of
+    the kernel's totals mode: written to a new tensor or, with ``totals``
+    (int32 of that shape, contiguous), added to it in place and returned.
+
+    ``k`` is the GLOBAL contraction length: the schedule's caps bound the
+    sum over all of it, so the totals of its k panels add without
+    overflow.  The planes' own width k_pad (a multiple of :data:`K_ALIGN`,
+    zero beyond the panel's k) sets the k tiles.  Planes in any other
+    layout raise: nothing is copied."""
+    global TOTALS_LAUNCHES
+    batched, da, db, bsz, m, n, k_in = _operands(da, db, num_split, b, k, True,
+                                                 "recombine (totals)")
+    n_groups, start, pi, pj, _, _ = _schedule_arrays(num_split, k, b)
+    shape = (n_groups, bsz, m, n)
+    if totals is None:
+        out = torch.empty(shape, dtype=torch.int32, device=da.device)
+    else:
+        want = (n_groups, bsz, m, n) if batched else (n_groups, m, n)
+        if totals.dtype != torch.int32 or totals.device != da.device \
+                or tuple(totals.shape) != want or not totals.is_contiguous() \
+                or totals.data_ptr() % 8:
+            raise ValueError(f"totals must be contiguous int32 {list(want)} on {da.device}, got "
+                             f"{totals.dtype} {tuple(totals.shape)} on {totals.device}")
+        out = totals.view(shape)
+    if min(bsz, m, n) == 0:
+        return out.zero_() if totals is None else totals
+    sms = torch.cuda.get_device_properties(da.device).multi_processor_count
+    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz)
+    da, dbt = _k_major(da, plan.k_pad, "A"), _k_major(db, plan.k_pad, "B")
+    ptr = _host_ptr
+    with torch.cuda.device(da.device):
+        code = native.lib().oz_recombine_totals(
+            da.data_ptr(), dbt.data_ptr(), out.data_ptr(), int(totals is not None), m, n,
+            num_split, plan.k_pad, bsz, n_groups, ptr(start), ptr(pi), ptr(pj), plan.tile,
+            plan.grid, plan.smem_bytes, _stream(da.device),
+        )
+    native.check(code, "recombine (totals) launch")
+    TOTALS_LAUNCHES += 1
+    return out if batched else out.view(n_groups, m, n)
+
+
+def fold_totals(totals: torch.Tensor, num_split: int, k: int, b: int) -> Triple:
+    """The triple-f32 accumulator of int32 group totals [G, ...] (the
+    schedule of ``group_schedule(num_split, k, b)``), in one launch: three
+    float32 planes of ``totals.shape[1:]``, each the bits of
+    :func:`.recombine.fold_group_totals` on the same totals."""
+    global FOLD_LAUNCHES
+    n_groups, _, _, _, shi, slo = _schedule_arrays(num_split, k, b)
+    if totals.device.type != "cuda" or totals.dtype != torch.int32 or totals.dim() < 2 \
+            or totals.shape[0] != n_groups or not totals.is_contiguous():
+        raise ValueError(f"totals must be contiguous int32 [{n_groups}, ...] on a CUDA device, "
+                         f"got {totals.dtype} {tuple(totals.shape)} on {totals.device}")
+    out = torch.empty((3,) + tuple(totals.shape[1:]), dtype=torch.float32, device=totals.device)
+    elems = totals[0].numel()
+    if elems == 0:
+        return tuple(out.unbind(0))
+    plan = fold_plan(elems, torch.cuda.get_device_properties(totals.device).multi_processor_count,
+                     aligned=totals.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    with torch.cuda.device(totals.device):
+        code = native.lib().oz_totals_fold(
+            totals.data_ptr(), out.data_ptr(), elems, n_groups, _host_ptr(shi), _host_ptr(slo),
+            plan.vec, plan.grid, plan.threads, _stream(totals.device))
+    native.check(code, "totals fold launch")
+    FOLD_LAUNCHES += 1
+    return tuple(out.unbind(0))

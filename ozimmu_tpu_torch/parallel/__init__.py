@@ -6,11 +6,14 @@ SUMMA (:func:`sharded_gemm`), the k-sharded variant
 (``variant="ring"`` / ``"stream"``), real and complex, distributed AUTO
 (:func:`sharded_gemm_auto`) and the pre-sharded entries, over a
 ``DeviceMesh``; the CUDA split and recombine kernels run inside every
-rank.  Launch with ``torchrun`` (each rank calls :func:`initialize`) or,
+rank (SUMMA folds in the recombine kernel; the ring, stream and k-sharded
+variants sum int32 group totals through its totals mode, then one
+totals-fold launch).  Launch with ``torchrun`` (each rank calls :func:`initialize`) or,
 on one host, ``python -m ozimmu_tpu_torch.parallel.local``.
 """
 
 from .gemm import (
+    k_device_bytes,
     make_mesh_2d,
     ring_device_bytes,
     select_variant,
@@ -47,6 +50,7 @@ __all__ = [
     "allgather_f64x",
     "dcn_axis_for",
     "initialize",
+    "k_device_bytes",
     "make_mesh_2d",
     "make_mesh_2d_hybrid",
     "replicated_f64x",

@@ -8,7 +8,9 @@ The port's counterparts of the ``jax.lax`` collectives that
   ===================================  ======================================
   ``lax.pmax``                         :func:`pmax` (``all_reduce`` MAX)
   ``lax.psum``                         :func:`psum` (``all_reduce`` SUM)
-  ``lax.all_gather(tiled=True)``       :func:`all_gather`
+  ``lax.all_gather(tiled=True)``       :func:`all_gather`, and
+                                       :func:`all_gather_k` for k-major
+                                       digit planes
   ``lax.psum_scatter(tiled=True)``     :func:`psum_scatter`
                                        (``reduce_scatter_tensor``)
   ``lax.ppermute``                     :func:`ppermute` (``batch_isend_irecv``)
@@ -112,14 +114,42 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
     return _back(out, x) if staged else out
 
 
-def psum_scatter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Sum over ``axis``, leaving rank ``i`` the i-th of equal row blocks
-    (``lax.psum_scatter(..., scatter_dimension=0, tiled=True)``)."""
+def all_gather_k(x: torch.Tensor, mesh, axis: str, width: int, k_pad: int) -> torch.Tensor:
+    """The k-major digit planes of every rank along ``axis`` as one slab:
+    ``x`` [..., rows, kl] holds this rank's block of the contraction in
+    its first ``width`` columns (zero padding beyond); the result is
+    [..., rows, k_pad], rank r's block at columns [r * width, (r + 1) *
+    width), zero from ``p * width`` on — the layout the recombine kernel
+    reads, written in the one copy that the gather makes anyway."""
     group = mesh.get_group(axis)
     p = dist.get_world_size(group)
-    if x.shape[0] % p:
-        raise ValueError(f"{x.shape[0]} rows do not scatter over {p} ranks")
+    if not width <= x.shape[-1] or k_pad < p * width:
+        raise ValueError(f"blocks of {width} of {x.shape[-1]} columns do not gather over {p} "
+                         f"ranks into {k_pad}")
     x = x.contiguous()
+    staged = _staged(group, x)
+    src = _host(x) if staged else x
+    blocks = torch.empty((p,) + tuple(x.shape), dtype=x.dtype, device=src.device)
+    dist.all_gather_into_tensor(blocks.view((p * x.shape[0],) + tuple(x.shape[1:])), src,
+                                group=group)
+    out = torch.empty(tuple(x.shape[:-1]) + (k_pad,), dtype=x.dtype, device=src.device)
+    out[..., p * width:].zero_()
+    out[..., :p * width].unflatten(-1, (p, width)).copy_(blocks[..., :width].movedim(0, -2))
+    return _back(out, x) if staged else out
+
+
+def psum_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """Sum over ``axis``, leaving rank ``i`` the i-th of equal blocks along
+    ``dim`` (``lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``).
+    Over one rank the sum is ``x`` itself, returned as it is."""
+    group = mesh.get_group(axis)
+    p = dist.get_world_size(group)
+    if x.shape[dim] % p:
+        raise ValueError(f"{x.shape[dim]} rows do not scatter over {p} ranks")
+    if p == 1:
+        return x
+    # rank i's block first in the i-th of p equal parts: [p * d0, ...]
+    x = x.unflatten(dim, (p, -1)).movedim(dim, 0).contiguous().flatten(0, 1)
     staged = _staged(group, x)
     src = _host(x) if staged else x
     out = torch.empty((x.shape[0] // p,) + tuple(x.shape[1:]), dtype=x.dtype, device=src.device)
@@ -132,9 +162,8 @@ def broadcast(x: torch.Tensor, mesh, axis: str, owner: int) -> torch.Tensor:
     every rank of it; the others pass a tensor of the same shape and type,
     whose values are not read."""
     group = mesh.get_group(axis)
-    x = x.contiguous()
     staged = _staged(group, x)
-    buf = _host(x) if staged else x.clone()
+    buf = _host(x.contiguous()) if staged else x.clone(memory_format=torch.contiguous_format)
     dist.broadcast(buf, src=dist.get_global_rank(group, owner), group=group)
     return _back(buf, x) if staged else buf
 

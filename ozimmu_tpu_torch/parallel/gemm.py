@@ -14,9 +14,13 @@ Algorithm (SUMMA-style, blocks on an (x, y) mesh):
 
   1. row / column max exponents: local int32 max + MAX over the
      contraction axis (``comm.pmax``);
-  2. local split -> int8 digit planes (the CUDA split kernel on the card);
+  2. local split -> int8 digit planes (the CUDA split kernel on the card),
+     both operands k-major and zero-padded along k to a multiple of 16
+     (A [ns, m/x, k_pad], B [ns, n/y, k_pad]), as the recombine kernel
+     reads them;
   3. all-gather A's planes along ``y`` and B's planes along ``x``, so that
-     every rank owns full-k slabs;
+     every rank owns full-k slabs (``comm.all_gather_k`` writes the
+     k-major slab in the gather's one copy);
   4. local recombination (the CUDA recombine kernel on the card) and the
      exact epilogue -> C block (x, y).
 
@@ -38,10 +42,14 @@ panels and epilogue blocks from its share of it.
 The epilogue is ``core.gemm._epilogue_SE`` itself (and the complex fold
 ``_zfold_passes``): elementwise, so applying it per block keeps every
 variant bitwise equal to the one-device engine.  The ring, stream and k
-variants accumulate exact int32 group totals across steps through the
-plain ``ops.recombine.group_totals`` (``torch._int_mm``), as the JAX
-variants use the plain XLA ``group_totals`` and not the Pallas kernel; the
-recombine kernel folds straight to the triple and keeps no int32 totals.
+variants sum exact int32 group totals over their k panels (or
+reduce-scatter them) before one fold, as the JAX variants do through the
+plain XLA ``group_totals`` and ``fold_group_totals``: here each step is
+``ops.recombine.group_totals_into`` (on the card one launch of the
+recombine kernel's totals mode, which stores or adds the totals
+[G, m, n] in place), and the fold is ``ops.recombine.fold_totals`` (on
+the card the totals-fold kernel), once per product and pass.  No path
+runs the plain versions on a card.
 """
 
 from __future__ import annotations
@@ -53,14 +61,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.api import _apply_op, _complex_result, _planes
 from ..core.bits import exponent_field
 from ..core.gemm import ZGEMM_PASSES, Exponents, _epilogue_SE, _zfold_passes, _zpasses
 from ..ops.mantissa_loss import loss_totals_with_group_exp, select_mode_from_totals
-from ..ops.recombine import acc_shift, fold_group_totals, group_totals, recombine
+from ..ops.recombine import acc_shift, fold_totals, group_totals_into, padded_k, recombine
 from ..ops.split import row_exponent, split_with_exp
-from ..schedule import BYTES_PER_OUTPUT_ELEMENT, bits_per_int8, hbm_budget_bytes, shared_device
+from ..schedule import (BYTES_PER_OUTPUT_ELEMENT, bits_per_int8, group_schedule,
+                        hbm_budget_bytes, shared_device)
 from ..types import ComputeMode, Operation
 from . import comm
 
@@ -81,21 +91,14 @@ def _bits(k_global: int) -> int:
 def _local_split(x: torch.Tensor, mesh, mesh_axis: Optional[str], ns: int, b: int, axis: int):
     """Split a k-sharded block against the GLOBAL max exponent along the
     contraction axis (``axis`` of the local block): the local max, MAX over
-    ``mesh_axis``, then the split kernel (plain version on the CPU)."""
+    ``mesh_axis``, then the split kernel (plain version on the CPU), into
+    k-major planes zero-padded to ``padded_k`` of the block's k (A [ns,
+    rows, k_pad], B [ns, cols, k_pad]: zero digits add zero products)."""
     x = x.contiguous()
     e_row = row_exponent(x, axis)
     if mesh_axis is not None:
         e_row = comm.pmax(e_row, mesh, mesh_axis)
-    return split_with_exp(x, e_row, ns, b, axis)
-
-
-def _accumulate(totals, step):
-    """``totals + step`` per group, in place (exact int32)."""
-    if totals is None:
-        return step
-    for t, s in zip(totals, step):
-        t.add_(s)
-    return totals
+    return split_with_exp(x, e_row, ns, b, axis, padded_k(x.shape[axis]))
 
 
 def _square(mesh, axis_x: str, axis_y: str, what: str, instead: str) -> int:
@@ -118,17 +121,19 @@ def _stream_panels(mesh, axis_x: str, axis_y: str, k_global: int):
     return L, k_global // L, L // ys, L // xs
 
 
-def _bcast_panel(planes, mesh, mesh_axis: str, owner: int, off: int, width: int, dim: int):
-    """The owner's k-panel ``planes.narrow(dim, off, width)`` on every rank
-    along ``mesh_axis``, by a broadcast from the owner.  The JAX package
-    sums the owner's panel with zeros from the other ranks (a masked
-    ``psum``); the bits are the same, at half the traffic."""
+def _bcast_panel(planes, mesh, mesh_axis: str, owner: int, off: int, width: int):
+    """The owner's k-panel of its k-major planes, columns [off, off +
+    width) zero-padded to ``padded_k(width)``, on every rank along
+    ``mesh_axis``, by a broadcast from the owner.  The JAX package sums
+    the owner's panel with zeros from the other ranks (a masked ``psum``);
+    the bits are the same, at half the traffic."""
+    wp = padded_k(width)
     if comm.axis_index(mesh, mesh_axis) == owner:
-        pan = planes.narrow(dim, off, width)
+        pan = planes.narrow(-1, off, width)
+        if wp != width:
+            pan = F.pad(pan, (0, wp - width))
     else:
-        shape = list(planes.shape)
-        shape[dim] = width
-        pan = planes.new_empty(shape)
+        pan = planes.new_empty(tuple(planes.shape[:-1]) + (wp,))
     return comm.broadcast(pan, mesh, mesh_axis, owner)
 
 
@@ -167,13 +172,15 @@ def sharded_gemm_fn(mesh, num_split: int, k_global: int, axis_x: str = "x", axis
     alpha, beta = float(alpha), float(beta)
     shift = acc_shift(num_split, b)
 
+    kp = padded_k(k_global)
+
     def fn(a, bm, c=None):
         # a: [m/x, k/y], bm: [k/x, n/y]
         da, pa = _local_split(a, mesh, axis_y, num_split, b, axis=1)
         db, pb = _local_split(bm, mesh, axis_x, num_split, b, axis=0)
-        da = comm.all_gather(da, mesh, axis_y, dim=2)  # [ns, m/x, k]
-        db = comm.all_gather(db, mesh, axis_x, dim=1)  # [ns, k, n/y]
-        S = recombine(da, db, num_split, b, k_global)
+        da = comm.all_gather_k(da, mesh, axis_y, a.shape[1], kp)  # [ns, m/x, k_pad]
+        db = comm.all_gather_k(db, mesh, axis_x, bm.shape[0], kp)  # [ns, n/y, k_pad]
+        S = recombine(da, db, num_split, b, k_global, b_kmajor=True)
         del da, db
         return _epilogue_local(S, Exponents(pa, pb, shift), alpha, beta, c)
 
@@ -186,10 +193,10 @@ def sharded_gemm_k_fn(mesh, num_split: int, k_global: int, axis_k: str = "k",
     ``fn(a, b, c=None)``: A [m, k/P], B [k/P, n] per rank; the output (and
     C) comes back row-sharded, [m/P, n].
 
-    Each rank computes the exact int32 group totals of its k panel; a
-    reduce-scatter along k sums them and leaves the rows of C sharded.
-    int32 sums are order-independent, so the bits equal the one-device
-    engine's.  m must divide by the mesh size."""
+    Each rank computes the exact int32 group totals [G, m, n] of its k
+    panel; one reduce-scatter along k sums them and leaves the rows of C
+    sharded.  int32 sums are order-independent, so the bits equal the
+    one-device engine's.  m must divide by the mesh size."""
     b = _bits(k_global)
     alpha, beta = float(alpha), float(beta)
     shift = acc_shift(num_split, b)
@@ -197,11 +204,12 @@ def sharded_gemm_k_fn(mesh, num_split: int, k_global: int, axis_k: str = "k",
     def fn(a, bm, c=None):
         da, pa = _local_split(a, mesh, axis_k, num_split, b, axis=1)
         db, pb = _local_split(bm, mesh, axis_k, num_split, b, axis=0)
-        totals = [comm.psum_scatter(t, mesh, axis_k)
-                  for t in group_totals(da, db, num_split, k_global, b)]
+        totals = group_totals_into(da, db, num_split, b, k_global, b_kmajor=True)
         del da, db
-        S = fold_group_totals(totals, num_split, k_global, b)
-        m_local = totals[0].shape[0]
+        totals = comm.psum_scatter(totals, mesh, axis_k, dim=1)
+        S = fold_totals(totals, num_split, k_global, b)
+        m_local = totals.shape[1]
+        del totals
         row0 = comm.axis_index(mesh, axis_k) * m_local
         E = Exponents(pa[row0:row0 + m_local], pb, shift)
         return _epilogue_local(S, E, alpha, beta, c)
@@ -227,12 +235,15 @@ def sharded_zgemm_k_fn(mesh, num_split: int, k_global: int, axis_k: str = "k",
             db[idx], pb[idx] = _local_split(x, mesh, axis_k, num_split, b, axis=0)
         SEs = []
         for ap, bp in ZGEMM_PASSES:
-            totals = [comm.psum_scatter(t, mesh, axis_k)
-                      for t in group_totals(da[ap], db[bp], num_split, k_global, b)]
-            m_local = totals[0].shape[0]
+            totals = comm.psum_scatter(
+                group_totals_into(da[ap], db[bp], num_split, b, k_global, b_kmajor=True),
+                mesh, axis_k, dim=1)
+            m_local = totals.shape[1]
             row0 = comm.axis_index(mesh, axis_k) * m_local
-            SEs.append((fold_group_totals(totals, num_split, k_global, b),
+            SEs.append((fold_totals(totals, num_split, k_global, b),
                         Exponents(pa[ap][row0:row0 + m_local], pb[bp], shift)))
+            del totals
+        del da, db
         m_l, n_l = SEs[0][0][0].shape
         return _zfold_passes(SEs, m_l, n_l, alpha, beta, c_re, c_im, a_re.device)
 
@@ -260,13 +271,14 @@ def sharded_gemm_ring_fn(mesh, num_split: int, k_global: int, axis_x: str = "x",
         db, pb = _local_split(bm, mesh, axis_x, num_split, b, axis=0)
         da = _skew(da, mesh, axis_y, comm.axis_index(mesh, axis_x), q)
         db = _skew(db, mesh, axis_x, comm.axis_index(mesh, axis_y), q)
-        totals = group_totals(da, db, num_split, k_global, b)
+        totals = group_totals_into(da, db, num_split, b, k_global, b_kmajor=True)
         for _ in range(1, q):
             da = comm.ppermute(da, mesh, axis_y, _ring_shift(q))
             db = comm.ppermute(db, mesh, axis_x, _ring_shift(q))
-            totals = _accumulate(totals, group_totals(da, db, num_split, k_global, b))
+            group_totals_into(da, db, num_split, b, k_global, totals, b_kmajor=True)
         del da, db
-        S = fold_group_totals(totals, num_split, k_global, b)
+        S = fold_totals(totals, num_split, k_global, b)
+        del totals
         return _epilogue_local(S, Exponents(pa, pb, shift), alpha, beta, c)
 
     return fn
@@ -288,17 +300,20 @@ def sharded_gemm_stream_fn(mesh, num_split: int, k_global: int, axis_x: str = "x
     shift = acc_shift(num_split, b)
 
     def fn(a, bm, c=None):
-        da, pa = _local_split(a, mesh, axis_y, num_split, b, axis=1)  # [ns, m/x, k/ys]
-        db, pb = _local_split(bm, mesh, axis_x, num_split, b, axis=0)  # [ns, k/xs, n/y]
+        da, pa = _local_split(a, mesh, axis_y, num_split, b, axis=1)  # [ns, m/x, k_pad(k/ys)]
+        db, pb = _local_split(bm, mesh, axis_x, num_split, b, axis=0)  # [ns, n/y, k_pad(k/xs)]
         totals = None
         for u in range(L):
             oy, ly = divmod(u, per_y)
             ox, lx = divmod(u, per_x)
-            a_pan = _bcast_panel(da, mesh, axis_y, oy, ly * w, w, 2)
-            b_pan = _bcast_panel(db, mesh, axis_x, ox, lx * w, w, 1)
-            totals = _accumulate(totals, group_totals(a_pan, b_pan, num_split, k_global, b))
+            a_pan = _bcast_panel(da, mesh, axis_y, oy, ly * w, w)
+            b_pan = _bcast_panel(db, mesh, axis_x, ox, lx * w, w)
+            totals = group_totals_into(a_pan, b_pan, num_split, b, k_global, totals,
+                                       b_kmajor=True)
+            del a_pan, b_pan
         del da, db
-        S = fold_group_totals(totals, num_split, k_global, b)
+        S = fold_totals(totals, num_split, k_global, b)
+        del totals
         return _epilogue_local(S, Exponents(pa, pb, shift), alpha, beta, c)
 
     return fn
@@ -315,16 +330,17 @@ def sharded_zgemm_fn(mesh, num_split: int, k_global: int, axis_x: str = "x", axi
     All blocks sharded (x, y)."""
     b = _bits(k_global)
     alpha, beta = complex(alpha), complex(beta)
+    kp = padded_k(k_global)
 
     def fn(a_re, a_im, b_re, b_im, c_re=None, c_im=None):
         a_planes, b_planes = {}, {}
         for idx, x in ((0, a_re), (1, a_im)):
             d, p = _local_split(x, mesh, axis_y, num_split, b, axis=1)
-            a_planes[idx] = (comm.all_gather(d, mesh, axis_y, dim=2), p)
+            a_planes[idx] = (comm.all_gather_k(d, mesh, axis_y, x.shape[1], kp), p)
         for idx, x in ((0, b_re), (1, b_im)):
             d, p = _local_split(x, mesh, axis_x, num_split, b, axis=0)
-            b_planes[idx] = (comm.all_gather(d, mesh, axis_x, dim=1), p)
-        SEs = _zpasses(a_planes, b_planes, num_split, b, k_global)
+            b_planes[idx] = (comm.all_gather_k(d, mesh, axis_x, x.shape[0], kp), p)
+        SEs = _zpasses(a_planes, b_planes, num_split, b, k_global, b_kmajor=True)
         del a_planes, b_planes
         m_l, n_l = SEs[0][0][0].shape
         return _zfold_passes(SEs, m_l, n_l, alpha, beta, c_re, c_im, a_re.device)
@@ -336,7 +352,8 @@ def _complex_streamed(mesh, num_split: int, k_global: int, b: int, alpha: comple
                       beta: complex, split_axes, steps):
     """Shared body of the ring and stream complex variants: split the four
     planes, let ``steps(da, db)`` yield the plane pairs of each step, sum
-    the int32 group totals of all four passes over the steps, fold once."""
+    the int32 group totals of all four passes over the steps (in place,
+    one totals tensor per pass), fold each once."""
     shift = acc_shift(num_split, b)
     a_axis, b_axis = split_axes
 
@@ -349,10 +366,11 @@ def _complex_streamed(mesh, num_split: int, k_global: int, b: int, alpha: comple
         totals = {pc: None for pc in ZGEMM_PASSES}
         for sa, sb in steps(da, db):
             for ap, bp in ZGEMM_PASSES:
-                totals[(ap, bp)] = _accumulate(
-                    totals[(ap, bp)], group_totals(sa[ap], sb[bp], num_split, k_global, b))
+                totals[(ap, bp)] = group_totals_into(sa[ap], sb[bp], num_split, b, k_global,
+                                                     totals[(ap, bp)], b_kmajor=True)
+            del sa, sb
         del da, db
-        SEs = [(fold_group_totals(totals[(ap, bp)], num_split, k_global, b),
+        SEs = [(fold_totals(totals.pop((ap, bp)), num_split, k_global, b),
                 Exponents(pa[ap], pb[bp], shift)) for ap, bp in ZGEMM_PASSES]
         m_l, n_l = SEs[0][0][0].shape
         return _zfold_passes(SEs, m_l, n_l, alpha, beta, c_re, c_im, a_re.device)
@@ -399,8 +417,8 @@ def sharded_zgemm_stream_fn(mesh, num_split: int, k_global: int, axis_x: str = "
         for u in range(L):
             oy, ly = divmod(u, per_y)
             ox, lx = divmod(u, per_x)
-            yield ({i: _bcast_panel(da[i], mesh, axis_y, oy, ly * w, w, 2) for i in (0, 1)},
-                   {i: _bcast_panel(db[i], mesh, axis_x, ox, lx * w, w, 1) for i in (0, 1)})
+            yield ({i: _bcast_panel(da[i], mesh, axis_y, oy, ly * w, w) for i in (0, 1)},
+                   {i: _bcast_panel(db[i], mesh, axis_x, ox, lx * w, w) for i in (0, 1)})
 
     return _complex_streamed(mesh, num_split, k_global, b, complex(alpha), complex(beta),
                              (axis_y, axis_x), steps)
@@ -1038,6 +1056,25 @@ def stream_device_bytes(m: int, n: int, k: int, num_split: int, xs: int, ys: int
     )
 
 
+def k_device_bytes(m: int, n: int, k: int, num_split: int, p: int,
+                   complex_: bool = False) -> int:
+    """Per-rank peak bytes of the k-sharded variant on ``p`` ranks: the
+    local operand blocks and their split planes (ns * (m + n) * k/p int8),
+    the int32 group totals of the FULL m x n block (4 B a group, G groups
+    of ``group_schedule``) and, over several ranks, the reduce-scattered
+    rows of them, and the output term over m x n.  The JAX package's test
+    counts the operand blocks and the output term only; on one card the
+    planes and G - 1 more totals took more than 1.1 x that (PERF.md §6)."""
+    f = 2 if complex_ else 1
+    kl = -(-k // p)
+    totals = 4 * len(group_schedule(num_split, k, _bits(k))) * m * n
+    return f * (
+        (num_split + 8) * (m + n) * kl  # operand blocks and their int8 planes
+        + totals + (totals // p if p > 1 else 0)  # group totals, and the scattered rows
+        + BYTES_PER_OUTPUT_ELEMENT * m * n
+    )
+
+
 def _result_device_bytes(m: int, n: int, complex_: bool = False) -> int:
     """Bytes of the global m x n result that the host wrappers assemble on
     the mesh's device for tensor operands, beside the variant's own model
@@ -1052,7 +1089,10 @@ def select_variant(m: int, n: int, k: int, num_split: int, mesh, axis_x: str = "
     """Shape and mesh -> "summa" | "ring" | "stream" | "k".
 
     * tall contraction (k >= 8 * max(m, n)) whose full m x n output block
-      fits every rank -> "k" (moves only int32 group totals);
+      fits every rank -> "k" (moves only int32 group totals; its model,
+      :func:`k_device_bytes`, counts the planes and the totals that the
+      JAX package's test leaves out, so near the budget the port can say
+      "summa" where the JAX package says "k");
     * the all-gather slabs fit -> "summa" (fewest collective steps);
     * over that, square mesh, ring fits -> "ring" (neighbour traffic);
     * else -> "stream" if it fits (any mesh, ~2x the traffic of summa);
@@ -1063,14 +1103,9 @@ def select_variant(m: int, n: int, k: int, num_split: int, mesh, axis_x: str = "
     if hbm_bytes is None:
         hbm_bytes = hbm_budget_bytes(mesh_device(mesh))
     xs, ys = comm.axis_size(mesh, axis_x), comm.axis_size(mesh, axis_y)
-    f = 2 if complex_ else 1
-    if (
-        k >= 8 * max(m, n)
-        # the k variant keeps the FULL m x n output block and its
-        # accumulators on every rank: only eligible when that fits
-        and f * (BYTES_PER_OUTPUT_ELEMENT * m * n + 8 * (m + n) * (-(-k // (xs * ys))))
-        <= hbm_bytes
-    ):
+    # the k variant keeps the FULL m x n output block and its
+    # accumulators on every rank: only eligible when that fits
+    if k >= 8 * max(m, n) and k_device_bytes(m, n, k, num_split, xs * ys, complex_) <= hbm_bytes:
         return "k"
     if summa_device_bytes(m, n, k, num_split, xs, ys, complex_) <= hbm_bytes:
         return "summa"

@@ -11,8 +11,8 @@ Starts ``--nproc`` processes with ``subprocess``, each one rank of a
 every case of ``TABLE``, a dict ``name -> fn(mesh) -> dict`` of arrays,
 tensors, numbers or strings, in order.  Per case and rank it records the
 results, the traceback of an exception (``<case>/error``), and the whole
-case's seconds, split, exponent, recombine, epilogue and fold kernel launches and bytes staged
-through host memory (``<case>/case_seconds``, ``case_launches_*``,
+case's seconds, split, exponent, recombine (both modes), totals-fold, epilogue and fold
+kernel launches and bytes staged through host memory (``<case>/case_seconds``, ``case_launches_*``,
 ``case_staged_bytes``); each rank writes them to its own ``.npz``.  The parent waits with
 a timeout: a rank that fails or hangs has every rank killed and raises, so
 a hung collective fails a test or a phase, never the run around it.
@@ -87,6 +87,7 @@ def _run_case(name: str, fn, mesh, cuda: bool) -> Dict[str, np.ndarray]:
     if cuda:
         torch.cuda.synchronize()
     split_cuda.LAUNCHES = exponent_cuda.LAUNCHES = recombine_cuda.LAUNCHES = 0
+    recombine_cuda.TOTALS_LAUNCHES = recombine_cuda.FOLD_LAUNCHES = 0
     epilogue_cuda.LAUNCHES = epilogue_cuda.ZFOLD_LAUNCHES = 0
     comm.STAGED_BYTES = 0
     t0 = time.perf_counter()
@@ -100,6 +101,8 @@ def _run_case(name: str, fn, mesh, cuda: bool) -> Dict[str, np.ndarray]:
                case_launches_split_digits=np.asarray(split_cuda.LAUNCHES),
                case_launches_row_exponent=np.asarray(exponent_cuda.LAUNCHES),
                case_launches_recombine=np.asarray(recombine_cuda.LAUNCHES),
+               case_launches_recombine_totals=np.asarray(recombine_cuda.TOTALS_LAUNCHES),
+               case_launches_totals_fold=np.asarray(recombine_cuda.FOLD_LAUNCHES),
                case_launches_epilogue=np.asarray(epilogue_cuda.LAUNCHES),
                case_launches_zfold=np.asarray(epilogue_cuda.ZFOLD_LAUNCHES),
                case_staged_bytes=np.asarray(comm.STAGED_BYTES))

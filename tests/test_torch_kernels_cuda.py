@@ -223,6 +223,100 @@ def test_recombine_kernel_on_a_batch_equals_plain(dev, bsz, m, n, k, ns):
             assert torch.equal(w.view(torch.int32), g.view(torch.int32)), tile
 
 
+@pytest.mark.parametrize("m,n,k,ns,panels", [
+    (200, 136, 272, 6, 1), (1000, 1234, 777, 9, 3), (17, 9, 32, 3, 2), (1025, 1023, 1025, 16, 5),
+    (130, 260, 4096, 18, 4), (64, 64, 16384, 9, 4), (513, 255, 99, 9, 1), (3072, 1024, 1000, 9, 2),
+])
+def test_totals_mode_equals_plain(dev, m, n, k, ns, panels):
+    """The recombine kernel's totals mode, stored on the first k panel and
+    added on the others (each panel k-major, padded to its own multiple of
+    16, the schedule on the global k), in every tile class, == the plain
+    group totals summed, bit for bit: shapes off every tile, k and panel
+    widths off 16, odd n (scalar accesses) and even (8-byte pairs); then
+    the totals fold == fold_group_totals, one launch each."""
+    b = bits_per_int8(k)
+    a = torch.from_numpy(generate_input("normal01", (m, k), seed=m)).to(dev)
+    bm = torch.from_numpy(generate_input("exp_rand-8", (k, n), seed=n)).to(dev)
+    ea, eb = S.row_exponent(a, 1), S.row_exponent(bm, 0)
+    edges = np.linspace(0, k, panels + 1).astype(int)
+    planes = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        kp = R.padded_k(int(hi - lo))
+        planes.append((S.split_with_exp(a[:, lo:hi], ea, ns, b, 1, kp)[0],
+                       S.split_with_exp(bm[lo:hi], eb, ns, b, 0, kp)[0]))
+    want = None
+    for pa, pb in planes:
+        want = R.group_totals_into(pa.cpu(), pb.cpu(), ns, b, k, want, b_kmajor=True)
+    for tile in [None, *range(len(recombine_cuda.TILES))]:
+        got = None
+        for pa, pb in planes:
+            before = recombine_cuda.TOTALS_LAUNCHES
+            got = recombine_cuda.group_totals(pa, pb, ns, b, k, got, tile=tile)
+            assert recombine_cuda.TOTALS_LAUNCHES - before == 1
+        assert torch.equal(got.cpu(), want), tile
+    before = recombine_cuda.FOLD_LAUNCHES
+    folded = recombine_cuda.fold_totals(got, ns, k, b)
+    assert recombine_cuda.FOLD_LAUNCHES - before == 1
+    for w, g in zip(R.fold_group_totals(want, ns, k, b), folded):
+        assert torch.equal(w.view(torch.int32), g.cpu().view(torch.int32))
+    # the dispatchers take the kernels on the card, and raise on planes that
+    # are not k-major and padded
+    assert torch.equal(R.group_totals_into(*planes[0], ns, b, k, b_kmajor=True).cpu(),
+                       R.group_totals_into(planes[0][0].cpu(), planes[0][1].cpu(), ns, b, k,
+                                           b_kmajor=True))
+    if k % 16:
+        da, _ = S.split_f64(a, ns, b)
+        with pytest.raises(ValueError):
+            R.group_totals_into(da, S.split_f64_cols(bm, ns, b)[0], ns, b, k, b_kmajor=True)
+
+
+@pytest.mark.parametrize("bsz,m,n,k,ns", [(5, 1000, 513, 777, 9), (3, 17, 9, 32, 3),
+                                          (4, 130, 260, 4096, 18)])
+def test_totals_mode_on_a_batch_equals_plain(dev, bsz, m, n, k, ns):
+    """[G, B, m, n] in one launch of the totals mode, stored then added
+    (the same planes twice: twice the totals), == the plain version."""
+    b = bits_per_int8(k)
+    a = torch.from_numpy(generate_input("normal01", (bsz, m, k), seed=m)).to(dev)
+    bm = torch.from_numpy(generate_input("exp_rand-8", (bsz, k, n), seed=n)).to(dev)
+    kp = R.padded_k(k)
+    da, _ = S.split_f64(a, ns, b, kp)
+    db, _ = S.split_f64_cols(bm, ns, b, kp)
+    want = R.group_totals_into(da.cpu(), db.cpu(), ns, b, k, b_kmajor=True)
+    for tile in [None, *range(len(recombine_cuda.TILES))]:
+        got = recombine_cuda.group_totals(da, db, ns, b, k, tile=tile)
+        assert torch.equal(got.cpu(), want), tile
+        recombine_cuda.group_totals(da, db, ns, b, k, got, tile=tile)
+        assert torch.equal(got.cpu(), 2 * want), tile
+    for w, g in zip(R.fold_group_totals(want, ns, k, b),
+                    recombine_cuda.fold_totals((got // 2).contiguous(), ns, k, b)):
+        assert torch.equal(w.view(torch.int32), g.cpu().view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(8192, 8192), (1000, 777), (3, 17, 9), (4097,), (1,)])
+@pytest.mark.parametrize("ns,k", [(9, 8192), (9, 65536), (18, 4096), (3, 64)])
+def test_totals_fold_equals_plain_at_the_extremes(dev, shape, ns, k):
+    """The totals fold over the whole int32 range, INT32_MIN and
+    +-(2^31 - 1) among the values (the hi / lo split at its ends), with
+    16-byte accesses (elements a multiple of 4) and without, from an
+    offset view (not 16-byte aligned) too: == fold_group_totals bitwise."""
+    b = bits_per_int8(k)
+    G = len(R.group_schedule(ns, k, b))
+    gen = torch.Generator().manual_seed(ns * k + len(shape))
+    t = torch.randint(-(2**31), 2**31 - 1, (G, *shape), generator=gen, dtype=torch.int64)
+    flat = t.view(G, -1)
+    flat[:, :4] = torch.tensor([-(2**31), 2**31 - 1, -(2**31 - 1), 0])[: flat.shape[1]]
+    t = t.to(torch.int32)
+    want = R.fold_group_totals(t, ns, k, b)
+    got = recombine_cuda.fold_totals(t.to(dev), ns, k, b)
+    for w, g in zip(want, got):
+        assert torch.equal(w.view(torch.int32), g.cpu().view(torch.int32))
+    if t[0].numel() > 1:
+        buf = torch.empty(G * t[0].numel() + 1, dtype=torch.int32, device=dev)
+        odd = buf[1:].view(t.shape).copy_(t.to(dev))
+        for w, g in zip(want, recombine_cuda.fold_totals(odd, ns, k, b)):
+            assert torch.equal(w.view(torch.int32), g.cpu().view(torch.int32))
+
+
 @pytest.mark.parametrize("m,n,k,ns", [(200, 136, 272, 6), (1000, 1234, 777, 9), (256, 128, 1024, 18)])
 def test_zgemm_on_the_kernels_equals_plain(dev, m, n, k, ns):
     """The 4-pass complex engine through both kernels against the same

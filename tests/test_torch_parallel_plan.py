@@ -142,8 +142,28 @@ def _choice(select, *args, **kw):
         return "raise"
 
 
+def _jax_choice_with_the_ports_k_model(m, n, k, ns, xs, ys, cx, budget):
+    """The JAX package's choice, except where it says "k" and the port's
+    k model (:func:`k_device_bytes`: the planes and the int32 totals the
+    JAX package's test leaves out) exceeds the budget: then the first 2-D
+    variant whose model (the same in both packages) fits, in the JAX
+    package's order, or "raise"."""
+    want = _choice(jpar.select_variant, m, n, k, ns, _JaxMesh(xs, ys), complex_=cx,
+                   hbm_bytes=budget)
+    if want != "k" or tpar.k_device_bytes(m, n, k, ns, xs * ys, cx) <= budget:
+        return want
+    models = (jpar.summa_device_bytes(m, n, k, ns, xs, ys, cx),
+              jpar.ring_device_bytes(m, n, k, ns, xs, cx) if xs == ys > 1 else None,
+              jpar.stream_device_bytes(m, n, k, ns, xs, ys, cx))
+    fits = [v for v, need in zip(("summa", "ring", "stream"), models)
+            if need is not None and need <= budget]
+    return fits[0] if fits else "raise"
+
+
 @pytest.mark.parametrize("xs,ys", MESHES)
 def test_select_variant_equals_jax(xs, ys):
+    """The port's chooser is the JAX package's, with one deviation: its k
+    test counts what the k variant holds (``k_device_bytes``)."""
     rng = np.random.default_rng(xs * 10 + ys)
     seen = set()
     cases = [(64, 64, 65536, 9, False, 60 << 30), (64, 64, 65536, 9, True, 60 << 30),
@@ -155,8 +175,8 @@ def test_select_variant_equals_jax(xs, ys):
     for m, n, k, ns, cx, budget in cases:
         got = _choice(tpar.select_variant, m, n, k, ns, _Mesh(xs, ys), complex_=cx,
                       hbm_bytes=budget)
-        assert got == _choice(jpar.select_variant, m, n, k, ns, _JaxMesh(xs, ys), complex_=cx,
-                              hbm_bytes=budget), (m, n, k, ns, cx, budget)
+        assert got == _jax_choice_with_the_ports_k_model(m, n, k, ns, xs, ys, cx, budget), (
+            m, n, k, ns, cx, budget)
         seen.add(got)
     assert {"summa", "raise"} <= seen
 
@@ -210,7 +230,7 @@ def test_presharded_chooser_rechecks_the_budget():
     assert jpar.select_variant(m, n, k, 9, jmesh, hbm_bytes=budget) == "k"
     assert jpar.summa_device_bytes(m, n, k, 9, 1, 4) > budget
     assert tpar._presharded_variant(m, n, k, 9, mesh, "x", "y", False, budget) == "stream"
-    budget = 10 << 20  # "k" still fits, no 2-D variant does
+    budget = 14 << 20  # "k" still fits (13.1 MiB in the port's k model), no 2-D variant does
     assert jpar.select_variant(m, n, k, 9, jmesh, hbm_bytes=budget) == "k"
     with pytest.raises(ValueError, match="no 2-D distributed variant fits"):
         tpar._presharded_variant(m, n, k, 9, mesh, "x", "y", False, budget)
