@@ -57,6 +57,10 @@ counts set to 0 just before it and read just after:
     bitwise equal to the eager call;
   * the bench CLI: one 8192^3 CSV row, the 72-case ``ci_test`` at 513,
     and the ``power`` mode with NVML watts;
+  * the headline benchmark (``bench_torch.run`` at 8192^3, 3 repeats; its
+    record, residuals and launches per engine call) and the sweep
+    (``tools/torch_pareto_sweep.py`` at 1024^3 real, one oracle product
+    for its 18 rows, the residual staircase and floor);
   * the solvers (``linalg``): resident LU (real n = 1024, complex n = 512)
     and Cholesky with host panels bitwise equal to the same call on CPU
     tensors, device panels with the same pivots, ``solve`` with refinement
@@ -712,6 +716,7 @@ def main() -> int:
     by_path["intercept"] = walled(phase_intercept, ozt, label)
     by_path["traced"] = walled(phase_traced, ozt, label)
     by_path["bench"] = walled(phase_bench, label)
+    by_path["headline"] = walled(phase_headline, label)
     by_path.update(walled(phase_solvers, ozt, label))
     by_path.update(walled(phase_parallel, ozt, label))
     by_path.update(walled(phase_mesh_solvers, ozt, label))
@@ -1903,6 +1908,91 @@ def phase_bench(label) -> dict:
     return counts
 
 
+def load_script(path: str, name: str = None):
+    """A script (not a package module) as a module, its ``__main__`` block
+    not run: ``path`` relative to the repo's root or absolute, ``name`` the
+    module's (default: the file's)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), path)
+    spec = importlib.util.spec_from_file_location(
+        name or os.path.basename(path)[:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_headline(label) -> dict:
+    """16b. The headline benchmark and the sweep through their functions:
+    ``bench_torch.run`` at 8192^3 ``fp64_int8_9`` with 3 repeats (the
+    record's four keys and no committed figure, a finite value, a baseline,
+    the accuracy and sampled-block residuals under the gate, each engine
+    call's launches: 2 exponent max, 2 split, 1 recombine, 1 epilogue), then
+    ``tools/torch_pareto_sweep.py``'s sweep at 1024^3 real (fp64_int8_3..18,
+    dgemm, sgemm; one oracle product for all rows; every row timed, its
+    TFLOPS finite and positive; the residual falls 10x a slice from ns = 3
+    to 8 and stays under the gate from ns = 8)."""
+    from ozimmu_tpu_torch import oracle
+
+    bench = load_script("bench_torch.py")
+    diag = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stderr(diag):
+        res = bench.run(m=N, ns=NS, iters=6, repeats=3, device="cuda")
+    counts = read_launches()
+    for line in diag.getvalue().splitlines():
+        print(f"[headline] {line}", flush=True)
+    rec = res["record"]
+    print(f"[headline] {label}: {json.dumps(rec)}", flush=True)
+    if (set(rec) != {"metric", "value", "unit", "vs_baseline"}
+            or rec["metric"] != f"fp64_int8_{NS} effective FP64 TFLOPS (m=n=k={N})"
+            or not (np.isfinite(rec["value"]) and rec["value"] > 0)
+            or rec["vs_baseline"] is None or not np.isfinite(rec["vs_baseline"])):
+        raise AssertionError(f"bench_torch.run's record {rec} ({res['native_error']})")
+    for what in ("accuracy", "sampled"):
+        if not res[what]["relative_residual"] < RESIDUAL_GATE:
+            raise AssertionError(f"bench_torch.run's {what} residual {res[what]}")
+    if counts != gemms(res["engine_calls"]):
+        raise AssertionError(f"bench_torch.run's launches {counts} for {res['engine_calls']} "
+                             f"engine calls, expected {gemms(res['engine_calls'])}")
+    print(f"[launches] bench_torch.run, {res['engine_calls']} engine calls: {counts}", flush=True)
+
+    sweep = load_script("tools/torch_pareto_sweep.py")
+    multi, oracle_calls = oracle.error_metrics_multi, []
+
+    def counted(cs, a, b, threads=1, ref64=None):
+        oracle_calls.append(len(cs))
+        return multi(cs, a, b, threads=threads, ref64=ref64)
+
+    oracle.error_metrics_multi = counted
+    try:
+        t0 = time.perf_counter()
+        rows, _, rounded = sweep.sweep(1024, sweep.modes_of(), device="cuda")
+        t_sweep = time.perf_counter() - t0
+    finally:
+        oracle.error_metrics_multi = multi
+    for row in rows:
+        print(f"[sweep] {row}", flush=True)
+    fields = [row.split(",") for row in rows]
+    res_by = {f[3]: float(f[9]) for f in fields}
+    staircase = [res_by[f"fp64_int8_{ns}"] for ns in range(3, 19)]
+    if oracle_calls != [18] or len(rows) != 18 or len(rounded) != 18:
+        raise AssertionError(f"the sweep made oracle calls {oracle_calls} for {len(rows)} rows "
+                             f"and {len(rounded)} rounded-reference rows")
+    untimed = [f[3] for f in fields if not (np.isfinite(float(f[11])) and float(f[11]) > 0)]
+    if untimed:
+        raise AssertionError(f"the sweep's timing failed for {untimed}")
+    for ns in range(3, 8):
+        if not staircase[ns - 2] < 0.1 * staircase[ns - 3]:
+            raise AssertionError(f"the sweep's residual does not fall 10x at ns {ns} -> {ns + 1}")
+    if not all(r < RESIDUAL_GATE for r in staircase[5:]):
+        raise AssertionError(f"the sweep's residuals from ns = 8: {staircase[5:]}")
+    print(f"[sweep] {label}: 1024^3 real, 18 rows, each timed, one oracle product, in "
+          f"{t_sweep:.1f} s; residual x0.1 a slice for ns 3..8, < {RESIDUAL_GATE:g} from ns = 8",
+          flush=True)
+    return counts
+
+
 def pa_lu_residual(a: torch.Tensor, lu: torch.Tensor, piv) -> float:
     """||P A - L U||_F / ||A||_F on the card, P from the getrf pivots."""
     n = a.shape[0]
@@ -3038,13 +3128,7 @@ SOLVE_GATE = 1e-14
 
 def load_example(name: str):
     """``examples/<name>.py`` as a module (its ``__main__`` block does not run)."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(f"_example_{name}",
-                                                  os.path.join(EXAMPLES, f"{name}.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return load_script(os.path.join(EXAMPLES, f"{name}.py"), f"_example_{name}")
 
 
 def under_gate(what: str, value: float, gate: float) -> float:

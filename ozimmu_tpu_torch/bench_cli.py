@@ -6,7 +6,7 @@ Port of ``ozimmu_tpu.bench_cli``: the reference CLI semantics
     python -m ozimmu_tpu_torch.bench_cli urand01 dgemm fp64_int8_9 seq 1024 4096 1024
     python -m ozimmu_tpu_torch.bench_cli exp_rand-2 zgemm fp64_int8_8,fp64_int8_12 \\
         exp2 1024 8192 2 --test-count 10
-    python -m ozimmu_tpu_torch.bench_cli ci_test
+    python -m ozimmu_tpu_torch.bench_cli ci_test [--seeds crc32]
     python -m ozimmu_tpu_torch.bench_cli power dgemm fp64_int8_9 8192 --min-seconds 10
     python -m ozimmu_tpu_torch.bench_cli matfile a.npy b.npy fp64_int8_9,fp64_int8_12
     python -m ozimmu_tpu_torch.bench_cli matfile_raw a.bin b.bin 1000 800 600 --dtype fp64
@@ -41,6 +41,7 @@ import itertools
 import os
 import sys
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -71,16 +72,23 @@ def _op(x: np.ndarray, op: str) -> np.ndarray:
     return np.ascontiguousarray(np.conj(x).T if op == "C" else x.T)
 
 
-def _scored(cs, a: np.ndarray, b: np.ndarray):
-    """``(cs, a, b)`` as the oracle scores them: whole up to
-    :data:`FULL_ORACLE_MAX_MACS`, else a seeded SAMPLE x SAMPLE block."""
-    m, k = a.shape
-    n = b.shape[1]
+def sampled_block(m: int, n: int, k: int):
+    """The rows and columns of C that the oracle scores: None (all of C) up
+    to :data:`FULL_ORACLE_MAX_MACS`, else a seeded SAMPLE x SAMPLE block."""
     if m * n * k <= FULL_ORACLE_MAX_MACS:
-        return cs, a, b
+        return None
     rng = np.random.default_rng(0)
     rows = np.sort(rng.choice(m, size=min(SAMPLE, m), replace=False))
     cols = np.sort(rng.choice(n, size=min(SAMPLE, n), replace=False))
+    return rows, cols
+
+
+def _scored(cs, a: np.ndarray, b: np.ndarray):
+    """``(cs, a, b)`` as the oracle scores them (:func:`sampled_block`)."""
+    block = sampled_block(a.shape[0], b.shape[1], a.shape[1])
+    if block is None:
+        return cs, a, b
+    rows, cols = block
     return ([np.ascontiguousarray(c[rows][:, cols]) for c in cs], np.ascontiguousarray(a[rows]),
             np.ascontiguousarray(b[:, cols]))
 
@@ -142,10 +150,29 @@ def _size_list(kind: str, start: int, end: int, interval: int):
     raise ValueError(f"unknown size mode {kind}")
 
 
-def run_ci_test(sizes=(1023, 1024, 1025), device="cuda") -> int:
+#: the operand seeds of ``ci_test --seeds crc32``: those of the JAX
+#: package's full-matrix runner (tools/ci_full_runner.py), whose logs are
+#: the TPU's committed evidence (tests/artifacts/ci_full_*.log)
+CRC32_SEED_SCHEME = ("zlib.crc32('{m}-{k}-{opA}') % 2**31 for A, "
+                     "zlib.crc32('{k}-{n}-{opB}') % 2**31 for B")
+
+
+def ci_seeds(seeds: str, m: int, n: int, k: int, op_a: str, op_b: str):
+    """The (A, B) operand seeds of one ``ci_test`` case: 0 and 1 for
+    ``"fixed"`` (the reference's and the JAX CLI's), or
+    :data:`CRC32_SEED_SCHEME` for ``"crc32"``."""
+    if seeds == "crc32":
+        return (zlib.crc32(f"{m}-{k}-{op_a}".encode()) % 2**31,
+                zlib.crc32(f"{k}-{n}-{op_b}".encode()) % 2**31)
+    return 0, 1
+
+
+def run_ci_test(sizes=(1023, 1024, 1025), device="cuda", seeds="fixed") -> int:
     """The reference 1944-case gate (main_test.cu:702-746): every (D|Z,
     opA, opB, m, n, k) over ``sizes`` at the nine modes fp64_int8_8..16,
-    residual < 1e-15, ending ``NNNN / NNNN PASSED``.
+    residual < 1e-15, ending ``NNNN / NNNN PASSED``.  ``seeds`` picks the
+    operands (:func:`ci_seeds`); with ``"crc32"`` a first line ``# seeds
+    crc32: ...`` names the scheme.
 
     One multi-C oracle call scores the nine modes of an operand set against
     one long-double accumulation.  The GEMMs run on ``device`` in order
@@ -164,6 +191,10 @@ def run_ci_test(sizes=(1023, 1024, 1025), device="cuda") -> int:
     ]
     workers = len(os.sched_getaffinity(0))
     num_errors = total = 0
+    if seeds not in ("fixed", "crc32"):
+        raise ValueError(f"seeds must be 'fixed' or 'crc32', got {seeds!r}")
+    if seeds == "crc32":
+        print(f"# seeds crc32: {CRC32_SEED_SCHEME}", flush=True)
 
     def report(case, errs) -> None:
         nonlocal num_errors, total
@@ -181,9 +212,10 @@ def run_ci_test(sizes=(1023, 1024, 1025), device="cuda") -> int:
         for case in cases:
             kind, op_a, op_b, m, n, k = case
             complex_ = kind == "zgemm"
-            a = generate_input("urand01", (m, k) if op_a == "N" else (k, m), seed=0,
+            seed_a, seed_b = ci_seeds(seeds, m, n, k, op_a, op_b)
+            a = generate_input("urand01", (m, k) if op_a == "N" else (k, m), seed=seed_a,
                                complex_=complex_)
-            b = generate_input("urand01", (k, n) if op_b == "N" else (n, k), seed=1,
+            b = generate_input("urand01", (k, n) if op_b == "N" else (n, k), seed=seed_b,
                                complex_=complex_)
             cs = [gemm(a, b, mode=mode, op_a=op_a, op_b=op_b, device=device) for mode in modes]
             pending.append((case, pool.submit(oracle.error_metrics_multi,
@@ -555,12 +587,14 @@ def main(argv=None) -> int:
     p.add_argument("--test-count", type=int, default=10)
     p.add_argument("--ops", default="NN", help="pairs like NN,NT,TN,TT")
     p.add_argument("--ci-sizes", default="1023,1024,1025")
+    p.add_argument("--seeds", default="fixed", choices=["fixed", "crc32"],
+                   help="ci_test operand seeds: 0 and 1, or the JAX runner's crc32 scheme")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
     if args.input == "ci_test":
         sizes = tuple(int(s) for s in args.ci_sizes.split(","))
-        return run_ci_test(sizes, args.device)
+        return run_ci_test(sizes, args.device, args.seeds)
 
     print(CSV_HEADER)
     rc = 0

@@ -12,7 +12,8 @@ there is no silent numpy fallback here (``testing.error_metrics`` is the
 numpy oracle, for callers that ask for it).  Nothing runs at import time.
 
 The multi-C entry points score up to 32 candidate results of one product
-against ONE long-double accumulation on one thread, so their numbers do not
+against ONE long-double accumulation, its dot products on the threads the
+caller asks for and its sums in one fixed order, so their numbers do not
 depend on the thread count; ctypes releases the interpreter lock during the
 call, so several of them can run at once from a thread pool.
 """
@@ -69,8 +70,10 @@ def lib() -> ctypes.CDLL:
                 for name in ("oz_error_metrics_d", "oz_error_metrics_z"):
                     getattr(loaded, name).argtypes = [i64, i64, i64, f64p, f64p, f64p, f64p]
                     getattr(loaded, name).restype = None
+                multi = [i64, i64, i64, f64p, f64p, pp, i64, f64p, i64]
+                loaded.oz_error_metrics_d_multi.argtypes = multi + [f64p]
+                loaded.oz_error_metrics_z_multi.argtypes = multi
                 for name in ("oz_error_metrics_d_multi", "oz_error_metrics_z_multi"):
-                    getattr(loaded, name).argtypes = [i64, i64, i64, f64p, f64p, pp, i64, f64p]
                     getattr(loaded, name).restype = None
                 _lib = loaded
     return _lib
@@ -112,22 +115,36 @@ def error_metrics(c: np.ndarray, a: np.ndarray, b: np.ndarray) -> Dict[str, floa
 
 
 def error_metrics_multi(
-    cs: Sequence[np.ndarray], a: np.ndarray, b: np.ndarray
+    cs: Sequence[np.ndarray], a: np.ndarray, b: np.ndarray, threads: int = 1,
+    ref64: Optional[np.ndarray] = None,
 ) -> List[Dict[str, float]]:
     """Metrics of many candidate results of ``a @ b`` against one
     long-double accumulation (9x less oracle work when sweeping nine modes
-    over the same operands); at most :data:`MAX_CANDIDATES`."""
+    over the same operands); at most :data:`MAX_CANDIDATES`.  The dot
+    products run on ``threads`` threads; the results do not depend on it.
+    A real product also fills ``ref64`` (a C-contiguous float64 [m, n]
+    array), when given, with the accumulation rounded to f64: the JAX
+    package's ``native.ref_gemm_native``, from the same pass."""
     if not 1 <= len(cs) <= MAX_CANDIDATES:
         raise ValueError(f"1 to {MAX_CANDIDATES} candidates per call, got {len(cs)}")
+    if threads < 1:
+        raise ValueError(f"threads must be at least 1, got {threads}")
     for c in cs:
         _check_shapes(np.shape(c), a, b)
     cx = np.iscomplexobj(a) or np.iscomplexobj(b) or any(np.iscomplexobj(c) for c in cs)
     m, k = a.shape
     n = b.shape[1]
-    ac, bc = _as_f64(a, cx), _as_f64(b, cx)
+    if ref64 is not None and (cx or ref64.dtype != np.float64 or ref64.shape != (m, n)
+                              or not ref64.flags.c_contiguous):
+        raise ValueError(f"ref64 must be a C-contiguous float64 [{m}, {n}] array of a real "
+                         "product")
+    ac, btc = _as_f64(a, cx), _as_f64(b.T, cx)  # B transposed: contiguous dot products
     ccs = [_as_f64(c, cx) for c in cs]  # kept alive across the call
     ptrs = (ctypes.POINTER(ctypes.c_double) * len(ccs))(*[_f64p(c) for c in ccs])
     out = np.zeros(2 * len(ccs), dtype=np.float64)
-    fn = lib().oz_error_metrics_z_multi if cx else lib().oz_error_metrics_d_multi
-    fn(m, n, k, _f64p(ac), _f64p(bc), ptrs, len(ccs), _f64p(out))
+    args = (m, n, k, _f64p(ac), _f64p(btc), ptrs, len(ccs), _f64p(out), threads)
+    if cx:
+        lib().oz_error_metrics_z_multi(*args)
+    else:
+        lib().oz_error_metrics_d_multi(*args, None if ref64 is None else _f64p(ref64))
     return [_metrics(out, i) for i in range(len(ccs))]

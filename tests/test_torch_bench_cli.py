@@ -57,12 +57,36 @@ def test_oracle_equals_the_jax_packages(gxx, complex_):
     assert got[-1] == {"relative_residual": 1.0, "max_relative_error": 1.0}
 
 
+@pytest.mark.parametrize("threads", [1, 3, 8])
+@pytest.mark.parametrize("complex_", [False, True])
+def test_multi_oracle_equals_the_jax_packages_over_slabs(gxx, complex_, threads):
+    """130 rows are three slabs of the multi-C oracle (64, 64 and a partial
+    2): its metrics equal the JAX package's one-thread loop exactly at any
+    thread count, and a real call's rounded reference equals
+    ``native.ref_gemm_native``."""
+    a = generate_input("exp_rand-2", (130, 70), seed=3, complex_=complex_)
+    b = generate_input("exp_rand-2", (70, 50), seed=4, complex_=complex_)
+    exact = a @ b
+    cs = [exact, exact * (1 + 1e-15), exact + 1e-9, exact.astype(np.complex64 if complex_
+                                                                  else np.float32)]
+    ref64 = None if complex_ else np.empty((130, 50))
+    got = oracle.error_metrics_multi(cs, a, b, threads=threads, ref64=ref64)
+    assert got == native.error_metrics_multi_native(cs, a, b)
+    if not complex_:
+        assert np.array_equal(ref64, native.ref_gemm_native(a, b))
+    assert all(e["relative_residual"] > 0 for e in got[1:])
+
+
 def test_oracle_rejects_bad_calls(gxx):
     a, b = np.ones((4, 5)), np.ones((5, 3))
     with pytest.raises(ValueError, match="shapes"):
         oracle.error_metrics(np.ones((3, 4)), a, b)
     with pytest.raises(ValueError, match="candidates"):
         oracle.error_metrics_multi([a @ b] * 33, a, b)
+    with pytest.raises(ValueError, match="ref64"):
+        oracle.error_metrics_multi([a @ b], a, b, ref64=np.empty((4, 4)))
+    with pytest.raises(ValueError, match="ref64"):
+        oracle.error_metrics_multi([(a @ b).astype(complex)], a, b, ref64=np.empty((4, 3)))
 
 
 def test_ci_test_rows_equal_the_jax_packages(gxx):
