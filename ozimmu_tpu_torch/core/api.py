@@ -33,7 +33,7 @@ from ..schedule import bits_per_int8
 from ..types import ComputeMode, ComputeModeLike, ElementKind, Operation, OperationLike
 from ..utils.env import env_flag
 from ..utils.log import log
-from ..utils.profiling import culip_timer, synchronize
+from ..utils.profiling import culip_timer, span, synchronize
 from .gemm import (
     Exponents, _epilogue_SE, _k0_result, _zfold_passes, _zk0_result, _zpasses, _zsplit,
     gemm_f64, gemm_f64_batched, zgemm_f64, zgemm_f64_batched,
@@ -247,66 +247,67 @@ def gemm(
     garbage.  Set ``OZIMMU_CHECK_FINITE=1`` to raise ``ValueError`` on
     non-finite numpy inputs instead.
     """
-    handle = handle or default_handle()
-    if isinstance(a, np.ndarray) and env_flag("OZIMMU_CHECK_FINITE", False):
-        for nm, arr in (("a", a), ("b", b), ("c", c)):
-            if arr is not None and not np.isfinite(arr).all():
-                raise ValueError(
-                    f"non-finite values in operand {nm} "
-                    "(OZIMMU_CHECK_FINITE=1; NaN/Inf are outside the "
-                    "engine contract)"
-                )
-    mode_r = handle.resolve_mode(mode)
-    op_a = Operation.parse(op_a)
-    op_b = Operation.parse(op_b)
-    is_np, at, bt, ct = _operands(a, b, c, handle, device)
-    if any(x is not None and x.is_complex() for x in (at, bt, ct)):
-        return _gemm_complex(handle, at, bt, ct, mode_r, op_a, op_b, alpha, beta, is_np)
-    dev = at.device
-    at, bt = _apply_op(at, op_a), _apply_op(bt, op_b)
+    with span("oz.api"):
+        handle = handle or default_handle()
+        if isinstance(a, np.ndarray) and env_flag("OZIMMU_CHECK_FINITE", False):
+            for nm, arr in (("a", a), ("b", b), ("c", c)):
+                if arr is not None and not np.isfinite(arr).all():
+                    raise ValueError(
+                        f"non-finite values in operand {nm} "
+                        "(OZIMMU_CHECK_FINITE=1; NaN/Inf are outside the "
+                        "engine contract)"
+                    )
+        mode_r = handle.resolve_mode(mode)
+        op_a = Operation.parse(op_a)
+        op_b = Operation.parse(op_b)
+        is_np, at, bt, ct = _operands(a, b, c, handle, device)
+        if any(x is not None and x.is_complex() for x in (at, bt, ct)):
+            return _gemm_complex(handle, at, bt, ct, mode_r, op_a, op_b, alpha, beta, is_np)
+        dev = at.device
+        at, bt = _apply_op(at, op_a), _apply_op(bt, op_b)
 
-    m, k = at.shape
-    k2, n = bt.shape
-    if k != k2:
-        raise ValueError(f"shape mismatch: op(a)={tuple(at.shape)} @ op(b)={tuple(bt.shape)}")
-    if ct is not None and tuple(ct.shape) != (m, n):
-        raise ValueError(f"c has shape {tuple(ct.shape)}, expected {(m, n)}")
-    if beta != 0.0 and ct is None:
-        raise ValueError("beta != 0 requires c")
-    if k == 0:  # BLAS: C <- beta * C, in every mode
-        out = _k0_result(float(beta), ct, (m, n), dev)
-        return out.cpu().numpy() if is_np else out
+        m, k = at.shape
+        k2, n = bt.shape
+        if k != k2:
+            raise ValueError(f"shape mismatch: op(a)={tuple(at.shape)} @ op(b)={tuple(bt.shape)}")
+        if ct is not None and tuple(ct.shape) != (m, n):
+            raise ValueError(f"c has shape {tuple(ct.shape)}, expected {(m, n)}")
+        if beta != 0.0 and ct is None:
+            raise ValueError("beta != 0 requires c")
+        if k == 0:  # BLAS: C <- beta * C, in every mode
+            out = _k0_result(float(beta), ct, (m, n), dev)
+            return out.cpu().numpy() if is_np else out
 
-    if mode_r is ComputeMode.FP64_INT8_AUTO:
-        mode_r = _auto_mode_select_core(at, bt, k, handle.avg_mantissa_loss_threshold)
-        log(
-            f"AUTO selected mode = {mode_r.value}, threshold average mantissa "
-            f"loss = {handle.avg_mantissa_loss_threshold}"
-        )
+        if mode_r is ComputeMode.FP64_INT8_AUTO:
+            mode_r = _auto_mode_select_core(at, bt, k, handle.avg_mantissa_loss_threshold)
+            log(
+                f"AUTO selected mode = {mode_r.value}, threshold average mantissa "
+                f"loss = {handle.avg_mantissa_loss_threshold}"
+            )
 
-    name = f"ozimmu_gemm-{mode_r.value}-m{m}-n{n}-k{k}"
-    with culip_timer(name, sync_fn=lambda: synchronize(dev)):
-        if mode_r.is_int8:
-            _check_k_supported(k)
-            at, bt = at.contiguous(), bt.contiguous()
-            if handle.profiler.enabled:
-                out = _gemm_staged(handle, at, bt, mode_r.num_split, alpha, beta, ct)
+        name = f"ozimmu_gemm-{mode_r.value}-m{m}-n{n}-k{k}"
+        with culip_timer(name, sync_fn=lambda: synchronize(dev)):
+            if mode_r.is_int8:
+                _check_k_supported(k)
+                at, bt = at.contiguous(), bt.contiguous()
+                if handle.profiler.enabled:
+                    out = _gemm_staged(handle, at, bt, mode_r.num_split, alpha, beta, ct)
+                else:
+                    out = gemm_f64(at, bt, mode_r.num_split, alpha=alpha, beta=beta, c=ct)
+            elif mode_r is ComputeMode.SGEMM:
+                out = _sgemm_core(at, bt)
+                if alpha != 1.0 or beta != 0.0:
+                    # fold alpha/beta exactly on the widened result (the JAX
+                    # package's _epilogue_scalar, which is this epilogue)
+                    t, E = unpack_f64(out)
+                    out = _epilogue_SE(t, E, float(alpha), float(beta), ct)
+            elif mode_r is ComputeMode.DGEMM:
+                out = torch.matmul(at, bt)
+                out = alpha * out + (beta * ct if beta != 0.0 else 0.0)
             else:
-                out = gemm_f64(at, bt, mode_r.num_split, alpha=alpha, beta=beta, c=ct)
-        elif mode_r is ComputeMode.SGEMM:
-            out = _sgemm_core(at, bt)
-            if alpha != 1.0 or beta != 0.0:
-                # fold alpha/beta exactly on the widened result (the JAX
-                # package's _epilogue_scalar, which is this epilogue)
-                t, E = unpack_f64(out)
-                out = _epilogue_SE(t, E, float(alpha), float(beta), ct)
-        elif mode_r is ComputeMode.DGEMM:
-            out = torch.matmul(at, bt)
-            out = alpha * out + (beta * ct if beta != 0.0 else 0.0)
-        else:
-            raise NotImplementedError(f"mode {mode_r} not implemented")
+                raise NotImplementedError(f"mode {mode_r} not implemented")
 
-    return out.cpu().numpy() if is_np else out
+        return out.cpu().numpy() if is_np else out
 
 
 def _gemm_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, op_a, op_b, alpha, beta,
@@ -384,43 +385,45 @@ def gemm_batched(
     sub-batch, as the JAX package's ``vmap`` makes one call of each.  Real
     and complex batches; one AUTO mode for the whole batch.  Numpy or
     tensor inputs, placed and returned as :func:`gemm` does."""
-    handle = handle or default_handle()
-    mode_r = handle.resolve_mode(mode)
-    is_np, at, bt, ct = _operands(a, b, c, handle, device)
-    if at.dim() != 3 or bt.dim() != 3 or at.shape[0] != bt.shape[0] or at.shape[2] != bt.shape[1]:
-        raise ValueError(f"batched shape mismatch: {tuple(at.shape)} @ {tuple(bt.shape)}")
-    B, m, k = at.shape
-    n = bt.shape[2]
-    if ct is not None and tuple(ct.shape) != (B, m, n):
-        raise ValueError(f"c has shape {tuple(ct.shape)}, expected {(B, m, n)}")
-    if beta != 0 and ct is None:
-        raise ValueError("beta != 0 requires c")
-    if any(x is not None and x.is_complex() for x in (at, bt, ct)):
-        return _gemm_batched_complex(handle, at, bt, ct, mode_r, alpha, beta, is_np)
-    if k == 0:  # BLAS: C <- beta * C, in every mode
-        out = _k0_result(float(beta), ct, (B, m, n), at.device)
-        return out.cpu().numpy() if is_np else out
+    with span("oz.api"):
+        handle = handle or default_handle()
+        mode_r = handle.resolve_mode(mode)
+        is_np, at, bt, ct = _operands(a, b, c, handle, device)
+        if at.dim() != 3 or bt.dim() != 3 or at.shape[0] != bt.shape[0] \
+                or at.shape[2] != bt.shape[1]:
+            raise ValueError(f"batched shape mismatch: {tuple(at.shape)} @ {tuple(bt.shape)}")
+        B, m, k = at.shape
+        n = bt.shape[2]
+        if ct is not None and tuple(ct.shape) != (B, m, n):
+            raise ValueError(f"c has shape {tuple(ct.shape)}, expected {(B, m, n)}")
+        if beta != 0 and ct is None:
+            raise ValueError("beta != 0 requires c")
+        if any(x is not None and x.is_complex() for x in (at, bt, ct)):
+            return _gemm_batched_complex(handle, at, bt, ct, mode_r, alpha, beta, is_np)
+        if k == 0:  # BLAS: C <- beta * C, in every mode
+            out = _k0_result(float(beta), ct, (B, m, n), at.device)
+            return out.cpu().numpy() if is_np else out
 
-    if mode_r is ComputeMode.FP64_INT8_AUTO:
-        # one mode for the whole batch, selected on the flattened batch
-        mode_r = _auto_mode_select_core(
-            at.reshape(-1, k), bt.transpose(1, 2).reshape(-1, k), k,
-            handle.avg_mantissa_loss_threshold, b_is_cols=False)
-        log(f"AUTO selected mode = {mode_r.value} (batched)")
-    if mode_r is ComputeMode.SGEMM:
-        # f32-demoted batch (reference dgemm_f32_batched,
-        # cublas_helper.cu:20-67); alpha/beta in plain f64 as the JAX
-        # package's batched path does
-        out = _sgemm_core(at, bt) * alpha
-    elif not mode_r.is_int8:
-        out = torch.matmul(at, bt) * alpha
-    else:
-        _check_k_supported(k)
-        out = gemm_f64_batched(at, bt, mode_r.num_split, float(alpha), float(beta), ct)
+        if mode_r is ComputeMode.FP64_INT8_AUTO:
+            # one mode for the whole batch, selected on the flattened batch
+            mode_r = _auto_mode_select_core(
+                at.reshape(-1, k), bt.transpose(1, 2).reshape(-1, k), k,
+                handle.avg_mantissa_loss_threshold, b_is_cols=False)
+            log(f"AUTO selected mode = {mode_r.value} (batched)")
+        if mode_r is ComputeMode.SGEMM:
+            # f32-demoted batch (reference dgemm_f32_batched,
+            # cublas_helper.cu:20-67); alpha/beta in plain f64 as the JAX
+            # package's batched path does
+            out = _sgemm_core(at, bt) * alpha
+        elif not mode_r.is_int8:
+            out = torch.matmul(at, bt) * alpha
+        else:
+            _check_k_supported(k)
+            out = gemm_f64_batched(at, bt, mode_r.num_split, float(alpha), float(beta), ct)
+            return out.cpu().numpy() if is_np else out
+        if beta != 0:
+            out = out + beta * ct
         return out.cpu().numpy() if is_np else out
-    if beta != 0:
-        out = out + beta * ct
-    return out.cpu().numpy() if is_np else out
 
 
 def _gemm_batched_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha, beta,

@@ -43,6 +43,7 @@ from ..schedule import (
     auto_n_chunks, bits_per_int8, epilogue_block_bytes, hbm_budget_bytes,
     working_set_bytes_chunked,
 )
+from ..utils.profiling import span
 
 #: live temporaries per output element of one block of the plain (CPU)
 #: epilogue, an upper estimate that sets the block height: HPL's first
@@ -115,29 +116,30 @@ def _epilogue_SE(S, E, alpha: float, beta: float, c: Optional[torch.Tensor],
     memory budget leaves: every pass is elementwise, so the blocking leaves
     the bits alone.  A batch [B, m, n] runs as its [B*m, n] view, for the
     same reason."""
-    if beta != 0.0 and c is None:
-        raise ValueError("beta != 0 requires c")
-    if _on_cuda(S[0].device):
-        from ..ops.epilogue_cuda import epilogue
+    with span("oz.epilogue"):
+        if beta != 0.0 and c is None:
+            raise ValueError("beta != 0 requires c")
+        if _on_cuda(S[0].device):
+            from ..ops.epilogue_cuda import epilogue
 
-        return epilogue(S, E, alpha, beta, c, out)
-    E = _as_plane(E)
-    shape, n = E.shape, E.shape[-1]
-    E2 = E
-    if E.dim() != 2:
-        rows2 = lambda x: x.reshape(-1, n)  # noqa: E731
-        S, E2 = tuple(map(rows2, S)), rows2(E)
-        c = None if c is None else rows2(c)
-    blocks = _row_blocks(E2.shape[0], n, _EPILOGUE_TEMP_BYTES, E.device)
-    if len(blocks) == 1 and out is None:
-        return _epilogue_block(S, E2, alpha, beta, c).view(shape)
-    if out is None:
-        out = torch.empty(shape, dtype=torch.float64, device=E.device)
-    o = out if out.dim() == 2 else out.view(-1, n)
-    for rows in blocks:
-        o[rows] = _epilogue_block(tuple(s[rows] for s in S), E2[rows], alpha, beta,
-                                  None if c is None else c[rows])
-    return out
+            return epilogue(S, E, alpha, beta, c, out)
+        E = _as_plane(E)
+        shape, n = E.shape, E.shape[-1]
+        E2 = E
+        if E.dim() != 2:
+            rows2 = lambda x: x.reshape(-1, n)  # noqa: E731
+            S, E2 = tuple(map(rows2, S)), rows2(E)
+            c = None if c is None else rows2(c)
+        blocks = _row_blocks(E2.shape[0], n, _EPILOGUE_TEMP_BYTES, E.device)
+        if len(blocks) == 1 and out is None:
+            return _epilogue_block(S, E2, alpha, beta, c).view(shape)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.float64, device=E.device)
+        o = out if out.dim() == 2 else out.view(-1, n)
+        for rows in blocks:
+            o[rows] = _epilogue_block(tuple(s[rows] for s in S), E2[rows], alpha, beta,
+                                      None if c is None else c[rows])
+        return out
 
 
 def _epilogue_block(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) -> torch.Tensor:
@@ -256,24 +258,25 @@ def gemm_f64(
     (schedule.auto_n_chunks); 1 forces the unchunked engine.  Chunked and
     unchunked results are bitwise identical.
     """
-    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-        raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.dtype != torch.float64 or b.dtype != torch.float64:
-        raise TypeError(f"gemm_f64 takes float64 tensors, got {a.dtype} and {b.dtype}")
-    if a.shape[1] > 0 and bits_per_int8(a.shape[1]) <= 0:
-        raise ValueError(f"k={a.shape[1]} too large for int8 emulation")
-    if b.device != a.device or (c is not None and c.device != a.device):
-        raise ValueError("a, b and c must lie on one device")
-    m, k = a.shape
-    n = b.shape[1]
-    if k == 0:
-        return _k0_result(float(beta), c, (m, n), a.device)
-    a, b = a.contiguous(), b.contiguous()
-    if n_chunks is None:
-        n_chunks = auto_n_chunks(m, n, k, num_split, device=a.device)
-    if n_chunks > 1:
-        return _gemm_core_nchunked(a, b, num_split, n_chunks, float(alpha), float(beta), c)
-    return _gemm_core(a, b, num_split, float(alpha), float(beta), c)
+    with span("oz.engine"):
+        if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+            raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
+        if a.dtype != torch.float64 or b.dtype != torch.float64:
+            raise TypeError(f"gemm_f64 takes float64 tensors, got {a.dtype} and {b.dtype}")
+        if a.shape[1] > 0 and bits_per_int8(a.shape[1]) <= 0:
+            raise ValueError(f"k={a.shape[1]} too large for int8 emulation")
+        if b.device != a.device or (c is not None and c.device != a.device):
+            raise ValueError("a, b and c must lie on one device")
+        m, k = a.shape
+        n = b.shape[1]
+        if k == 0:
+            return _k0_result(float(beta), c, (m, n), a.device)
+        a, b = a.contiguous(), b.contiguous()
+        if n_chunks is None:
+            n_chunks = auto_n_chunks(m, n, k, num_split, device=a.device)
+        if n_chunks > 1:
+            return _gemm_core_nchunked(a, b, num_split, n_chunks, float(alpha), float(beta), c)
+        return _gemm_core(a, b, num_split, float(alpha), float(beta), c)
 
 
 # ---------------------------------------------------------------------------
@@ -306,23 +309,24 @@ def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im
     the CPU, the plain version :func:`_zfold_block` over row blocks, as
     :func:`_epilogue_SE` runs its plain version.
     """
-    if _on_cuda(device):
-        from ..ops.epilogue_cuda import zfold
+    with span("oz.epilogue"):
+        if _on_cuda(device):
+            from ..ops.epilogue_cuda import zfold
 
-        return zfold(SEs, alpha, beta, c_re, c_im, out)
-    SEs = [(S, _as_plane(E).reshape(m, n)) for S, E in SEs]
-    blocks = _row_blocks(m, n, _ZFOLD_TEMP_BYTES, device)
-    if len(blocks) == 1 and out is None:
-        return _zfold_block(SEs, m, n, alpha, beta, c_re, c_im, device)
-    if out is None:
-        out = tuple(torch.empty((m, n), dtype=torch.float64, device=device) for _ in range(2))
-    out_re, out_im = out
-    for rows in blocks:
-        block = [(tuple(s[rows] for s in S), E[rows]) for S, E in SEs]
-        out_re[rows], out_im[rows] = _zfold_block(
-            block, rows.stop - rows.start, n, alpha, beta,
-            None if c_re is None else c_re[rows], None if c_im is None else c_im[rows], device)
-    return out_re, out_im
+            return zfold(SEs, alpha, beta, c_re, c_im, out)
+        SEs = [(S, _as_plane(E).reshape(m, n)) for S, E in SEs]
+        blocks = _row_blocks(m, n, _ZFOLD_TEMP_BYTES, device)
+        if len(blocks) == 1 and out is None:
+            return _zfold_block(SEs, m, n, alpha, beta, c_re, c_im, device)
+        if out is None:
+            out = tuple(torch.empty((m, n), dtype=torch.float64, device=device) for _ in range(2))
+        out_re, out_im = out
+        for rows in blocks:
+            block = [(tuple(s[rows] for s in S), E[rows]) for S, E in SEs]
+            out_re[rows], out_im[rows] = _zfold_block(
+                block, rows.stop - rows.start, n, alpha, beta,
+                None if c_re is None else c_re[rows], None if c_im is None else c_im[rows], device)
+        return out_re, out_im
 
 
 def _zfold_block(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im, device):
@@ -462,26 +466,27 @@ def zgemm_f64(
     streaming from the working-set estimate; chunked output is bitwise
     identical.
     """
-    planes = [a_re, a_im, b_re, b_im] + [x for x in (c_re, c_im) if x is not None]
-    if any(x.dtype != torch.float64 or x.dim() != 2 for x in planes):
-        raise TypeError("zgemm_f64 takes 2-D float64 planes")
-    if any(x.device != a_re.device for x in planes):
-        raise ValueError("all planes must lie on one device")
-    if a_im.shape != a_re.shape or b_im.shape != b_re.shape or a_re.shape[1] != b_re.shape[0]:
-        raise ValueError(f"shape mismatch: {tuple(a_re.shape)} @ {tuple(b_re.shape)}")
-    if a_re.shape[1] > 0 and bits_per_int8(a_re.shape[1]) <= 0:
-        raise ValueError(f"k={a_re.shape[1]} too large for int8 emulation")
-    m, k = a_re.shape
-    n = b_re.shape[1]
-    if k == 0:
-        return _zk0_result(complex(beta), c_re, c_im, (m, n), a_re.device)
-    a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
-    if n_chunks is None:
-        n_chunks = auto_n_chunks(m, n, k, num_split, complex_=True, device=a_re.device)
-    args = (complex(alpha), complex(beta), c_re, c_im)
-    if n_chunks > 1:
-        return _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split, n_chunks, *args)
-    return _zgemm_core(a_re, a_im, b_re, b_im, num_split, *args)
+    with span("oz.engine"):
+        planes = [a_re, a_im, b_re, b_im] + [x for x in (c_re, c_im) if x is not None]
+        if any(x.dtype != torch.float64 or x.dim() != 2 for x in planes):
+            raise TypeError("zgemm_f64 takes 2-D float64 planes")
+        if any(x.device != a_re.device for x in planes):
+            raise ValueError("all planes must lie on one device")
+        if a_im.shape != a_re.shape or b_im.shape != b_re.shape or a_re.shape[1] != b_re.shape[0]:
+            raise ValueError(f"shape mismatch: {tuple(a_re.shape)} @ {tuple(b_re.shape)}")
+        if a_re.shape[1] > 0 and bits_per_int8(a_re.shape[1]) <= 0:
+            raise ValueError(f"k={a_re.shape[1]} too large for int8 emulation")
+        m, k = a_re.shape
+        n = b_re.shape[1]
+        if k == 0:
+            return _zk0_result(complex(beta), c_re, c_im, (m, n), a_re.device)
+        a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
+        if n_chunks is None:
+            n_chunks = auto_n_chunks(m, n, k, num_split, complex_=True, device=a_re.device)
+        args = (complex(alpha), complex(beta), c_re, c_im)
+        if n_chunks > 1:
+            return _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split, n_chunks, *args)
+        return _zgemm_core(a_re, a_im, b_re, b_im, num_split, *args)
 
 
 # ---------------------------------------------------------------------------
@@ -539,27 +544,28 @@ def gemm_f64_batched(
     many matrices as the memory budget holds (:func:`_sub_batches`): on a
     CUDA device each kernel launches once per sub-batch.  A batch whose
     single matrix needs column panels runs matrix by matrix."""
-    _check_batch((a, b), (c,), "gemm_f64_batched")
-    if beta != 0.0 and c is None:
-        raise ValueError("beta != 0 requires c")
-    bsz, m, k = a.shape
-    n = b.shape[2]
-    alpha, beta = float(alpha), float(beta)
-    if k == 0:
-        return _k0_result(beta, c, (bsz, m, n), a.device)
-    a, b = a.contiguous(), b.contiguous()
-    parts = _sub_batches(bsz, m, n, k, num_split, False, a.device)
+    with span("oz.engine"):
+        _check_batch((a, b), (c,), "gemm_f64_batched")
+        if beta != 0.0 and c is None:
+            raise ValueError("beta != 0 requires c")
+        bsz, m, k = a.shape
+        n = b.shape[2]
+        alpha, beta = float(alpha), float(beta)
+        if k == 0:
+            return _k0_result(beta, c, (bsz, m, n), a.device)
+        a, b = a.contiguous(), b.contiguous()
+        parts = _sub_batches(bsz, m, n, k, num_split, False, a.device)
 
-    def one(s, core):
-        return core(a[s], b[s], num_split, alpha, beta, None if c is None else c[s])
+        def one(s, core):
+            return core(a[s], b[s], num_split, alpha, beta, None if c is None else c[s])
 
-    if parts is not None and len(parts) == 1:
-        return one(parts[0], _gemm_core)
-    out = torch.empty((bsz, m, n), dtype=torch.float64, device=a.device)
-    core = gemm_f64 if parts is None else _gemm_core
-    for s in range(bsz) if parts is None else parts:
-        out[s] = one(s, core)
-    return out
+        if parts is not None and len(parts) == 1:
+            return one(parts[0], _gemm_core)
+        out = torch.empty((bsz, m, n), dtype=torch.float64, device=a.device)
+        core = gemm_f64 if parts is None else _gemm_core
+        for s in range(bsz) if parts is None else parts:
+            out[s] = one(s, core)
+        return out
 
 
 def zgemm_f64_batched(
@@ -578,24 +584,25 @@ def zgemm_f64_batched(
     :func:`zgemm_f64` on it alone: four plane splits and four
     recombinations (one per entry of :data:`ZGEMM_PASSES`) per sub-batch.
     Returns the (re, im) float64 planes [B, m, n]."""
-    _check_batch((a_re, a_im, b_re, b_im), (c_re, c_im), "zgemm_f64_batched")
-    bsz, m, k = a_re.shape
-    n = b_re.shape[2]
-    alpha, beta = complex(alpha), complex(beta)
-    if k == 0:
-        return _zk0_result(beta, c_re, c_im, (bsz, m, n), a_re.device)
-    a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
-    parts = _sub_batches(bsz, m, n, k, num_split, True, a_re.device)
+    with span("oz.engine"):
+        _check_batch((a_re, a_im, b_re, b_im), (c_re, c_im), "zgemm_f64_batched")
+        bsz, m, k = a_re.shape
+        n = b_re.shape[2]
+        alpha, beta = complex(alpha), complex(beta)
+        if k == 0:
+            return _zk0_result(beta, c_re, c_im, (bsz, m, n), a_re.device)
+        a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
+        parts = _sub_batches(bsz, m, n, k, num_split, True, a_re.device)
 
-    def one(s, core):
-        cs = [None if x is None else x[s] for x in (c_re, c_im)]
-        return core(a_re[s], a_im[s], b_re[s], b_im[s], num_split, alpha, beta, *cs)
+        def one(s, core):
+            cs = [None if x is None else x[s] for x in (c_re, c_im)]
+            return core(a_re[s], a_im[s], b_re[s], b_im[s], num_split, alpha, beta, *cs)
 
-    if parts is not None and len(parts) == 1:
-        return one(parts[0], _zgemm_core)
-    out_re = torch.empty((bsz, m, n), dtype=torch.float64, device=a_re.device)
-    out_im = torch.empty_like(out_re)
-    core = zgemm_f64 if parts is None else _zgemm_core
-    for s in range(bsz) if parts is None else parts:
-        out_re[s], out_im[s] = one(s, core)
-    return out_re, out_im
+        if parts is not None and len(parts) == 1:
+            return one(parts[0], _zgemm_core)
+        out_re = torch.empty((bsz, m, n), dtype=torch.float64, device=a_re.device)
+        out_im = torch.empty_like(out_re)
+        core = zgemm_f64 if parts is None else _zgemm_core
+        for s in range(bsz) if parts is None else parts:
+            out_re[s], out_im[s] = one(s, core)
+        return out_re, out_im

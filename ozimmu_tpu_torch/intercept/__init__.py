@@ -78,7 +78,7 @@ from ..ops.mantissa_loss import auto_mode_select, auto_mode_select_complex
 from ..types import ComputeMode
 from ..utils.env import env_compute_mode, env_flag
 from ..utils.log import error, log
-from ..utils.profiling import culip_timer, synchronize
+from ..utils.profiling import culip_timer, span, synchronize
 
 _state = threading.local()
 
@@ -257,7 +257,8 @@ def _new_dispatch_mode(pinned: Optional[ComputeMode], handle: Optional[Handle]):
             kwargs = kwargs or {}
             route = routes.get(func)
             if route is not None:
-                out = _reroute(route, args, kwargs, self.pinned, self.handle)
+                with span("oz.intercept"):
+                    out = _reroute(route, args, kwargs, self.pinned, self.handle)
                 if out is not None:
                     return out
             return func(*args, **kwargs)

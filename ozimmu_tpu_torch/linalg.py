@@ -56,7 +56,7 @@ import torch
 from .core.api import _planes, gemm
 from .core.gemm import gemm_f64, zgemm_f64
 from .core.handle import default_handle
-from .utils.profiling import synchronize
+from .utils.profiling import span, synchronize
 
 try:  # LAPACK/BLAS host paths for the O(n^2*nb) non-GEMM work.  The
     # pure-numpy loops below remain as fallbacks; both compute the same
@@ -333,22 +333,25 @@ def _factor_panel(pnl: torch.Tensor, j: int, inverse: bool, panel: str, clock: _
     dev = pnl.device
     jb = pnl.shape[1]
     if panel == "host":
-        host = np.ascontiguousarray(pnl.cpu().numpy())
-        clock.lap("panel_pull_s")
-        lu_p, p_loc = _panel_factor_local(host, col_offset=j)
-        l11inv = None
-        if inverse:
-            l11inv = torch.from_numpy(
-                _unit_lower_solve(lu_p[:jb, :jb], np.eye(jb, dtype=lu_p.dtype))).to(dev)
-        lu_p = torch.from_numpy(lu_p).to(dev)
-        clock.lap("panel_host_s")
+        with span("oz.lu.panel"):
+            host = np.ascontiguousarray(pnl.cpu().numpy())
+            clock.lap("panel_pull_s")
+            lu_p, p_loc = _panel_factor_local(host, col_offset=j)
+            l11inv = None
+            if inverse:
+                l11inv = torch.from_numpy(
+                    _unit_lower_solve(lu_p[:jb, :jb], np.eye(jb, dtype=lu_p.dtype))).to(dev)
+            lu_p = torch.from_numpy(lu_p).to(dev)
+            clock.lap("panel_host_s")
         return lu_p, p_loc, l11inv
-    lu_p, p_dev, info = _panel_factor_device(pnl)
-    # one read per step: the jb pivots and getrf's info
-    head = torch.cat([p_dev, info.reshape(1).to(torch.int64)]).cpu().numpy()
-    if head[-1] != 0:
-        raise np.linalg.LinAlgError("singular matrix: zero pivot")
-    l11inv = _unit_lower_inverse_device(lu_p[:jb]) if inverse else None
+    with span("oz.lu.panel"):
+        lu_p, p_dev, info = _panel_factor_device(pnl)
+        with span("oz.lu.pivots"):
+            # one read per step: the jb pivots and getrf's info
+            head = torch.cat([p_dev, info.reshape(1).to(torch.int64)]).cpu().numpy()
+        if head[-1] != 0:
+            raise np.linalg.LinAlgError("singular matrix: zero pivot")
+        l11inv = _unit_lower_inverse_device(lu_p[:jb]) if inverse else None
     clock.lap("panel_device_s", wait=True)
     return lu_p, head[:jb], l11inv
 
@@ -388,8 +391,10 @@ def _lu_factor_steps(a: torch.Tensor, num_split: int, block: int, profile, panel
         jb = min(nb, n - j)
         clock.start()
         lu_p, p_loc, l11inv = _factor_panel(A[j:, j:j + jb], j, j + jb < n, panel, clock)
-        _apply_panel_pivots(A, j, p_loc, piv)
-        _lu_step_device(A, j, jb, num_split, lu_p, l11inv)
+        with span("oz.lu.swap"):
+            _apply_panel_pivots(A, j, p_loc, piv)
+        with span("oz.lu.update"):
+            _lu_step_device(A, j, jb, num_split, lu_p, l11inv)
         clock.lap("device_update_s", wait=True)
     return A, piv
 
@@ -542,47 +547,48 @@ def lu_factor(
     panel library is deterministic, as on the CPU and an H100).  Implies
     ``resident=True``; ``device`` is then the mesh's.
     """
-    is_tensor = isinstance(a, torch.Tensor)
-    resident, a = _resident_operand(a, "lu_factor", resident, mesh, handle, device)
-    if resident:
-        num_split = _resolve_int8_num_split(mode, handle)
-        if mesh is not None:
-            from .parallel.linalg import lu_factor_sharded
+    with span("oz.lu_factor"):
+        is_tensor = isinstance(a, torch.Tensor)
+        resident, a = _resident_operand(a, "lu_factor", resident, mesh, handle, device)
+        if resident:
+            num_split = _resolve_int8_num_split(mode, handle)
+            if mesh is not None:
+                from .parallel.linalg import lu_factor_sharded
 
-            lu, piv = lu_factor_sharded(a, num_split, block, mesh, mesh_axis, panel, profile)
-        else:
-            lu, piv = _lu_factor_device(a, num_split, block, profile, panel)
-        return (lu, piv) if is_tensor else (_to_numpy(lu), piv)
+                lu, piv = lu_factor_sharded(a, num_split, block, mesh, mesh_axis, panel, profile)
+            else:
+                lu, piv = _lu_factor_device(a, num_split, block, profile, panel)
+            return (lu, piv) if is_tensor else (_to_numpy(lu), piv)
 
-    a = np.array(a, order="C", copy=True)
-    if a.ndim != 2 or a.shape[0] != a.shape[1]:
-        raise ValueError(f"lu_factor needs a square 2D matrix, got {a.shape}")
-    if not np.iscomplexobj(a):
-        a = a.astype(np.float64, copy=False)
-    n = a.shape[0]
-    nb = max(1, min(int(block), n))
-    piv = np.arange(n)
+        a = np.array(a, order="C", copy=True)
+        if a.ndim != 2 or a.shape[0] != a.shape[1]:
+            raise ValueError(f"lu_factor needs a square 2D matrix, got {a.shape}")
+        if not np.iscomplexobj(a):
+            a = a.astype(np.float64, copy=False)
+        n = a.shape[0]
+        nb = max(1, min(int(block), n))
+        piv = np.arange(n)
 
-    for j in range(0, n, nb):
-        jb = min(nb, n - j)
-        _panel_factor(a, j, jb, piv)
-        rest = j + jb
-        if rest >= n:
-            break
-        # U12 = L11^{-1} @ A12  (unit lower triangular solve, host f64)
-        _unit_lower_solve(a[j:rest, j:rest], a[j:rest, rest:])
-        # trailing update through the engine: A22 -= L21 @ U12
-        a[rest:, rest:] = gemm(
-            np.ascontiguousarray(a[rest:, j:rest]),
-            np.ascontiguousarray(a[j:rest, rest:]),
-            mode=mode,
-            alpha=-1.0,
-            beta=1.0,
-            c=np.ascontiguousarray(a[rest:, rest:]),
-            handle=handle,
-            device=device,
-        )
-    return a, piv
+        for j in range(0, n, nb):
+            jb = min(nb, n - j)
+            _panel_factor(a, j, jb, piv)
+            rest = j + jb
+            if rest >= n:
+                break
+            # U12 = L11^{-1} @ A12  (unit lower triangular solve, host f64)
+            _unit_lower_solve(a[j:rest, j:rest], a[j:rest, rest:])
+            # trailing update through the engine: A22 -= L21 @ U12
+            a[rest:, rest:] = gemm(
+                np.ascontiguousarray(a[rest:, j:rest]),
+                np.ascontiguousarray(a[j:rest, rest:]),
+                mode=mode,
+                alpha=-1.0,
+                beta=1.0,
+                c=np.ascontiguousarray(a[rest:, rest:]),
+                handle=handle,
+                device=device,
+            )
+        return a, piv
 
 
 def cholesky(
@@ -719,27 +725,28 @@ def lu_solve(lu_and_piv: Tuple[np.ndarray, np.ndarray], b):
     forward/back substitution in IEEE f64).  A numpy factor is solved on
     the host (LAPACK getrs); a tensor factor where it lies
     (``torch.linalg.lu_solve``).  Returns the container kind of ``b``."""
-    lu, piv = lu_and_piv
-    n = lu.shape[0]
-    if isinstance(lu, torch.Tensor):
-        is_np, vec, x = _rhs(b, n, lu.is_complex(), lu.device)
-        pivots = torch.from_numpy(np.asarray(piv) + 1).to(device=lu.device, dtype=torch.int32)
-        return _like_rhs(torch.linalg.lu_solve(lu.to(x.dtype), pivots, x), is_np, vec)
-    _, vec, x = _rhs(b, n, np.iscomplexobj(lu))
-    if _sp_lu_solve is not None:  # LAPACK getrs (same piv convention)
-        out = _sp_lu_solve((lu, np.asarray(piv)), x, check_finite=False)
-        return out[:, 0] if vec else out
-    for i in range(n):  # apply pivots in factorization order
-        p = piv[i]
-        if p != i:
-            x[[i, p], :] = x[[p, i], :]
-    for i in range(1, n):  # L y = P b (unit diagonal)
-        x[i, :] -= lu[i, :i] @ x[:i, :]
-    for i in range(n - 1, -1, -1):  # U x = y
-        if i + 1 < n:
-            x[i, :] -= lu[i, i + 1:] @ x[i + 1:, :]
-        x[i, :] /= lu[i, i]
-    return x[:, 0] if vec else x
+    with span("oz.lu_solve"):
+        lu, piv = lu_and_piv
+        n = lu.shape[0]
+        if isinstance(lu, torch.Tensor):
+            is_np, vec, x = _rhs(b, n, lu.is_complex(), lu.device)
+            pivots = torch.from_numpy(np.asarray(piv) + 1).to(device=lu.device, dtype=torch.int32)
+            return _like_rhs(torch.linalg.lu_solve(lu.to(x.dtype), pivots, x), is_np, vec)
+        _, vec, x = _rhs(b, n, np.iscomplexobj(lu))
+        if _sp_lu_solve is not None:  # LAPACK getrs (same piv convention)
+            out = _sp_lu_solve((lu, np.asarray(piv)), x, check_finite=False)
+            return out[:, 0] if vec else out
+        for i in range(n):  # apply pivots in factorization order
+            p = piv[i]
+            if p != i:
+                x[[i, p], :] = x[[p, i], :]
+        for i in range(1, n):  # L y = P b (unit diagonal)
+            x[i, :] -= lu[i, :i] @ x[:i, :]
+        for i in range(n - 1, -1, -1):  # U x = y
+            if i + 1 < n:
+                x[i, :] -= lu[i, i + 1:] @ x[i + 1:, :]
+            x[i, :] /= lu[i, i]
+        return x[:, 0] if vec else x
 
 
 def cho_solve(l, b):

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..schedule import group_schedule
+from ..utils.profiling import span
 from . import tf32x3
 
 Triple = tf32x3.Triple
@@ -136,13 +137,15 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
     k-major and zero-padded to :func:`padded_k` (A [ns, (B,) m, k_pad], B
     [ns, (B,) n, k_pad]), and the kernel reads them as they are.
     """
-    if da.device.type == "cuda":
-        from .recombine_cuda import recombine as recombine_kernel
+    with span("oz.recombine"):
+        if da.device.type == "cuda":
+            from .recombine_cuda import recombine as recombine_kernel
 
-        return recombine_kernel(da, db, num_split, b, k, b_kmajor=b_kmajor)
-    if da.device.type == "cpu":
-        return fold_group_totals(group_totals(da, db, num_split, k, b, b_kmajor), num_split, k, b)
-    raise ValueError(f"unsupported device {da.device}")
+            return recombine_kernel(da, db, num_split, b, k, b_kmajor=b_kmajor)
+        if da.device.type == "cpu":
+            totals = group_totals(da, db, num_split, k, b, b_kmajor)
+            return fold_group_totals(totals, num_split, k, b)
+        raise ValueError(f"unsupported device {da.device}")
 
 
 def group_totals_into(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.bits import exponent_field, mantissa53, sign_bit
+from ..utils.profiling import span
 
 #: pexp value for all-zero/subnormal rows; any int that the pack
 #: exponent clamp turns into a hard underflow (exact 0.0).
@@ -143,7 +144,8 @@ def split_with_exp(
 
 
 def _split(x: torch.Tensor, num_split: int, b: int, axis: int, k_pad: Optional[int]):
-    return split_with_exp(x, row_exponent(x, axis), num_split, b, axis, k_pad)
+    with span("oz.split"):
+        return split_with_exp(x, row_exponent(x, axis), num_split, b, axis, k_pad)
 
 
 def split_f64(x: torch.Tensor, num_split: int, b: int,

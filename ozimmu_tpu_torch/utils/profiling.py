@@ -1,17 +1,29 @@
-"""Profiling: phase breakdown + per-call wall-clock timing.
+"""Profiling: phase breakdown, per-call wall-clock timing, and spans for
+``torch.profiler`` traces.
 
-Two mechanisms, mirroring the reference:
+Three mechanisms:
 
   1. :class:`PhaseProfiler` — the analogue of
      ``cutf::debug::time_breakdown::profiler`` embedded in the handle
      (reference src/handle.hpp:16, used at gemm.cu:38-48,312-313,393-407).
      When enabled, the engine runs in *staged* mode (split A / split B /
      recombine / epilogue, each ended by a device synchronisation) so each
-     phase can be attributed.  When disabled the profiler is inert.
+     phase can be attributed.  When disabled the profiler is inert.  Its
+     synchronisations change what they time, so it is no tool for a
+     measured window.
 
   2. :func:`culip_timer` — per-call timing printed as
      ``[CULiP Result][<name>-m..n..k..] <ns> [ns]`` gated by
-     ``OZIMMU_ENABLE_CULIP_PROFILING`` (reference src/culip.cu:14-50).
+     ``OZIMMU_ENABLE_CULIP_PROFILING`` (reference src/culip.cu:14-50); it
+     synchronises too.
+
+  3. :func:`span` — a named host span at a layer edge of the program
+     (``oz.intercept``, ``oz.api``, ``oz.engine``, ``oz.split``, ...).  It
+     never synchronises.  While a ``torch.profiler`` session is active it
+     is a ``record_function`` range, so it lands in the same trace as the
+     CUDA kernels and copies, on their clock; with no session it costs one
+     read of a flag and creates nothing.  :meth:`PhaseProfiler.phase`
+     opens one too, named ``oz.phase.<phase>``.
 
 For kernel timelines, :func:`device_trace` records a ``torch.profiler``
 trace of a block.
@@ -27,8 +39,23 @@ from collections import defaultdict
 from typing import Dict, Iterator, List
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from .env import env_flag
+
+#: what :func:`span` returns while no profiler session is active
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager: a ``torch.profiler.record_function(name)`` range
+    while a profiler session is active, else a shared no-op (one read of
+    torch's own flag for that, ``torch.autograd.profiler._is_profiler_enabled``).
+    Never synchronises.  ``name`` is a fixed string starting with ``oz.``
+    (no shapes in it, so that a trace's spans aggregate by name)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _autograd_profiler.record_function(name)
 
 
 def synchronize(device) -> None:
@@ -62,16 +89,18 @@ class PhaseProfiler:
     @contextlib.contextmanager
     def phase(self, name: str, sync=None) -> Iterator[None]:
         """Time a phase; ``sync`` is an optional device or tensor whose
-        queued work the phase waits for before it stops the clock."""
-        if not self.enabled:
+        queued work the phase waits for before it stops the clock.  The
+        phase is also the span ``oz.phase.<name>`` (:func:`span`)."""
+        with span(f"oz.phase.{name}"):
+            if not self.enabled:
+                yield
+                return
+            t0 = time.perf_counter_ns()
             yield
-            return
-        t0 = time.perf_counter_ns()
-        yield
-        if sync is not None:
-            synchronize(sync)
-        self._sums_ns[name] += time.perf_counter_ns() - t0
-        self._counts[name] += 1
+            if sync is not None:
+                synchronize(sync)
+            self._sums_ns[name] += time.perf_counter_ns() - t0
+            self._counts[name] += 1
 
     def record(self, name: str, ns: int) -> None:
         self._sums_ns[name] += ns
