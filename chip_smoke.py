@@ -227,6 +227,7 @@ def reset_launches() -> None:
     split_cuda.LAUNCHES = 0
     exponent_cuda.LAUNCHES = 0
     recombine_cuda.LAUNCHES = 0
+    recombine_cuda.LAUNCHES_BY_TILE = [0] * len(recombine_cuda.TILES)
     recombine_cuda.TOTALS_LAUNCHES = 0
     recombine_cuda.FOLD_LAUNCHES = 0
     epilogue_cuda.LAUNCHES = 0
@@ -859,7 +860,7 @@ def phase_totals(label, a: torch.Tensor, b: torch.Tensor) -> dict:
         bb = bits_per_int8(k)
         planes = _panel_planes(x, y, ns, bb, panels)
         want = plain_totals(planes, ns, k, bb, on_card=m * n >= 2048 * 2048)
-        for tile in range(len(recombine_cuda.TILES)):
+        for tile in recombine_cuda.TOTALS_TILES:
             got = None
             for pa, pb in planes:
                 got = recombine_cuda.group_totals(pa, pb, ns, bb, k, got, tile=tile)
@@ -870,7 +871,7 @@ def phase_totals(label, a: torch.Tensor, b: torch.Tensor) -> dict:
                                      f"panels={panels} tile={tile}")
         check_fold(f"m,n,k={m},{n},{k} ns={ns}", want, ns, k, bb)
         print(f"[totals] totals mode == plain group totals summed, bitwise, in tile classes "
-              f"{list(range(len(recombine_cuda.TILES)))} (stored on the first of {panels} k "
+              f"{list(recombine_cuda.TOTALS_TILES)} (stored on the first of {panels} k "
               f"panel(s), added on the rest), and the totals fold == fold_group_totals at "
               f"m,n,k={m},{n},{k} ns={ns} b={bb}: {len(group_schedule(ns, k, bb))} groups",
               flush=True)
@@ -2281,7 +2282,8 @@ def phase_solvers(ozt, label) -> dict:
               f"{'8/3' if cx else '2/3'} n^3, scaled residual {f['residual']}"
               + (f"; instrumented pass: {phases}" if phases else "")
               + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-              f"launches {got}", flush=True)
+              f"launches {got}; recombine launches by tile class "
+              f"{recombine_cuda.LAUNCHES_BY_TILE}", flush=True)
         return got
 
     n_hpl, n_zhpl = 16384, 8192

@@ -37,21 +37,36 @@
 //   * warp specialisation: one producer warpgroup (its registers given up
 //     through setmaxnreg) and NC consumer warpgroups, each owning 64 rows
 //     of the block tile and keeping one wgmma group in flight;
-//   * only the int32 group accumulator lives in registers (BN/2 a
-//     thread); the triple lives in the output planes o0/o1/o2 and is
-//     read, updated and written back at each group end (the first group
-//     writes without reading, the last ends with renorm), while the
-//     producer keeps filling the ring;
+//   * in the large classes only the int32 group accumulator lives in
+//     registers (BN/2 a thread); the triple lives in the output planes
+//     o0/o1/o2 and is read, updated and written back at each group end
+//     (the first group writes without reading, the last ends with
+//     renorm), while the producer keeps filling the ring;
+//   * in the kept class (MODE == kKeep) each consumer thread also keeps
+//     the triple of its BN/2 output elements in registers across all of
+//     the tile's groups (4 registers an element: the int32 total and
+//     three f32), folds each group into it with the same steps in the
+//     same order, and stores the three planes once, after the last
+//     group's renorm: o0/o1/o2 are never read.  The round trip of the
+//     parked triple (12 B + 24 B at each later group end, an element)
+//     costs as much as the int8 work itself at k = 1024, and nothing at
+//     k = 16384;
 //   * a persistent grid: one block per SM walking the output tiles in
 //     bands of kGroupM cluster tile rows, so that the tiles in flight
 //     share A row panels and B column panels in L2;
 //   * tile classes, chosen by the launch plan in ops/recombine_cuda.py:
-//     128x256 (two consumer warpgroups) for large products, in clusters
-//     of two blocks that take vertically adjacent tiles and share one B
-//     tile by TMA multicast (a third less L2 traffic; 10-30 % faster at
-//     8192^3 on an H100 held at its power cap, PERF.md), and 64x128 (one consumer
-//     warpgroup, no cluster) when the large tile would leave most SMs
-//     idle.
+//     128x256 (two consumer warpgroups) for large products at long k, in
+//     clusters of two blocks that take vertically adjacent tiles and
+//     share one B tile by TMA multicast (a third less L2 traffic; 10-30 %
+//     faster at 8192^3 on an H100 held at its power cap, PERF.md); 64x128
+//     (one consumer warpgroup, no cluster) when the large tile would leave
+//     most SMs idle; and the kept class, 128x96 (two consumer warpgroups of
+//     m64n96k32, 48 accumulators and 144 triple registers a thread) at
+//     short k, in clusters of 2x2 blocks: the two stacked along m share
+//     their B tile and the two side by side along n their A tile, each
+//     block loading half of each by multicast, so that its L2 bytes per
+//     int8 operation stay near the large class's despite the smaller
+//     tile.
 // The wrapper zero-pads k to a multiple of 16 (TMA's stride rule); zero
 // digits add zero products, and TMA fills the rest of the last k tile and
 // the rows beyond m or n with zeros.
@@ -89,11 +104,18 @@ constexpr int kMaxGroups = 171;  // at most one group per pair
 constexpr int BK = 128;          // k bytes per stage: one 128-byte swizzle row
 constexpr int kGroupM = 8;       // cluster tile rows per band of the persistent order
 
+// what the kernel does with a finished group total: fold it into the
+// triple parked in the output planes, write it as int32 totals, or fold
+// it into the triple kept in registers
+enum Mode { kFold = 0, kTotals = 1, kKeep = 2 };
+
+// Blocks of a cluster side by side along n, sharing their A tile: two in
+// the kept class, whose narrow tile would otherwise stream twice the A
+// bytes per operation of the large class; one (no sharing) otherwise.
+__host__ __device__ constexpr int cluster_cols(int mode) { return mode == kKeep ? 2 : 1; }
+
 // The schedule travels by value, as a kernel parameter: about 2 KB, read
 // uniformly by every thread.
-// what the kernel does with a finished group total
-enum Mode { kFold = 0, kTotals = 1 };
-
 struct Schedule {
   int n_groups;
   uint16_t start[kMaxGroups + 1];  // group g has pairs [start[g], start[g+1])
@@ -134,6 +156,17 @@ __device__ __forceinline__ void renorm(float& t0, float& t1, float& t2) {
   quick_two_sum(e1, e2, s1, s2);
   quick_two_sum(s0, s1, t0, t1);
   t2 = s2;
+}
+
+// One group's exact int32 total v folded into the triple: its hi16 and
+// lo16 halves as the exact f32 terms hi * 2^(w+16) and lo * 2^w, in that
+// order (ops/recombine.py fold_group_totals, one group)
+__device__ __forceinline__ void fold_total(int v, float& t0, float& t1, float& t2, float shi,
+                                           float slo) {
+  const int hi = v >> 16;     // arithmetic: [-2^15, 2^15)
+  const int lo = v & 0xFFFF;  // == v - hi * 2^16, in [0, 2^16)
+  add_term(t0, t1, t2, __fmul_rn(__int2float_rn(hi), shi));
+  add_term(t0, t1, t2, __fmul_rn(__int2float_rn(lo), slo));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -294,6 +327,23 @@ struct Wgmma<128> {
   }
 };
 
+template <>
+struct Wgmma<96> {
+  __device__ __forceinline__ static void run(int (&d)[48], uint64_t a, uint64_t b,
+                                             int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+        "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47}, "
+        "%48, %49, p;\n}\n"
+        : OZ_D32(0), OZ_D8(32), OZ_D8(40)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
 #undef OZ_D32
 #undef OZ_D8
 
@@ -347,10 +397,7 @@ __device__ __forceinline__ void fold_group(const int (&d)[R],
       const int r = b0 + q;
       const int row = row0 + 8 * ((r >> 1) & 1);
       const int col = col0 + (r >> 2) * 8 + (r & 1);
-      const int hi = d[r] >> 16;     // arithmetic: [-2^15, 2^15)
-      const int lo = d[r] & 0xFFFF;  // == d - hi * 2^16, in [0, 2^16)
-      add_term(t0[q], t1[q], t2[q], __fmul_rn(__int2float_rn(hi), shi));
-      add_term(t0[q], t1[q], t2[q], __fmul_rn(__int2float_rn(lo), slo));
+      fold_total(d[r], t0[q], t1[q], t2[q], shi, slo);
       if (last) renorm(t0[q], t1[q], t2[q]);
       if (row < m && col < n) {
         const int64_t o = (int64_t)row * n + col;
@@ -415,6 +462,43 @@ __device__ __forceinline__ void store_group(const int (&d)[R], int* __restrict__
   }
 }
 
+// The kept class's end of a tile: renorm the triple of each element (its
+// last group folded) and store it, once (fold_group's map of registers to
+// elements).  Registers r and r + 1 (r even) hold columns col and col + 1
+// of one row, so where n is even both go in one 8-byte store per plane.
+template <int R>
+__device__ __forceinline__ void store_triple(float (&t0)[R], float (&t1)[R], float (&t2)[R],
+                                             float* __restrict__ o0, float* __restrict__ o1,
+                                             float* __restrict__ o2, int row0, int col0, int m,
+                                             int n) {
+  const bool pairs = (n & 1) == 0;
+#pragma unroll
+  for (int r = 0; r < R; r += 2) {
+    renorm(t0[r], t1[r], t2[r]);
+    renorm(t0[r + 1], t1[r + 1], t2[r + 1]);
+    const int row = row0 + 8 * ((r >> 1) & 1);
+    const int col = col0 + (r >> 2) * 8;
+    if (row >= m) continue;
+    const int64_t o = (int64_t)row * n + col;
+    if (pairs && col + 1 < n) {
+      *reinterpret_cast<float2*>(o0 + o) = make_float2(t0[r], t0[r + 1]);
+      *reinterpret_cast<float2*>(o1 + o) = make_float2(t1[r], t1[r + 1]);
+      *reinterpret_cast<float2*>(o2 + o) = make_float2(t2[r], t2[r + 1]);
+    } else {
+      if (col < n) {
+        o0[o] = t0[r];
+        o1[o] = t1[r];
+        o2[o] = t2[r];
+      }
+      if (col + 1 < n) {
+        o0[o + 1] = t0[r + 1];
+        o1[o + 1] = t1[r + 1];
+        o2[o + 1] = t2[r + 1];
+      }
+    }
+  }
+}
+
 template <int NC, int BN, int STAGES, int CM>
 struct Tile {
   static constexpr int BM = 64 * NC;
@@ -427,12 +511,15 @@ struct Tile {
 };
 
 // NC consumer warpgroups (warpgroups 0 .. NC-1) and one producer
-// warpgroup (NC).  k_tiles = ceil(k_pad / BK).  CM > 1: the block is one
-// of a cluster of CM blocks that take CM vertically adjacent output tiles
-// of one B column panel; each loads 1/CM of the B tile and multicasts it
-// to all of them.  MODE kFold folds into the triple o0/o1/o2 (tot unused);
-// kTotals writes group g of matrix i to tot + (g * batch + i) * m * n
-// (adds to it where `add`; o0/o1/o2 unused).
+// warpgroup (NC).  k_tiles = ceil(k_pad / BK).  A cluster is CM x CN
+// blocks (CN = cluster_cols(MODE)) that take the output tiles of a CM x CN
+// unit: the CM blocks of one column share the B tile and the CN blocks of
+// one row the A tile, each block loading 1/CM of the B tile and 1/CN of
+// the A tile and multicasting it to its sharers.  MODE kFold folds into
+// the triple o0/o1/o2 (tot unused); kKeep folds into the triple kept in
+// registers and stores it to o0/o1/o2 once a tile; kTotals writes group g
+// of matrix i to tot + (g * batch + i) * m * n (adds to it where `add`;
+// o0/o1/o2 unused).
 template <int NC, int BN, int STAGES, int CM, int MODE>
 __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
     recombine_kernel(const __grid_constant__ CUtensorMap map_a,
@@ -441,6 +528,8 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
                      float* __restrict__ o2, int* __restrict__ tot, int add, int m,
                      int n, int k_tiles, int batch, const Schedule sch) {
   using T = Tile<NC, BN, STAGES, CM>;
+  constexpr int CN = cluster_cols(MODE);
+  constexpr int CL = CM * CN;  // blocks of a cluster
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t ring = (raw + 1023) & ~1023u;  // 128-byte swizzle wants 1024
@@ -448,22 +537,23 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
   const uint32_t empty0 = full0 + STAGES * 8;
 
   const int wg = threadIdx.x / 128;
-  const int rank = CM > 1 ? (int)cluster_rank() : 0;
-  // the cluster's unit of work: CM tiles stacked along m
+  const int rank = CL > 1 ? (int)cluster_rank() : 0;
+  const int rank_m = rank % CM, rank_n = rank / CM;
+  // the cluster's unit of work: CM x CN tiles
   const int units_m = ((m + T::BM - 1) / T::BM + CM - 1) / CM;
-  const int tiles_n = (n + BN - 1) / BN;
-  const int units = batch * units_m * tiles_n;
-  const int unit0 = blockIdx.x / CM, units_step = gridDim.x / CM;
+  const int units_n = ((n + BN - 1) / BN + CN - 1) / CN;
+  const int units = batch * units_m * units_n;
+  const int unit0 = blockIdx.x / CL, units_step = gridDim.x / CL;
   const int n_pairs = sch.start[sch.n_groups];
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(full0 + 8 * s, 1);        // the producer's expect_tx
-      mbar_init(empty0 + 8 * s, 4 * NC * CM);  // each consumer warp of the cluster
+      mbar_init(empty0 + 8 * s, 4 * NC * CL);  // each consumer warp of the cluster
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if constexpr (CM > 1)
+  if constexpr (CL > 1)
     cluster_sync();
   else
     __syncthreads();
@@ -472,12 +562,17 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
     // producer: one thread keeps the ring full
     if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == NC * 128) {
+      // the blocks sharing this block's A tile (its cluster row) and B tile
+      // (its cluster column)
+      uint16_t row_mask = 0;
+      for (int j = 0; j < CN; ++j) row_mask |= (uint16_t)(1 << (rank_m + CM * j));
+      const uint16_t col_mask = (uint16_t)(((1 << CM) - 1) << (CM * rank_n));
       int stage = 0;
       uint32_t phase = 0;
       for (int u = unit0; u < units; u += units_step) {
-        int mat, um, tn;
-        tile_coords(u, units_m, tiles_n, mat, um, tn);
-        const int tm = um * CM + rank;
+        int mat, um, un;
+        tile_coords(u, units_m, units_n, mat, um, un);
+        const int tm = um * CM + rank_m, tn = un * CN + rank_n;
         for (int p = 0; p < n_pairs; ++p) {
           const int pa = sch.pi[p] * batch + mat, pb = sch.pj[p] * batch + mat;
           for (int kt = 0; kt < k_tiles; ++kt) {
@@ -485,12 +580,16 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
             const uint32_t full = full0 + 8 * stage;
             const uint32_t dst = ring + stage * T::STAGE_BYTES;
             mbar_expect_tx(full, T::STAGE_BYTES);
-            tma_load(dst, &map_a, full, kt * BK, tm * T::BM, pa);
+            if constexpr (CN == 1)
+              tma_load(dst, &map_a, full, kt * BK, tm * T::BM, pa);
+            else
+              tma_load_multicast(dst + rank_n * (T::BM / CN) * BK, &map_a, full, kt * BK,
+                                 tm * T::BM + rank_n * (T::BM / CN), pa, row_mask);
             if constexpr (CM == 1)
               tma_load(dst + T::A_BYTES, &map_b, full, kt * BK, tn * BN, pb);
             else
-              tma_load_multicast(dst + T::A_BYTES + rank * (BN / CM) * BK, &map_b, full,
-                                 kt * BK, tn * BN + rank * (BN / CM), pb, (1 << CM) - 1);
+              tma_load_multicast(dst + T::A_BYTES + rank_m * (BN / CM) * BK, &map_b, full,
+                                 kt * BK, tn * BN + rank_m * (BN / CM), pb, col_mask);
             if (++stage == STAGES) {
               stage = 0;
               phase ^= 1;
@@ -498,7 +597,7 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
           }
         }
       }
-      if constexpr (CM > 1) {
+      if constexpr (CL > 1) {
         // stay until every consumer of the cluster has released every
         // stage: their arrivals land in this block's barriers
         for (int i = 0; i < STAGES; ++i) {
@@ -517,23 +616,30 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
     int d[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) d[i] = 0;
+    // the kept class's triple of each accumulator register's element
+    constexpr int KEPT = MODE == kKeep ? BN / 2 : 1;
+    [[maybe_unused]] float t0[KEPT], t1[KEPT], t2[KEPT];
     int stage = 0;
     uint32_t phase = 0;
     // a stage is free again once every consumer warp of the cluster is done
     auto release = [&](int s) {
-      if constexpr (CM == 1) {
+      if constexpr (CL == 1) {
         if (lane == 0) mbar_arrive(empty0 + 8 * s);
       } else {
-        if (lane < CM) mbar_arrive_cluster(empty0 + 8 * s, lane);
+        if (lane < CL) mbar_arrive_cluster(empty0 + 8 * s, lane);
       }
     };
     for (int u = unit0; u < units; u += units_step) {
-      int mat, um, tn;
-      tile_coords(u, units_m, tiles_n, mat, um, tn);
-      const int tm = um * CM + rank;
+      int mat, um, un;
+      tile_coords(u, units_m, units_n, mat, um, un);
+      const int tm = um * CM + rank_m, tn = un * CN + rank_n;
       const int64_t out0 = (int64_t)mat * m * n;  // this matrix's output
       const int row0 = tm * T::BM + wg * 64 + warp * 16 + (lane >> 2);
       const int col0 = tn * BN + (lane & 3) * 2;
+      if constexpr (MODE == kKeep) {
+#pragma unroll
+        for (int i = 0; i < KEPT; ++i) t0[i] = t1[i] = t2[i] = 0.0f;
+      }
       int p = 0;
       for (int g = 0; g < sch.n_groups; ++g) {
         int prev = -1;  // stage whose wgmma group may still be in flight
@@ -563,12 +669,19 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
         wgmma_wait<0>();
         fence_regs(d);
         release(prev);
-        if constexpr (MODE == kFold)
+        if constexpr (MODE == kFold) {
           fold_group(d, o0 + out0, o1 + out0, o2 + out0, row0, col0, m, n, sch.scale_hi[g],
                      sch.scale_lo[g], g == 0, g == sch.n_groups - 1);
-        else
+        } else if constexpr (MODE == kKeep) {
+          const float shi = sch.scale_hi[g], slo = sch.scale_lo[g];
+#pragma unroll
+          for (int i = 0; i < KEPT; ++i) fold_total(d[i], t0[i], t1[i], t2[i], shi, slo);
+        } else {
           store_group(d, tot + (int64_t)g * batch * m * n + out0, row0, col0, m, n, add != 0);
+        }
       }
+      if constexpr (MODE == kKeep)
+        store_triple(t0, t1, t2, o0 + out0, o1 + out0, o2 + out0, row0, col0, m, n);
     }
   }
 }
@@ -619,9 +732,10 @@ int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int
            int add, int m, int n, int ns, int k_pad, int batch, const Schedule& sch,
            int grid, int smem_bytes, cudaStream_t stream) {
   using T = Tile<NC, BN, STAGES, CM>;
-  if (smem_bytes != T::SMEM_BYTES || grid % CM != 0) return (int)cudaErrorInvalidValue;
+  constexpr int CN = cluster_cols(MODE), CL = CM * CN;
+  if (smem_bytes != T::SMEM_BYTES || grid % CL != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap map_a, map_b;
-  if (!plane_map(&map_a, da, ns * batch, m, k_pad, T::BM) ||
+  if (!plane_map(&map_a, da, ns * batch, m, k_pad, T::BM / CN) ||
       !plane_map(&map_b, dbt, ns * batch, n, k_pad, BN / CM))
     return (int)cudaErrorInvalidValue;
   auto kernel = recombine_kernel<NC, BN, STAGES, CM, MODE>;
@@ -630,7 +744,7 @@ int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = CM;
+  cluster.val.clusterDim.x = CL;
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
@@ -639,14 +753,14 @@ int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cfg.attrs = &cluster;
-  cfg.numAttrs = CM > 1 ? 1 : 0;
-  if (CM > 1) {
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  if (CL > 1) {
     // a persistent grid must be resident at once: no more clusters than fit
     int fit = 0;
     e = cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
     if (e != cudaSuccess) return (int)e;
     if (fit < 1) return (int)cudaErrorInvalidConfiguration;
-    if (grid > fit * CM) cfg.gridDim = dim3(fit * CM);
+    if (grid > fit * CL) cfg.gridDim = dim3(fit * CL);
   }
   e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, o0, o1, o2, tot, add, m, n,
                          (k_pad + BK - 1) / BK, batch, sch);
@@ -687,6 +801,11 @@ int launch_tile(int tile, const void* da, const void* dbt, float* o0, float* o1,
     case 1:
       return launch<1, 128, 8, 1, MODE>(da, dbt, o0, o1, o2, tot, add, m, n, ns, k_pad,
                                         batch, sch, grid, smem_bytes, s);
+    case 2:  // the kept class folds only: its triple has no place in the totals mode
+      if constexpr (MODE == kFold)
+        return launch<2, 96, 8, 2, kKeep>(da, dbt, o0, o1, o2, tot, add, m, n, ns, k_pad,
+                                          batch, sch, grid, smem_bytes, s);
+      return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -731,12 +850,7 @@ __global__ void __launch_bounds__(256)
         v[0] = __ldg(src);
       }
 #pragma unroll
-      for (int q = 0; q < V; ++q) {
-        const int hi = v[q] >> 16;     // arithmetic: [-2^15, 2^15)
-        const int lo = v[q] & 0xFFFF;  // == v - hi * 2^16, in [0, 2^16)
-        add_term(t0[q], t1[q], t2[q], __fmul_rn(__int2float_rn(hi), sc.hi[g]));
-        add_term(t0[q], t1[q], t2[q], __fmul_rn(__int2float_rn(lo), sc.lo[g]));
-      }
+      for (int q = 0; q < V; ++q) fold_total(v[q], t0[q], t1[q], t2[q], sc.hi[g], sc.lo[g]);
     }
 #pragma unroll
     for (int q = 0; q < V; ++q) renorm(t0[q], t1[q], t2[q]);
@@ -761,10 +875,11 @@ __global__ void __launch_bounds__(256)
 // group_start: n_groups + 1 pair offsets; pair_i / pair_j: 0-based planes
 // of each pair; scale_hi / scale_lo: the two f32 factors of each group.
 // All five are host arrays.  tile: 0 = 128x256 in clusters of 2 (4
-// stages), 1 = 64x128 (8 stages); grid: persistent blocks, a multiple of
-// the cluster size (fewer are launched if fewer clusters fit on the card
-// at once); smem_bytes must equal the tile class's dynamic shared memory
-// (ops/recombine_cuda.py::launch_plan).
+// stages), 1 = 64x128 (8 stages), 2 = 128x96 with the triple kept in
+// registers, in clusters of 2x2 (8 stages); grid: persistent blocks, a
+// multiple of the cluster size (fewer are launched if fewer clusters fit
+// on the card at once); smem_bytes must equal the tile class's dynamic
+// shared memory (ops/recombine_cuda.py::launch_plan).
 // Returns a cudaError_t code (0 = launched).
 extern "C" int oz_recombine(const void* da, const void* dbt, void* o0, void* o1,
                             void* o2, int m, int n, int ns, int k_pad, int batch,
@@ -782,7 +897,7 @@ extern "C" int oz_recombine(const void* da, const void* dbt, void* o0, void* o1,
 }
 
 // The totals mode: the same operands, plan and schedule as oz_recombine
-// (no scales); totals: int32 [n_groups, batch, m, n], 8-byte aligned,
+// (no scales; tile 0 or 1); totals: int32 [n_groups, batch, m, n], 8-byte aligned,
 // stored (add == 0) or added to (add != 0).  Returns a cudaError_t code.
 extern "C" int oz_recombine_totals(const void* da, const void* dbt, void* totals, int add,
                                    int m, int n, int ns, int k_pad, int batch, int n_groups,

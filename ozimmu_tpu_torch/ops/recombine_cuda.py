@@ -44,20 +44,37 @@ TOTALS_LAUNCHES = 0
 FOLD_LAUNCHES = 0
 
 #: the kernel's tile classes, as csrc/recombine.cu instantiates them:
-#: (consumer warpgroups, block columns, ring stages, cluster size); a block
-#: has 64 rows per consumer warpgroup; a cluster of c blocks shares (by TMA
-#: multicast) the B tile of c vertically adjacent output tiles
-TILES = ((2, 256, 4, 2), (1, 128, 8, 1))
+#: (consumer warpgroups, block columns, ring stages, cluster rows, cluster
+#: columns); a block has 64 rows per consumer warpgroup; the blocks of one
+#: cluster column share (by TMA multicast) their B tile, those of one
+#: cluster row their A tile
+TILES = ((2, 256, 4, 2, 1), (1, 128, 8, 1, 1), (2, 96, 8, 2, 2))
+#: the class that keeps each element's triple in registers across all of a
+#: tile's groups and stores it once (no round trip through the output
+#: planes at each group end); it folds, so the totals mode never takes it
+KEPT_TILE = 2
+#: the classes of the totals mode
+TOTALS_TILES = (0, 1)
+#: :data:`LAUNCHES` by tile class (index into :data:`TILES`)
+LAUNCHES_BY_TILE = [0] * len(TILES)
 #: k bytes of one ring stage (one 128-byte swizzle row)
 BLOCK_K = 128
 #: dynamic shared memory a block may use on Hopper
 SMEM_LIMIT = 232_448
 #: the most pairs (ns = 18) and groups the kernel's schedule parameter holds
 MAX_PAIRS = 171
-#: int8 rate of one SM on a 64x128 tile relative to a 128x256 tile, used to
-#: weigh the two classes against each other (0.33-0.47 at 4096^3-8192^3 on
-#: an H100, tools/torch_recombine_variants.py; PERF.md)
-SMALL_TILE_RATE = 0.45
+#: int8 rate of one SM on each class's tile relative to the 128x256 tile,
+#: at the card's power cap (the 64x128 tile 0.33-0.47 at 4096^3-8192^3 on
+#: an H100; the kept class's 2x2 clusters also leave idle the SMs that no
+#: whole cluster fits, 12 of 132)
+TILE_RATE = (1.0, 0.45, 0.61)
+#: the fold of one group, per output element, in units of one pair's int8
+#: work over one k on the 128x256 tile: the parked triple's round trip
+#: through device memory in classes 0 and 1; in the kept class too small to
+#: show in its timings.  With TILE_RATE, fitted to the H100's timings at
+#: 16384^2 x 2048 and x 4096, the two sides of the crossover (k ~ 3080 at
+#: ns = 9; tools/torch_recombine_variants.py, PERF.md)
+GROUP_COST = (9850.0, 9850.0, 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +83,7 @@ class LaunchPlan:
     block_m: int
     block_n: int
     stages: int
-    cluster: int  # blocks sharing one B tile
+    cluster: int  # blocks of one cluster (cluster rows x cluster columns)
     k_pad: int  # k zero-padded to K_ALIGN
     tiles: int  # output tiles (rounded up to whole clusters)
     grid: int  # persistent blocks, at most one per SM
@@ -81,38 +98,52 @@ def _smem_bytes(block_m: int, block_n: int, stages: int) -> int:
 
 
 def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
-                tile: Optional[int] = None, batch: int = 1) -> LaunchPlan:
+                tile: Optional[int] = None, batch: int = 1, groups: Optional[int] = None,
+                totals: bool = False) -> LaunchPlan:
     """The launch of ``batch`` m x n products over ``k`` (the planes' k)
-    with ``num_split`` planes on a card with ``sms`` SMs.  Unless ``tile``
+    with ``num_split`` planes on a card with ``sms`` SMs, folding
+    ``groups`` groups (by default those of ``group_schedule(num_split,
+    k)``) or, with ``totals``, writing their int32 totals.  Unless ``tile``
     forces a class, the one whose waves of tiles (over the whole batch)
-    finish first: waves x tile area / relative rate (the large tile leaves
-    most SMs idle on small products)."""
+    finish first: waves x tile area x (the int8 work / the class's rate +
+    groups x its fold's cost) — the large tile leaves most SMs idle on
+    small products, and the parked triple's round trips weigh most at
+    short k.  The totals mode has no triple: it weighs the int8 work alone,
+    among :data:`TOTALS_TILES`."""
     pairs = num_split * (num_split + 1) // 2
     if pairs > MAX_PAIRS or min(m, n, k, sms, batch) < 1:
         raise ValueError(
             f"no launch for m={m} n={n} k={k} ns={num_split} sms={sms} batch={batch}")
+    k_pad = padded_k(k)
+    if groups is None and not totals:
+        groups = len(group_schedule(num_split, k))
+    classes = TOTALS_TILES if totals else range(len(TILES))
 
     def units_of(t: int) -> int:  # clusters' units of work
-        nc, bn, _, cm = TILES[t]
-        return batch * math.ceil(math.ceil(m / (64 * nc)) / cm) * math.ceil(n / bn)
+        nc, bn, _, cm, cn = TILES[t]
+        return batch * math.ceil(math.ceil(m / (64 * nc)) / cm) * math.ceil(math.ceil(n / bn) / cn)
 
     def cost(t: int) -> float:
-        nc, bn, _, cm = TILES[t]
-        rate = 1.0 if t == 0 else SMALL_TILE_RATE
-        return math.ceil(units_of(t) / (sms // cm)) * 64 * nc * bn / rate
+        nc, bn, _, cm, cn = TILES[t]
+        per_element = pairs * k_pad / TILE_RATE[t]
+        if not totals:
+            per_element += groups * GROUP_COST[t]
+        return math.ceil(units_of(t) / (sms // (cm * cn))) * 64 * nc * bn * per_element
 
     if tile is None:
-        tile = min((t for t in range(len(TILES)) if TILES[t][3] <= sms), key=cost)
-    nc, bn, stages, cm = TILES[tile]
-    if sms < cm:
-        raise ValueError(f"tile class {tile} needs {cm} SMs, the card has {sms}")
-    k_pad = padded_k(k)
+        tile = min((t for t in classes if TILES[t][3] * TILES[t][4] <= sms), key=cost)
+    elif tile not in classes:
+        raise ValueError(f"tile class {tile} has no {'totals' if totals else 'fold'} mode")
+    nc, bn, stages, cm, cn = TILES[tile]
+    cl = cm * cn
+    if sms < cl:
+        raise ValueError(f"tile class {tile} needs {cl} SMs, the card has {sms}")
     units = units_of(tile)
-    if units * cm >= 2**31 or num_split * batch >= 2**31:
+    if units * cl >= 2**31 or num_split * batch >= 2**31:
         raise ValueError(f"{units} units of {batch} matrices exceed the kernel's 32-bit unit index")
     return LaunchPlan(
-        tile=tile, block_m=64 * nc, block_n=bn, stages=stages, cluster=cm, k_pad=k_pad,
-        tiles=units * cm, grid=cm * min(sms // cm, units),
+        tile=tile, block_m=64 * nc, block_n=bn, stages=stages, cluster=cl, k_pad=k_pad,
+        tiles=units * cl, grid=cl * min(sms // cl, units),
         smem_bytes=_smem_bytes(64 * nc, bn, stages), pairs=pairs,
     )
 
@@ -232,7 +263,8 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
     launch, [B, m, n] of a batch ``da`` [ns, B, m, k], ``db`` [ns, B, k, n],
     matrix i the product of the planes of matrix i.  ``k`` is the true
     contraction length, which sets the group caps.  ``tile`` forces a tile
-    class of :data:`TILES` (the launch plan chooses otherwise).
+    class of :data:`TILES` (the launch plan chooses otherwise); every class
+    gives the same bits.
 
     The kernel reads both operands k-contiguous (8-bit ``wgmma`` takes only
     K-major operands), k zero-padded to a multiple of :data:`K_ALIGN`.
@@ -249,12 +281,12 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
         out = tuple(o.zero_() for o in out)
         return out if batched else tuple(o[0] for o in out)
     sms = torch.cuda.get_device_properties(da.device).multi_processor_count
-    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz)
+    n_groups, start, pi, pj, shi, slo = _schedule_arrays(num_split, k, b)
+    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz, groups=n_groups)
     if not b_kmajor:
         da = _pad_k_major(da, plan.k_pad)
         db = _pad_k_major(db.transpose(2, 3), plan.k_pad)
     da, dbt = _k_major(da, plan.k_pad, "A"), _k_major(db, plan.k_pad, "B")
-    n_groups, start, pi, pj, shi, slo = _schedule_arrays(num_split, k, b)
     ptr = _host_ptr
     with torch.cuda.device(da.device):
         code = native.lib().oz_recombine(
@@ -264,6 +296,7 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
         )
     native.check(code, "recombine launch")
     LAUNCHES += 1
+    LAUNCHES_BY_TILE[plan.tile] += 1
     return out if batched else tuple(o[0] for o in out)
 
 
@@ -299,7 +332,7 @@ def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: 
     if min(bsz, m, n) == 0:
         return out.zero_() if totals is None else totals
     sms = torch.cuda.get_device_properties(da.device).multi_processor_count
-    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz)
+    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz, totals=True)
     da, dbt = _k_major(da, plan.k_pad, "A"), _k_major(db, plan.k_pad, "B")
     ptr = _host_ptr
     with torch.cuda.device(da.device):

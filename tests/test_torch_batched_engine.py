@@ -226,15 +226,22 @@ def test_engine_rejects_bad_batches():
     assert engine.gemm_f64_batched(x[:0], y[:0], 9).shape == (0, 4, 3)
 
 
-@pytest.mark.parametrize("bsz,m,n,tile,tiles", [
-    (8, 1024, 1024, 0, 256),  # the whole batch fills the card with the large tile
-    (1, 1024, 1024, 1, 128),  # one matrix alone: 32 large tiles would leave 100 SMs idle
-    (64, 256, 256, 0, 128),
-    (2, 256, 256, 1, 16),  # the small class stays reachable for a batch
-    (5, 1000, 513, 0, 120),  # 4 cluster rows of 2 tiles (8 x 128 >= 1000) x 3 columns
+@pytest.mark.parametrize("bsz,m,n,k,tile,tiles", [
+    # at short k the kept class, in units of 2 x 2 tiles of 128 x 96
+    (8, 1024, 1024, 777, 2, 768),  # 8 x 4 x 6 units
+    (1, 1024, 1024, 777, 2, 96),
+    (64, 256, 256, 777, 2, 512),
+    (2, 256, 256, 777, 2, 16),
+    (5, 1000, 513, 777, 2, 240),  # 4 cluster rows of 2 tiles x 3 cluster columns of 2
+    # at long k the classes without a kept triple
+    (8, 1024, 1024, 16384, 0, 256),  # the whole batch fills the card with the large tile
+    (1, 1024, 1024, 16384, 1, 128),  # one matrix alone: 32 large tiles would leave 100 SMs idle
+    (64, 256, 256, 16384, 0, 128),
+    (2, 256, 256, 16384, 1, 16),  # the small class stays reachable for a batch
+    (5, 1000, 513, 16384, 0, 120),  # 4 cluster rows of 2 tiles (8 x 128 >= 1000) x 3 columns
 ])
-def test_launch_plan_counts_the_whole_batch(bsz, m, n, tile, tiles):
-    plan = recombine_cuda.launch_plan(m, n, 777, 9, sms=132, batch=bsz)
+def test_launch_plan_counts_the_whole_batch(bsz, m, n, k, tile, tiles):
+    plan = recombine_cuda.launch_plan(m, n, k, 9, sms=132, batch=bsz)
     assert (plan.tile, plan.tiles) == (tile, tiles)
     assert plan.grid == min(132, tiles) - min(132, tiles) % plan.cluster
 

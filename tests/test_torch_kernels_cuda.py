@@ -3,6 +3,10 @@ GPU.  Marked ``cuda``: without a GPU every test here skips.  Run on the
 GPU machine with ``python -m pytest --noconftest tests/test_torch_kernels_cuda.py``
 (the suite's conftest imports jax, which that machine need not have)."""
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -179,6 +183,28 @@ def test_recombine_kernel_equals_plain(dev, m, n, k, ns):
             assert torch.equal(w.view(torch.int32), g.view(torch.int32)), tile
 
 
+@pytest.mark.parametrize("ns", [3, 9, 18])
+def test_kept_class_equals_plain_and_the_large_class(dev, ns):
+    """The kept class (the triple in registers across a tile's groups),
+    forced, == the plain version and == the 128x256 class, bit for bit, at
+    k in {16, 1000, 1024, 4096}, m x n in {17 x 9, 130 x 260, 1025 x 1023},
+    batch 1 and 3, each launch counted by class, in a process of its own
+    (tests/torch_kept_cases.py); and the class forced in the totals mode
+    raises before any launch."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tests", "torch_kept_cases.py"), "--ns", str(ns)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True, text=True,
+        timeout=900)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert proc.stdout.count(" ok ") == 24, proc.stdout
+    kp = R.padded_k(1024)
+    planes = torch.zeros((ns, 64, kp), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="no totals mode"):
+        recombine_cuda.group_totals(planes, planes, ns, 7, 1024,
+                                    tile=recombine_cuda.KEPT_TILE)
+
+
 @pytest.mark.parametrize("ns,b", [(3, 7), (9, 5), (18, 5)])
 def test_split_kernel_on_a_batch_equals_plain(dev, ns, b):
     """One launch over [3, 1000, 777] (each matrix against its own row or
@@ -230,7 +256,8 @@ def test_recombine_kernel_on_a_batch_equals_plain(dev, bsz, m, n, k, ns):
 def test_totals_mode_equals_plain(dev, m, n, k, ns, panels):
     """The recombine kernel's totals mode, stored on the first k panel and
     added on the others (each panel k-major, padded to its own multiple of
-    16, the schedule on the global k), in every tile class, == the plain
+    16, the schedule on the global k), in every tile class that has the
+    mode (the kept class folds only and refuses it), == the plain
     group totals summed, bit for bit: shapes off every tile, k and panel
     widths off 16, odd n (scalar accesses) and even (8-byte pairs); then
     the totals fold == fold_group_totals, one launch each."""
@@ -247,7 +274,7 @@ def test_totals_mode_equals_plain(dev, m, n, k, ns, panels):
     want = None
     for pa, pb in planes:
         want = R.group_totals_into(pa.cpu(), pb.cpu(), ns, b, k, want, b_kmajor=True)
-    for tile in [None, *range(len(recombine_cuda.TILES))]:
+    for tile in [None, *recombine_cuda.TOTALS_TILES]:
         got = None
         for pa, pb in planes:
             before = recombine_cuda.TOTALS_LAUNCHES
@@ -282,7 +309,7 @@ def test_totals_mode_on_a_batch_equals_plain(dev, bsz, m, n, k, ns):
     da, _ = S.split_f64(a, ns, b, kp)
     db, _ = S.split_f64_cols(bm, ns, b, kp)
     want = R.group_totals_into(da.cpu(), db.cpu(), ns, b, k, b_kmajor=True)
-    for tile in [None, *range(len(recombine_cuda.TILES))]:
+    for tile in [None, *recombine_cuda.TOTALS_TILES]:
         got = recombine_cuda.group_totals(da, db, ns, b, k, tile=tile)
         assert torch.equal(got.cpu(), want), tile
         recombine_cuda.group_totals(da, db, ns, b, k, got, tile=tile)

@@ -17,6 +17,7 @@ from ozimmu_tpu.core.f64x import F64X  # noqa: E402
 from ozimmu_tpu.ops import recombine as R  # noqa: E402
 from ozimmu_tpu.ops.split import split_f64x, split_f64x_cols  # noqa: E402
 from ozimmu_tpu.schedule import bits_per_int8  # noqa: E402
+from ozimmu_tpu_torch.schedule import group_schedule  # noqa: E402
 from ozimmu_tpu.testing import generate_input  # noqa: E402
 from ozimmu_tpu_torch.ops import recombine as P  # noqa: E402
 from ozimmu_tpu_torch.ops import recombine_cuda as K  # noqa: E402
@@ -53,20 +54,29 @@ def test_zero_padded_k_is_exact(k, ns):
 
 
 @pytest.mark.parametrize(
-    "m,n,tile",
-    [(8192, 8192, 0), (4096, 4096, 0), (2048, 2048, 0), (1025, 1023, 0),
-     (1024, 1024, 1), (1023, 1023, 1), (17, 9, 1), (130, 260, 1), (512, 640, 1)],
+    "m,n,k,tile",
+    [(8192, 8192, 1024, 2), (4096, 4096, 1024, 2), (2048, 2048, 1024, 2), (1025, 1023, 1024, 2),
+     (1024, 1024, 1024, 2), (1023, 1023, 1024, 2), (17, 9, 1024, 2), (130, 260, 1024, 2),
+     (512, 640, 1024, 2),
+     (8192, 8192, 16384, 0), (4096, 4096, 16384, 0), (2048, 2048, 16384, 0),
+     (1025, 1023, 16384, 2), (1024, 1024, 16384, 1), (1023, 1023, 16384, 1), (17, 9, 16384, 1),
+     (130, 260, 16384, 1), (512, 640, 16384, 1), (8192, 8192, 4096, 0), (16384, 16384, 8192, 0)],
 )
-def test_launch_plan_tile_class(m, n, tile):
-    """On an H100 (132 SMs) the 128x256 cluster class takes the products
-    that fill the card, the 64x128 class those it would leave mostly idle."""
-    plan = K.launch_plan(m, n, 1024, 9, sms=132)
+def test_launch_plan_tile_class(m, n, k, tile):
+    """On an H100 (132 SMs) the kept class takes every product at k =
+    1024 (its triple never makes the round trip through the output planes
+    that costs the other classes as much as their int8 work there); at long
+    k the 128x256 cluster class takes the products that fill the card, the
+    64x128 class those it would leave mostly idle, and the kept class those
+    whose few tiles only its 2x2 clusters spread over most SMs."""
+    plan = K.launch_plan(m, n, k, 9, sms=132)
     assert plan.tile == tile
-    nc, bn, stages, cm = K.TILES[tile]
-    assert (plan.block_m, plan.block_n, plan.stages, plan.cluster) == (64 * nc, bn, stages, cm)
-    units = math.ceil(math.ceil(m / plan.block_m) / cm) * math.ceil(n / bn)
-    assert plan.tiles == units * cm
-    assert plan.grid == cm * min(132 // cm, units)
+    nc, bn, stages, cm, cn = K.TILES[tile]
+    assert (plan.block_m, plan.block_n, plan.stages, plan.cluster) == (64 * nc, bn, stages,
+                                                                        cm * cn)
+    units = math.ceil(math.ceil(m / plan.block_m) / cm) * math.ceil(math.ceil(n / bn) / cn)
+    assert plan.tiles == units * cm * cn
+    assert plan.grid == cm * cn * min(132 // (cm * cn), units)
 
 
 @pytest.mark.parametrize("sms", [1, 2, 7, 132])
@@ -74,16 +84,61 @@ def test_launch_plan_tile_class(m, n, tile):
 def test_launch_plan_limits(sms, ns):
     for m, n, k in [(1, 1, 1), (17, 9, 32), (1025, 1023, 1025), (8192, 8192, 8192),
                     (130, 260, 4096), (512, 640, 32768), (3, 70000, 777)]:
-        for tile in [None, *range(len(K.TILES))]:
-            if tile is not None and K.TILES[tile][3] > sms:
-                with pytest.raises(ValueError, match="SMs"):
-                    K.launch_plan(m, n, k, ns, sms, tile)
-                continue
-            p = K.launch_plan(m, n, k, ns, sms, tile)
-            assert 1 <= p.grid <= sms and p.grid <= p.tiles and p.grid % p.cluster == 0
-            assert p.k_pad % K.K_ALIGN == 0 and k <= p.k_pad < k + K.K_ALIGN
-            assert p.smem_bytes <= K.SMEM_LIMIT
-            assert p.pairs == ns * (ns + 1) // 2 <= K.MAX_PAIRS
+        for totals in (False, True):
+            classes = K.TOTALS_TILES if totals else range(len(K.TILES))
+            for tile in [None, *classes]:
+                if tile is not None and K.TILES[tile][3] * K.TILES[tile][4] > sms:
+                    with pytest.raises(ValueError, match="SMs"):
+                        K.launch_plan(m, n, k, ns, sms, tile, totals=totals)
+                    continue
+                p = K.launch_plan(m, n, k, ns, sms, tile, totals=totals)
+                assert p.tile in classes
+                assert 1 <= p.grid <= sms and p.grid <= p.tiles and p.grid % p.cluster == 0
+                assert p.k_pad % K.K_ALIGN == 0 and k <= p.k_pad < k + K.K_ALIGN
+                assert p.smem_bytes <= K.SMEM_LIMIT
+                assert p.pairs == ns * (ns + 1) // 2 <= K.MAX_PAIRS
+
+
+@pytest.mark.parametrize("ns", [3, 9, 18])
+@pytest.mark.parametrize("m,n", [(44032, 44032), (1024, 44032), (16384, 16384), (8192, 8192),
+                                 (4096, 4096), (2048, 2048)])
+def test_launch_plan_keeps_the_triple_at_short_k(m, n, ns):
+    """Products that fill the card take the kept class at short k (HPL's
+    two updates of a step with NB = 1024 among them) and the 128x256 class
+    from a crossover on: one k, at which the large class's int8 work at
+    its higher rate outweighs its triple's round trips, beyond which it
+    keeps the large class for every longer k."""
+    groups = lambda k: len(group_schedule(ns, k))  # noqa: E731
+    for k in (256, 1000, 1024):
+        assert K.launch_plan(m, n, k, ns, sms=132, groups=groups(k)).tile == K.KEPT_TILE, k
+    chosen = [K.launch_plan(m, n, k, ns, sms=132, groups=groups(k)).tile
+              for k in range(1024, 65537, 512)]
+    crossover = chosen.index(0)
+    assert set(chosen[:crossover]) == {K.KEPT_TILE} and set(chosen[crossover:]) == {0}
+    # at ns = 9 it lies between the H100's timings at k = 2048 (kept 0.62 of the large
+    # class's time at 16384^2) and k = 4096 (1.03 on the batch 4 x 4096^3)
+    if ns == 9:
+        assert 2048 < 1024 + 512 * crossover <= 4096
+
+
+@pytest.mark.parametrize("m,n,k", [(44032, 44032, 1024), (1024, 44032, 1024), (17, 9, 32),
+                                   (1025, 1023, 1025), (2048, 65536, 2048), (130, 260, 16)])
+def test_launch_plan_never_keeps_in_the_totals_mode(m, n, k):
+    """The totals mode has no triple to keep: it chooses among the classes
+    it had, as it did (the int8 work alone), and refuses the kept class
+    when forced."""
+    for ns in (3, 9, 18):
+        plan = K.launch_plan(m, n, k, ns, sms=132, totals=True)
+        assert plan.tile in K.TOTALS_TILES
+
+        def work(t):  # the totals mode's weighing: waves x tile area / rate
+            nc, bn, _, cm, cn = K.TILES[t]
+            units = math.ceil(math.ceil(m / (64 * nc)) / cm) * math.ceil(math.ceil(n / bn) / cn)
+            return math.ceil(units / (132 // (cm * cn))) * 64 * nc * bn / K.TILE_RATE[t]
+
+        assert plan.tile == min(K.TOTALS_TILES, key=work)
+        with pytest.raises(ValueError, match="no totals mode"):
+            K.launch_plan(m, n, k, ns, sms=132, tile=K.KEPT_TILE, totals=True)
 
 
 def test_launch_plan_refuses_what_the_kernel_cannot_hold():

@@ -1,23 +1,38 @@
 #!/usr/bin/env python3
-"""Time variants of the port's recombine kernel on one CUDA GPU.
+"""Time the tile classes of the port's recombine kernel on one CUDA GPU.
 
-    python3 tools/torch_recombine_variants.py [--sizes 8192,4096] [--rounds 3]
+    python3 tools/torch_recombine_variants.py [--shapes crossover] [--rounds 2]
+        [--copies shipped,kept2x1,tiles,noload] [--calls 3] [--seconds 1]
 
-Builds two altered copies of ``ozimmu_tpu_torch`` in a temporary directory
-and times them against each other at n^3 for each size, ns = 9 (CUDA
-events, 10 calls a timing), in turns, with the SM clock, power draw and
+``--shapes`` is a list of ``m,n,k`` or ``m,n,k,batch`` separated by ``;``,
+or a name: ``crossover`` (the launch plan's crossover: k = 1024 .. 16384 at
+16384^2, HPL's two step shapes at N = 45056 and NB = 1024, 44032^2 x 1024
+and 1024 x 44032 x 1024, the short-k products 15360^2 x 1024 and 8192^2 x
+1024, 8192^3, 4096^2, 2048^2 and 1025 x 1023 at k = 1024, 1024^3, and the
+batches 4 x 4096^3 and 8 x 1024^3), or ``quick`` (16384^2 x
+1024 and 16384^3).  ns = 9 throughout.  Each copy of ``ozimmu_tpu_torch``
+is timed in its own process, the copies in turns, round after round, and
+inside a copy its classes in turns, mirrored (a, b, b, a; CUDA events
+around at least ``--calls`` back-to-back launches and about ``--seconds``
+of them, after one timed warm launch), with the SM clock, power draw and
 throttle reasons read after each timing:
 
-  * ``tiles``: the shipped classes (0 and 1) plus two that the port does
-    not ship, the 128x256 tile without a cluster (class 2) and in clusters
-    of four blocks (class 3).  Each class is first checked bitwise against the
-    plain version at 1000x1234x777, ns = 9, and the copy prints how many
-    clusters of each size fit on the card at once;
-  * ``noload``: the shipped kernel with the fold's loads of the parked
-    triple skipped.  Its bits are wrong; it shows what those loads cost.
+  * ``shipped``: this checkout's classes (``recombine_cuda.TILES``: 0 =
+    128x256 in clusters of 2, 1 = 64x128, 2 = the kept class, 128x96 with
+    the triple in registers, in clusters of 2x2), and what the launch plan
+    chooses at each shape.  It also prints the ptxas lines of every
+    recombine instantiation (registers, spills) and how many clusters of
+    each size fit on the card at once;
+  * ``kept2x1``: the kept class in clusters of 2x1 (B shared, A not);
+  * ``tiles``: two classes the port does not ship, the 128x256 tile without
+    a cluster and in clusters of four blocks;
+  * ``noload``: class 0 with the fold's loads of the parked triple skipped.
+    Its bits are wrong; it shows what those loads cost.
 
-Prints one JSON line per timing.  Exits non-zero without a GPU or if a
-source anchor that the alterations need has moved.
+Every class of every copy but ``noload`` is first checked bitwise against
+the plain version at 1000 x 1234 x 777.  Prints one JSON line per timing.
+Exits non-zero without a GPU or if a source anchor that an alteration needs
+has moved.
 """
 
 from __future__ import annotations
@@ -32,54 +47,91 @@ import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SWITCH = "    case 1:\n      return launch<1, 128, 8, 1>("
-TILES = "TILES = ((2, 256, 4, 2), (1, 128, 8, 1))"
-FIT = "    if (grid > fit * CM) cfg.gridDim = dim3(fit * CM);\n"
+SHAPES = {
+    "crossover": "16384,16384,1024;16384,16384,2048;16384,16384,4096;16384,16384,8192;"
+                 "16384,16384,16384;44032,44032,1024;1024,44032,1024;15360,15360,1024;"
+                 "8192,8192,1024;8192,8192,8192;4096,4096,1024;2048,2048,1024;"
+                 "1025,1023,1024;1024,1024,1024;4096,4096,4096,4;1024,1024,1024,8",
+    "quick": "16384,16384,1024;16384,16384,16384",
+}
+
+SWITCH = "    case 2:  // the kept class folds only"
+COLS = "__host__ __device__ constexpr int cluster_cols(int mode) { return mode == kKeep ? 2 : 1; }"
+FIT = "    if (grid > fit * CL) cfg.gridDim = dim3(fit * CL);\n"
 FOLD_LOAD = "      if (!first && row < m && col < n) {"
 
 WORKER = r"""
-import json, subprocess, sys, torch
+import json, re, subprocess, sys, torch
+from ozimmu_tpu_torch import native
 from ozimmu_tpu_torch.ops import recombine_cuda
 from ozimmu_tpu_torch.ops.recombine import fold_group_totals, group_totals
 from ozimmu_tpu_torch.ops.split import split_f64, split_f64_cols
 from ozimmu_tpu_torch.schedule import bits_per_int8
 from ozimmu_tpu_torch.testing import generate_input
 
-name, sizes, tiles, check = sys.argv[1], [int(x) for x in sys.argv[2].split(",")], [int(t) for t in sys.argv[3].split(",")], sys.argv[4] == "1"
+name, tiles, check, calls = sys.argv[1], [int(t) for t in sys.argv[3].split(",")], sys.argv[4] == "1", int(sys.argv[5])
+seconds = float(sys.argv[6])
+shapes = [tuple(int(x) for x in s.split(",")) for s in sys.argv[2].split(";")]
 dev = torch.device("cuda")
+sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
 def smi():
     return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_throttle_reasons.active",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
-def planes(m, nn, k, ns, seed):
+def planes(bsz, m, nn, k, ns, seed):
     b = bits_per_int8(k)
-    a = torch.from_numpy(generate_input("urand01", (m, k), seed=seed)).to(dev)
-    bm = torch.from_numpy(generate_input("urand01", (k, nn), seed=seed + 1)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand((bsz, m, k), dtype=torch.float64, device=dev, generator=g)
+    bm = torch.rand((bsz, k, nn), dtype=torch.float64, device=dev, generator=g)
+    if bsz == 1:
+        a, bm = a[0], bm[0]
     return b, split_f64(a, ns, b)[0], split_f64_cols(bm, ns, b)[0]
 
+native.lib()
 if check:
-    b, da, db = planes(1000, 1234, 777, 9, 5)
+    entry = "?"
+    for line in native.build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m[1]
+        elif "recombine_kernel" in entry and ("registers" in line or "spill" in line):
+            targs = re.search(r"recombine_kernel(I\w+EE)", entry)
+            print(json.dumps({"copy": name, "kernel": "recombine_kernel<" + ",".join(
+                re.findall(r"Li(-?\d+)E", targs[1])) + ">", "ptxas": line.strip()}), flush=True)
+    b = bits_per_int8(777)
+    da = split_f64(torch.from_numpy(generate_input("urand01", (1000, 777), seed=5)).to(dev), 9, b)[0]
+    db = split_f64_cols(torch.from_numpy(generate_input("urand01", (777, 1234), seed=6)).to(dev), 9, b)[0]
     want = fold_group_totals(group_totals(da, db, 9, 777, b), 9, 777, b)
     for t in tiles:
         got = recombine_cuda.recombine(da, db, 9, b, 777, tile=t)
         if not all(torch.equal(w.view(torch.int32), g.view(torch.int32)) for w, g in zip(want, got)):
             raise SystemExit(f"{name}: tile class {t} differs from the plain version")
-for n in sizes:
-    b, da, db = planes(n, n, n, 9, 0)
-    for t in tiles:
-        f = lambda: recombine_cuda.recombine(da, db, 9, b, n, tile=t)
-        f()
-        torch.cuda.synchronize()
+    del da, db, want, got
+for shape in shapes:
+    m, n, k = shape[:3]
+    bsz = shape[3] if len(shape) > 3 else 1
+    b, da, db = planes(bsz, m, n, k, 9, 0)
+    chosen = recombine_cuda.launch_plan(m, n, k, 9, sms, batch=bsz).tile
+    for t in tiles + tiles[::-1]:  # in turns, mirrored: a, b, b, a
+        f = lambda: recombine_cuda.recombine(da, db, 9, b, k, tile=t)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        for _ in range(10):
+        f()
+        e.record()
+        e.synchronize()
+        # at least `calls` launches and about `seconds` of them
+        reps = max(calls, min(50, int(seconds * 1e3 / s.elapsed_time(e)) + 1))
+        s.record()
+        for _ in range(reps):
             f()
         e.record()
         e.synchronize()
-        ms = s.elapsed_time(e) / 10
-        print(json.dumps({"copy": name, "tile": t, "class": recombine_cuda.TILES[t], "n": n,
-                          "ms": ms, "int8_tops": 45 * 2 * n**3 / ms / 1e9, "after": smi()}),
+        ms = s.elapsed_time(e) / reps
+        print(json.dumps({"copy": name, "tile": t, "class": recombine_cuda.TILES[t],
+                          "planned": chosen, "m": m, "n": n, "k": k, "batch": bsz, "calls": reps,
+                          "ms": ms,
+                          "int8_tops": bsz * 45 * 2 * m * n * k / ms / 1e9, "after": smi()}),
               flush=True)
     del da, db
 """
@@ -107,45 +159,71 @@ def _edit(path: str, *subs) -> None:
         f.write(text)
 
 
-def make_copies(root: str) -> dict:
-    tiles = _copy(root, "tiles")
-    _edit(os.path.join(tiles, "ozimmu_tpu_torch", "csrc", "recombine.cu"),
-          ("#include <cuda_runtime.h>", "#include <cuda_runtime.h>\n#include <cstdio>"),
-          (SWITCH, "    case 2:\n      return launch<2, 256, 4, 1>(da, dbt, p0, p1, p2, m, n, ns, "
-                   "k_pad, batch, sch, grid, smem_bytes, s);\n"
-                   "    case 3:\n      return launch<2, 256, 4, 4>(da, dbt, p0, p1, p2, m, n, ns, "
-                   "k_pad, batch, sch, grid, smem_bytes, s);\n" + SWITCH),
-          (FIT, FIT + '    static int told[8] = {};\n'
-                      '    if (!told[CM]++) printf("{\\"clusters_of\\": %d, \\"fit\\": %d}\\n", '
-                      'CM, fit);\n'))
-    _edit(os.path.join(tiles, "ozimmu_tpu_torch", "ops", "recombine_cuda.py"),
-          (TILES, "TILES = ((2, 256, 4, 2), (1, 128, 8, 1), (2, 256, 4, 1), (2, 256, 4, 4))"),
-          ("tile = min((t for t in range(len(TILES))", "tile = min((t for t in range(2)"))
-    noload = _copy(root, "noload")
-    _edit(os.path.join(noload, "ozimmu_tpu_torch", "csrc", "recombine.cu"),
-          (FOLD_LOAD, "      if (false) {"))
-    return {"tiles": (tiles, "0,1,2,3", "1"), "noload": (noload, "0", "0")}
+def _cu(copy: str) -> str:
+    return os.path.join(copy, "ozimmu_tpu_torch", "csrc", "recombine.cu")
+
+
+def _py(copy: str) -> str:
+    return os.path.join(copy, "ozimmu_tpu_torch", "ops", "recombine_cuda.py")
+
+
+def make_copies(root: str, names) -> dict:
+    """name -> (package root, tile classes to time, check bitwise)."""
+    copies = {}
+    for name in names:
+        path = _copy(root, name)
+        if name == "shipped":
+            _edit(_cu(path), ("#include <cuda_runtime.h>", "#include <cuda_runtime.h>\n#include <cstdio>"),
+                  (FIT, FIT + '    static int told[8] = {};\n'
+                              '    if (!told[CL]++) printf("{\\"clusters_of\\": %d, \\"fit\\": %d}\\n", '
+                              'CL, fit);\n'))
+            copies[name] = (path, "0,1,2", "1")
+        elif name == "kept2x1":
+            _edit(_cu(path), (COLS, "__host__ __device__ constexpr int cluster_cols(int) { return 1; }"))
+            copies[name] = (path, "2", "1")
+        elif name == "tiles":
+            _edit(_cu(path),
+                  (SWITCH, "    case 3:\n      return launch<2, 256, 4, 1, MODE>(da, dbt, o0, o1, o2, tot, "
+                           "add, m, n, ns, k_pad, batch, sch, grid, smem_bytes, s);\n"
+                           "    case 4:\n      return launch<2, 256, 4, 4, MODE>(da, dbt, o0, o1, o2, tot, "
+                           "add, m, n, ns, k_pad, batch, sch, grid, smem_bytes, s);\n" + SWITCH))
+            with open(_py(path), "a") as f:  # timed forced only: the plan never takes them
+                f.write("\nTILES = TILES + ((2, 256, 4, 1, 1), (2, 256, 4, 4, 1))\n"
+                        "TILE_RATE = TILE_RATE + (1e-9, 1e-9)\n"
+                        "GROUP_COST = GROUP_COST + (0.0, 0.0)\n"
+                        "LAUNCHES_BY_TILE = [0] * len(TILES)\n")
+            copies[name] = (path, "3,4", "1")
+        elif name == "noload":
+            _edit(_cu(path), (FOLD_LOAD, "      if (false) {"))
+            copies[name] = (path, "0", "0")
+        else:
+            raise SystemExit(f"unknown copy {name!r}")
+    return copies
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sizes", default="8192,4096")
-    ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--shapes", default="crossover")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--copies", default="shipped,kept2x1,tiles,noload")
+    ap.add_argument("--calls", type=int, default=3)
+    ap.add_argument("--seconds", type=float, default=1.0)
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("torch_recombine_variants: no CUDA GPU", file=sys.stderr)
         return 1
+    shapes = SHAPES.get(args.shapes, args.shapes)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory(prefix="oz_variants_") as root:
-        copies = make_copies(root)
+        copies = make_copies(root, args.copies.split(","))
         for r in range(args.rounds):
             for name, (path, tiles, check) in copies.items():
                 proc = subprocess.run(
-                    [sys.executable, "-c", WORKER, name, args.sizes, tiles,
-                     "1" if check == "1" and r == 0 else "0"],
+                    [sys.executable, "-c", WORKER, name, shapes, tiles,
+                     "1" if check == "1" and r == 0 else "0", str(args.calls), str(args.seconds)],
                     cwd=path, env=dict(os.environ, PYTHONPATH=path), capture_output=True, text=True)
                 sys.stdout.write(proc.stdout)
                 if proc.returncode != 0:
