@@ -1329,7 +1329,9 @@ def plain_zgemm(a_re, a_im, b_re, b_im, ns, alpha, beta, c_re, c_im):
 
 def phase_zgemm(ozt, label, rng) -> dict:
     """9. ZGEMM at 8192^3 fp64_int8_9 on complex urand01 operands, and a
-    1000x1234x777 op_a=C probe with complex alpha, beta and c."""
+    1000x1234x777 op_a=C probe with complex alpha, beta and c; each with
+    the complex layout's copies (``core.api.ZLAYOUT_COPIES``)."""
+    from ozimmu_tpu_torch.core import api
     from ozimmu_tpu_torch.schedule import effective_flops
     from ozimmu_tpu_torch.testing import generate_input, reference_gemm
 
@@ -1338,10 +1340,14 @@ def phase_zgemm(ozt, label, rng) -> dict:
     a = torch.from_numpy(a_np).cuda()
     b = torch.from_numpy(b_np).cuda()
     reset_launches()
+    copies = api.ZLAYOUT_COPIES
     out = ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
     counts = read_launches()
     if counts != gemms(complex_=1):
         raise AssertionError(f"ZGEMM launches {counts}, expected {gemms(complex_=1)}")
+    copies = api.ZLAYOUT_COPIES - copies
+    if copies != 5:  # the planes of a and b, the result's interleave
+        raise AssertionError(f"ZGEMM layout copies {copies}, expected 5")
     planes = [x.contiguous() for x in (a.real, a.imag, b.real, b.imag)]
     re, im = plain_zgemm(*planes, NS, 1.0, 0.0, None, None)
     if not (bits_equal(out.real.contiguous(), re) and bits_equal(out.imag.contiguous(), im)):
@@ -1353,7 +1359,8 @@ def phase_zgemm(ozt, label, rng) -> dict:
     r = complex_residual(out[rows][:, cols].cpu().numpy(),
                          reference_gemm(a_np[rows], b_np[:, cols]))
     print(f"[zgemm] gemm fp64_int8_{NS} complex128 {N}^3: bits == plain pipeline; sampled "
-          f"64x256 block relative_residual={r:.3e}; launches {counts}", flush=True)
+          f"64x256 block relative_residual={r:.3e}; launches {counts}, "
+          f"ZLAYOUT_COPIES {copies}", flush=True)
     del out
     flops = effective_flops(N, N, N, complex_=True)
     ms_z = cuda_ms(lambda: ozt.gemm(a, b, mode=f"fp64_int8_{NS}"), iters=3)
@@ -1368,8 +1375,12 @@ def phase_zgemm(ozt, label, rng) -> dict:
     bp_np = generate_input("normal01", (k, n), seed=43, complex_=True)
     cp_np = generate_input("normal01", (m, n), seed=44, complex_=True)
     alpha, beta = 2.0 - 0.5j, 0.25 + 1.0j
+    copies = api.ZLAYOUT_COPIES
     got = ozt.gemm(ah_np, bp_np, mode=f"fp64_int8_{NS}", op_a="C", alpha=alpha, beta=beta,
                    c=cp_np, device="cuda")
+    copies = api.ZLAYOUT_COPIES - copies
+    if copies != 7:  # the planes of a, b and c, the result's interleave
+        raise AssertionError(f"ZGEMM with c: layout copies {copies}, expected 7")
     rows, cols = block(rng, m, n)
     ref = (alpha * reference_gemm(np.conj(ah_np).T[rows], bp_np[:, cols])
            + beta * cp_np[rows][:, cols].astype(np.clongdouble))
@@ -1381,7 +1392,8 @@ def phase_zgemm(ozt, label, rng) -> dict:
     if not all(bits_equal(o, t) for o, t in zip(one, three)):
         raise AssertionError("ZGEMM n_chunks=3 differs from n_chunks=1")
     print(f"[probe] zgemm {m}x{n}x{k} op_a=C alpha={alpha} beta={beta}: "
-          f"relative_residual={r:.3e}; n_chunks=3 == n_chunks=1 bitwise", flush=True)
+          f"relative_residual={r:.3e}; n_chunks=3 == n_chunks=1 bitwise; "
+          f"ZLAYOUT_COPIES {copies}", flush=True)
     return counts
 
 

@@ -77,19 +77,31 @@ def _operands(a, b, c, handle: Handle, device):
     return is_np, at, bt, ct
 
 
+#: copies made by the complex layout: one for each float64 plane made from
+#: a complex operand (:func:`_planes`) and one for each interleave of a
+#: result (:func:`_complex_result`); 7 a complex GEMM with c, 5 without
+ZLAYOUT_COPIES = 0
+
+
 def _planes(x: torch.Tensor):
     """Contiguous real and imaginary float64 planes of a complex tensor
     (``x.real`` / ``x.imag`` are stride-2 views, which the split kernel
     does not take)."""
-    return x.real.contiguous(), x.imag.contiguous()
+    global ZLAYOUT_COPIES
+    with span("oz.zlayout"):
+        ZLAYOUT_COPIES += 2
+        return x.real.contiguous(), x.imag.contiguous()
 
 
 def _complex_result(re: torch.Tensor, im: torch.Tensor, is_np: bool):
-    if is_np:
-        # the JAX package's construction (signed zeros follow numpy's
-        # complex arithmetic), so the numpy results match it bit for bit
-        return re.cpu().numpy() + 1j * im.cpu().numpy()
-    return torch.complex(re, im)
+    global ZLAYOUT_COPIES
+    with span("oz.zlayout"):
+        ZLAYOUT_COPIES += 1
+        if is_np:
+            # the JAX package's construction (signed zeros follow numpy's
+            # complex arithmetic), so the numpy results match it bit for bit
+            return re.cpu().numpy() + 1j * im.cpu().numpy()
+        return torch.complex(re, im)
 
 
 def _check_k_supported(k: int) -> None:
