@@ -228,6 +228,7 @@ def reset_launches() -> None:
     exponent_cuda.LAUNCHES = 0
     recombine_cuda.LAUNCHES = 0
     recombine_cuda.LAUNCHES_BY_TILE = [0] * len(recombine_cuda.TILES)
+    recombine_cuda.LOCKSTEP_LAUNCHES = 0
     recombine_cuda.TOTALS_LAUNCHES = 0
     recombine_cuda.FOLD_LAUNCHES = 0
     epilogue_cuda.LAUNCHES = 0
@@ -695,6 +696,11 @@ def main() -> int:
     ms_dgemm = cuda_ms(lambda: torch.matmul(a, b), iters=3)
     print(f"[time] {label}: torch.matmul float64 {N}^3: {ms_dgemm:.3f} ms, "
           f"{2 * N**3 / ms_dgemm / 1e9:.3f} TFLOPS", flush=True)
+    # at 8192^3 and ns = 9 a cluster unit's planes (37.7 MB) fit the card's
+    # L2: the plan keeps the free walk
+    print(f"[launches] recombine in phases 5-7 ({N}^3), by tile class "
+          f"{recombine_cuda.LAUNCHES_BY_TILE}, with the bounded-skew walk "
+          f"{recombine_cuda.LOCKSTEP_LAUNCHES}", flush=True)
 
     # 7b. the epilogue and fold kernels against their plain versions
     epi_figs = walled(phase_epilogue, label, main_SE, sass)

@@ -54,6 +54,22 @@
 //   * a persistent grid: one block per SM walking the output tiles in
 //     bands of kGroupM cluster tile rows, so that the tiles in flight
 //     share A row panels and B column panels in L2;
+//   * at long k over many waves of units, the bounded-skew walk (MODE |
+//     kWalk, class 0 only, where ops/recombine_cuda.py::launch_plan
+//     engages it): the tiles in flight share their panels in L2 only while
+//     their clusters stay near the same (pair, k-tile) step, and nothing
+//     else keeps them there over the 62 waves of 5760 steps of 16384^3 at
+//     ns = 9.  Free, the pack of clusters there runs at one of two paces,
+//     launch by launch: 306-320 ms or 400-520 ms (an H100 at its cap,
+//     PERF.md §6).  So each cluster's producer publishes the steps it has
+//     issued, and issues none more than `window` steps ahead of the
+//     slowest cluster still working (struct Walk below); launches then
+//     take 316-353 ms.  The window (lockstep_window) is three times the
+//     steps whose distinct tiles fill the L2: an empirical multiple fitted
+//     on the card, not one the L2-reuse model gives, which would keep it
+//     under one L2 of steps (a third of one lost there).  Only the producer waits: the consumers, the ring, the
+//     multicast, the fold and the order of every operation are those of
+//     the free walk, so the bits are the same;
 //   * tile classes, chosen by the launch plan in ops/recombine_cuda.py:
 //     128x256 (two consumer warpgroups) for large products at long k, in
 //     clusters of two blocks that take vertically adjacent tiles and
@@ -93,6 +109,7 @@
 // tiles belong to one matrix.  The output planes are [batch, m, n], each
 // matrix at a 64-bit offset.
 
+#include <climits>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and the encoder's types; libcuda is reached at run time
 #include <cuda_runtime.h>
@@ -106,13 +123,14 @@ constexpr int kGroupM = 8;       // cluster tile rows per band of the persistent
 
 // what the kernel does with a finished group total: fold it into the
 // triple parked in the output planes, write it as int32 totals, or fold
-// it into the triple kept in registers
-enum Mode { kFold = 0, kTotals = 1, kKeep = 2 };
+// it into the triple kept in registers (MODE & kWhat); kWalk added: the
+// bounded-skew walk, with either of the first two
+enum Mode { kFold = 0, kTotals = 1, kKeep = 2, kWhat = 3, kWalk = 4 };
 
 // Blocks of a cluster side by side along n, sharing their A tile: two in
 // the kept class, whose narrow tile would otherwise stream twice the A
 // bytes per operation of the large class; one (no sharing) otherwise.
-__host__ __device__ constexpr int cluster_cols(int mode) { return mode == kKeep ? 2 : 1; }
+__host__ __device__ constexpr int cluster_cols(int mode) { return (mode & kWhat) == kKeep ? 2 : 1; }
 
 // The schedule travels by value, as a kernel parameter: about 2 KB, read
 // uniformly by every thread.
@@ -247,6 +265,94 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) 
       "r"(cta)
       : "memory");
 }
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(int* p, int v) {
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// The bounded-skew walk, run by the whole producer warp of each cluster's
+// first block (the other blocks' producers follow it through the ring's
+// barriers, never more than a ring ahead).  progress: the times a producer
+// had to wait, the times one gave up waiting, then one slot a cluster: the
+// steps its producer has issued, stored after each (relaxed: the slots
+// order no data, they only pace the loads).  Before a step the producer
+// compares its steps with the slowest cluster's as last read.  Only a
+// whole window ahead does it read every slot again (one slot a lane, one
+// round trip: about a step's time, hidden behind the ring's other
+// stages); if it is still a window ahead, it waits until it is no more
+// than window - slack ahead, so that its next `slack` steps go out with
+// no read of the slots (a read at every step would cost more than the
+// step itself).  A cluster out of units stores a count 2^30 ahead, which
+// holds nobody back (counts compare as 32-bit differences, so they may
+// wrap).  Every cluster is resident (the launch
+// checks), so a wait ends; should it last kWaitNs all the same (another
+// grid holding SMs), the producer stops waiting for the rest of the
+// launch: the pace, never the result, depends on the walk.
+struct Walk {
+  static constexpr uint64_t kWaitNs = 10000000;  // 10 ms: about 10^4 steps
+  static constexpr uint32_t kDone = 1u << 30;
+  int* count;  // [0] waits, [1] releases
+  int* slots;
+  int clusters, window, slack;
+  uint32_t step = 0, lo = 0;  // steps issued; the slowest cluster's, as last read
+  bool leader;                // the producer warp of the cluster's first block
+
+  __device__ Walk(int* progress, int n_clusters, int w, bool first)
+      : count(progress), slots(progress + 2), clusters(n_clusters), window(w),
+        slack(max(1, w / 4)), leader(first) {}
+
+  // the most steps this cluster is ahead of any cluster (warp-collective)
+  __device__ __forceinline__ int lead(int lane) const {
+    int most = INT_MIN;
+    for (int c0 = 0; c0 < clusters; c0 += 4 * 32) {
+      int v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + 32 * j + lane;
+        v[j] = c < clusters ? (int)(step - (uint32_t)ld_relaxed(slots + c)) : INT_MIN;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) most = max(most, v[j]);
+    }
+    return __reduce_max_sync(0xffffffffu, most);
+  }
+
+  __device__ __forceinline__ void before_step(int lane) {
+    if (!leader || (int)(step - lo) < window) return;
+    lo = step - (uint32_t)lead(lane);
+    if ((int)(step - lo) < window) return;
+    if (lane == 0) atomicAdd(count, 1);
+    const uint64_t t0 = global_ns();
+    do {
+      __nanosleep(256);
+      lo = step - (uint32_t)lead(lane);
+      if ((int)(step - lo) <= window - slack) return;
+    } while (__shfl_sync(0xffffffffu, (int)(global_ns() - t0 < kWaitNs), 0));
+    if (lane == 0) atomicAdd(count + 1, 1);
+    window = INT_MAX;
+  }
+
+  __device__ __forceinline__ void after_step(int cluster, int lane) {
+    ++step;
+    if (leader && lane == 0) st_relaxed(slots + cluster, (int)step);
+  }
+
+  __device__ __forceinline__ void done(int cluster, int lane) {
+    if (leader && lane == 0) st_relaxed(slots + cluster, (int)(step + kDone));
+  }
+};
 
 // wgmma descriptor of a K-major tile of 128-byte rows, 128-byte swizzle:
 // 8-row core groups 1024 bytes apart (stride byte offset), leading byte
@@ -519,15 +625,19 @@ struct Tile {
 // the triple o0/o1/o2 (tot unused); kKeep folds into the triple kept in
 // registers and stores it to o0/o1/o2 once a tile; kTotals writes group g
 // of matrix i to tot + (g * batch + i) * m * n (adds to it where `add`;
-// o0/o1/o2 unused).
+// o0/o1/o2 unused).  With kWalk the producers take the bounded-skew walk
+// over `progress` (struct Walk) with `window`; without, both are unused.
 template <int NC, int BN, int STAGES, int CM, int MODE>
 __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
     recombine_kernel(const __grid_constant__ CUtensorMap map_a,
                      const __grid_constant__ CUtensorMap map_b,
                      float* __restrict__ o0, float* __restrict__ o1,
                      float* __restrict__ o2, int* __restrict__ tot, int add, int m,
-                     int n, int k_tiles, int batch, const Schedule sch) {
+                     int n, int k_tiles, int batch, const Schedule sch,
+                     int* __restrict__ progress, int window) {
   using T = Tile<NC, BN, STAGES, CM>;
+  constexpr int WHAT = MODE & kWhat;
+  constexpr bool WALK = (MODE & kWalk) != 0;
   constexpr int CN = cluster_cols(MODE);
   constexpr int CL = CM * CN;  // blocks of a cluster
   extern __shared__ uint8_t smem_raw[];
@@ -559,9 +669,11 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
     __syncthreads();
 
   if (wg == NC) {
-    // producer: one thread keeps the ring full
+    // producer: one thread keeps the ring full (in the bounded-skew walk
+    // its whole warp runs the loop, to read every cluster's progress at once)
     if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == NC * 128) {
+    const bool issuer = threadIdx.x == NC * 128;
+    if (WALK ? threadIdx.x / 32 == NC * 4 : issuer) {
       // the blocks sharing this block's A tile (its cluster row) and B tile
       // (its cluster column)
       uint16_t row_mask = 0;
@@ -569,6 +681,8 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
       const uint16_t col_mask = (uint16_t)(((1 << CM) - 1) << (CM * rank_n));
       int stage = 0;
       uint32_t phase = 0;
+      [[maybe_unused]] const int lane = threadIdx.x & 31, cluster = blockIdx.x / CL;
+      [[maybe_unused]] Walk walk(progress, gridDim.x / CL, window, rank == 0);
       for (int u = unit0; u < units; u += units_step) {
         int mat, um, un;
         tile_coords(u, units_m, units_n, mat, um, un);
@@ -576,20 +690,24 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
         for (int p = 0; p < n_pairs; ++p) {
           const int pa = sch.pi[p] * batch + mat, pb = sch.pj[p] * batch + mat;
           for (int kt = 0; kt < k_tiles; ++kt) {
+            if constexpr (WALK) walk.before_step(lane);
             mbar_wait(empty0 + 8 * stage, phase ^ 1);
-            const uint32_t full = full0 + 8 * stage;
-            const uint32_t dst = ring + stage * T::STAGE_BYTES;
-            mbar_expect_tx(full, T::STAGE_BYTES);
-            if constexpr (CN == 1)
-              tma_load(dst, &map_a, full, kt * BK, tm * T::BM, pa);
-            else
-              tma_load_multicast(dst + rank_n * (T::BM / CN) * BK, &map_a, full, kt * BK,
-                                 tm * T::BM + rank_n * (T::BM / CN), pa, row_mask);
-            if constexpr (CM == 1)
-              tma_load(dst + T::A_BYTES, &map_b, full, kt * BK, tn * BN, pb);
-            else
-              tma_load_multicast(dst + T::A_BYTES + rank_m * (BN / CM) * BK, &map_b, full,
-                                 kt * BK, tn * BN + rank_m * (BN / CM), pb, col_mask);
+            if (!WALK || issuer) {
+              const uint32_t full = full0 + 8 * stage;
+              const uint32_t dst = ring + stage * T::STAGE_BYTES;
+              mbar_expect_tx(full, T::STAGE_BYTES);
+              if constexpr (CN == 1)
+                tma_load(dst, &map_a, full, kt * BK, tm * T::BM, pa);
+              else
+                tma_load_multicast(dst + rank_n * (T::BM / CN) * BK, &map_a, full, kt * BK,
+                                   tm * T::BM + rank_n * (T::BM / CN), pa, row_mask);
+              if constexpr (CM == 1)
+                tma_load(dst + T::A_BYTES, &map_b, full, kt * BK, tn * BN, pb);
+              else
+                tma_load_multicast(dst + T::A_BYTES + rank_m * (BN / CM) * BK, &map_b, full,
+                                   kt * BK, tn * BN + rank_m * (BN / CM), pb, col_mask);
+            }
+            if constexpr (WALK) walk.after_step(cluster, lane);
             if (++stage == STAGES) {
               stage = 0;
               phase ^= 1;
@@ -597,6 +715,7 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
           }
         }
       }
+      if constexpr (WALK) walk.done(cluster, lane);
       if constexpr (CL > 1) {
         // stay until every consumer of the cluster has released every
         // stage: their arrivals land in this block's barriers
@@ -617,7 +736,7 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) d[i] = 0;
     // the kept class's triple of each accumulator register's element
-    constexpr int KEPT = MODE == kKeep ? BN / 2 : 1;
+    constexpr int KEPT = WHAT == kKeep ? BN / 2 : 1;
     [[maybe_unused]] float t0[KEPT], t1[KEPT], t2[KEPT];
     int stage = 0;
     uint32_t phase = 0;
@@ -636,7 +755,7 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
       const int64_t out0 = (int64_t)mat * m * n;  // this matrix's output
       const int row0 = tm * T::BM + wg * 64 + warp * 16 + (lane >> 2);
       const int col0 = tn * BN + (lane & 3) * 2;
-      if constexpr (MODE == kKeep) {
+      if constexpr (WHAT == kKeep) {
 #pragma unroll
         for (int i = 0; i < KEPT; ++i) t0[i] = t1[i] = t2[i] = 0.0f;
       }
@@ -669,10 +788,10 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
         wgmma_wait<0>();
         fence_regs(d);
         release(prev);
-        if constexpr (MODE == kFold) {
+        if constexpr (WHAT == kFold) {
           fold_group(d, o0 + out0, o1 + out0, o2 + out0, row0, col0, m, n, sch.scale_hi[g],
                      sch.scale_lo[g], g == 0, g == sch.n_groups - 1);
-        } else if constexpr (MODE == kKeep) {
+        } else if constexpr (WHAT == kKeep) {
           const float shi = sch.scale_hi[g], slo = sch.scale_lo[g];
 #pragma unroll
           for (int i = 0; i < KEPT; ++i) fold_total(d[i], t0[i], t1[i], t2[i], shi, slo);
@@ -680,7 +799,7 @@ __global__ void __launch_bounds__(Tile<NC, BN, STAGES, CM>::THREADS, 1)
           store_group(d, tot + (int64_t)g * batch * m * n + out0, row0, col0, m, n, add != 0);
         }
       }
-      if constexpr (MODE == kKeep)
+      if constexpr (WHAT == kKeep)
         store_triple(t0, t1, t2, o0 + out0, o1 + out0, o2 + out0, row0, col0, m, n);
     }
   }
@@ -730,7 +849,7 @@ bool plane_map(CUtensorMap* map, const void* planes, int n_planes, int rows, int
 template <int NC, int BN, int STAGES, int CM, int MODE>
 int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int* tot,
            int add, int m, int n, int ns, int k_pad, int batch, const Schedule& sch,
-           int grid, int smem_bytes, cudaStream_t stream) {
+           int grid, int smem_bytes, int* progress, int window, cudaStream_t stream) {
   using T = Tile<NC, BN, STAGES, CM>;
   constexpr int CN = cluster_cols(MODE), CL = CM * CN;
   if (smem_bytes != T::SMEM_BYTES || grid % CL != 0) return (int)cudaErrorInvalidValue;
@@ -763,7 +882,7 @@ int launch(const void* da, const void* dbt, float* o0, float* o1, float* o2, int
     if (grid > fit * CL) cfg.gridDim = dim3(fit * CL);
   }
   e = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, o0, o1, o2, tot, add, m, n,
-                         (k_pad + BK - 1) / BK, batch, sch);
+                         (k_pad + BK - 1) / BK, batch, sch, progress, window);
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
@@ -790,21 +909,30 @@ bool make_schedule(Schedule& sch, const void* da, const void* dbt, int m, int n,
   return true;
 }
 
+// window > 0: the bounded-skew walk over progress (class 0 only; int32
+// [2 + clusters of the grid], zero)
 template <int MODE>
 int launch_tile(int tile, const void* da, const void* dbt, float* o0, float* o1, float* o2,
                 int* tot, int add, int m, int n, int ns, int k_pad, int batch,
-                const Schedule& sch, int grid, int smem_bytes, cudaStream_t s) {
+                const Schedule& sch, int grid, int smem_bytes, int* progress, int window,
+                cudaStream_t s) {
+  if (window < 0 || (window > 0 && (tile != 0 || progress == nullptr)))
+    return (int)cudaErrorInvalidValue;
   switch (tile) {
     case 0:
+      if (window > 0)
+        return launch<2, 256, 4, 2, MODE | kWalk>(da, dbt, o0, o1, o2, tot, add, m, n, ns,
+                                                  k_pad, batch, sch, grid, smem_bytes,
+                                                  progress, window, s);
       return launch<2, 256, 4, 2, MODE>(da, dbt, o0, o1, o2, tot, add, m, n, ns, k_pad,
-                                        batch, sch, grid, smem_bytes, s);
+                                        batch, sch, grid, smem_bytes, nullptr, 0, s);
     case 1:
       return launch<1, 128, 8, 1, MODE>(da, dbt, o0, o1, o2, tot, add, m, n, ns, k_pad,
-                                        batch, sch, grid, smem_bytes, s);
+                                        batch, sch, grid, smem_bytes, nullptr, 0, s);
     case 2:  // the kept class folds only: its triple has no place in the totals mode
       if constexpr (MODE == kFold)
         return launch<2, 96, 8, 2, kKeep>(da, dbt, o0, o1, o2, tot, add, m, n, ns, k_pad,
-                                          batch, sch, grid, smem_bytes, s);
+                                          batch, sch, grid, smem_bytes, nullptr, 0, s);
       return (int)cudaErrorInvalidValue;
     default:
       return (int)cudaErrorInvalidValue;
@@ -879,7 +1007,9 @@ __global__ void __launch_bounds__(256)
 // registers, in clusters of 2x2 (8 stages); grid: persistent blocks, a
 // multiple of the cluster size (fewer are launched if fewer clusters fit
 // on the card at once); smem_bytes must equal the tile class's dynamic
-// shared memory (ops/recombine_cuda.py::launch_plan).
+// shared memory (ops/recombine_cuda.py::launch_plan).  window > 0 (tile 0
+// only): the bounded-skew walk, `progress` int32 [2 + grid / 2], zero
+// (struct Walk); else 0, and progress unused.
 // Returns a cudaError_t code (0 = launched).
 extern "C" int oz_recombine(const void* da, const void* dbt, void* o0, void* o1,
                             void* o2, int m, int n, int ns, int k_pad, int batch,
@@ -887,31 +1017,34 @@ extern "C" int oz_recombine(const void* da, const void* dbt, void* o0, void* o1,
                             const int32_t* group_start, const int32_t* pair_i,
                             const int32_t* pair_j, const float* scale_hi,
                             const float* scale_lo, int tile, int grid, int smem_bytes,
-                            void* stream) {
+                            void* progress, int window, void* stream) {
   Schedule sch;
   if (!make_schedule(sch, da, dbt, m, n, ns, k_pad, batch, n_groups, group_start, pair_i,
                      pair_j, scale_hi, scale_lo, grid))
     return (int)cudaErrorInvalidValue;
   return launch_tile<kFold>(tile, da, dbt, (float*)o0, (float*)o1, (float*)o2, nullptr, 0, m,
-                            n, ns, k_pad, batch, sch, grid, smem_bytes, (cudaStream_t)stream);
+                            n, ns, k_pad, batch, sch, grid, smem_bytes, (int*)progress,
+                            window, (cudaStream_t)stream);
 }
 
-// The totals mode: the same operands, plan and schedule as oz_recombine
-// (no scales; tile 0 or 1); totals: int32 [n_groups, batch, m, n], 8-byte aligned,
-// stored (add == 0) or added to (add != 0).  Returns a cudaError_t code.
+// The totals mode: the same operands, plan, walk and schedule as
+// oz_recombine (no scales; tile 0 or 1); totals: int32 [n_groups, batch, m,
+// n], 8-byte aligned, stored (add == 0) or added to (add != 0).  Returns a
+// cudaError_t code.
 extern "C" int oz_recombine_totals(const void* da, const void* dbt, void* totals, int add,
                                    int m, int n, int ns, int k_pad, int batch, int n_groups,
                                    const int32_t* group_start, const int32_t* pair_i,
                                    const int32_t* pair_j, int tile, int grid,
-                                   int smem_bytes, void* stream) {
+                                   int smem_bytes, void* progress, int window,
+                                   void* stream) {
   Schedule sch;
   if ((uintptr_t)totals % 8 != 0 ||
       !make_schedule(sch, da, dbt, m, n, ns, k_pad, batch, n_groups, group_start, pair_i,
                      pair_j, nullptr, nullptr, grid))
     return (int)cudaErrorInvalidValue;
   return launch_tile<kTotals>(tile, da, dbt, nullptr, nullptr, nullptr, (int*)totals, add, m,
-                              n, ns, k_pad, batch, sch, grid, smem_bytes,
-                              (cudaStream_t)stream);
+                              n, ns, k_pad, batch, sch, grid, smem_bytes, (int*)progress,
+                              window, (cudaStream_t)stream);
 }
 
 // The totals fold: totals int32 [n_groups, elems] -> out float32

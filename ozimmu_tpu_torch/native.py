@@ -127,11 +127,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.oz_exponent_max.argtypes = [p, p, i64, i64, i64, i64, i64, i32, i32, i64, i64, p]
     lib.oz_exponent_max.restype = i32
     lib.oz_recombine.argtypes = [
-        p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p, p, p, p, i32, i32, i32, p,
+        p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p, p, p, p, i32, i32, i32, p, i32, p,
     ]
     lib.oz_recombine.restype = i32
     lib.oz_recombine_totals.argtypes = [
-        p, p, p, i32, i32, i32, i32, i32, i32, i32, p, p, p, i32, i32, i32, p,
+        p, p, p, i32, i32, i32, i32, i32, i32, i32, p, p, p, i32, i32, i32, p, i32, p,
     ]
     lib.oz_recombine_totals.restype = i32
     lib.oz_totals_fold.argtypes = [p, p, i64, i32, p, p, i32, i32, i32, p]

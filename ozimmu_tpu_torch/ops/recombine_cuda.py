@@ -13,9 +13,9 @@ instead, and :func:`fold_totals` folds them (plain versions:
 CUDA tensors only and raise on anything else — there is no fallback.
 
 :func:`launch_plan` decides everything about a launch of the kernel that
-depends on the shape (tile class, padded k, grid, shared memory), and
-:func:`fold_plan` the fold's, in plain Python, so that the CPU tests can
-check them.
+depends on the shape (tile class, padded k, grid, shared memory, the
+window of the bounded-skew walk), and :func:`fold_plan` the fold's, in
+plain Python, so that the CPU tests can check them.
 """
 
 from __future__ import annotations
@@ -75,6 +75,37 @@ TILE_RATE = (1.0, 0.45, 0.61)
 #: 16384^2 x 2048 and x 4096, the two sides of the crossover (k ~ 3080 at
 #: ns = 9; tools/torch_recombine_variants.py, PERF.md)
 GROUP_COST = (9850.0, 9850.0, 0.0)
+#: the classes that have the bounded-skew walk (csrc/recombine.cu, kWalk):
+#: the 128x256 class, which the plan takes at long k over many tiles
+WALK_TILES = (0,)
+#: cluster tile rows per band of the persistent walk (csrc/recombine.cu,
+#: kGroupM)
+GROUP_M = 8
+#: the window, in multiples of the steps whose distinct plane tiles fill
+#: the card's L2 (lockstep_window): an empirical multiple, not one the L2
+#: model gives (that model would keep the window under one L2 of steps,
+#: and a third of one lost).  Fitted on an H100 at its power cap
+#: (tools/torch_recombine_variants.py --shapes long; PERF.md §6): at
+#: 16384^3, ns = 9, launches took 440, 413 and 381 ms at 0.15, 0.33 and 0.6
+#: against 377-386 free in one call; 334, 329, 331, 353 and 373 ms at 2, 3,
+#: 4, 6 and 8 against 431 free in another; 424-430 at 12.  A tight window
+#: holds the whole pack to the slowest cluster's every stall; a loose one
+#: lets the pack split again, as the free walk does
+WINDOW_SHARE = 3.0
+#: the walk pays only where the free walk's pack of clusters splits: where
+#: one cluster unit's planes exceed half the L2 (37.7 MB units won 8-25 %
+#: at 16384^2 and 24576^2 x 8192, 18.9 MB ones lost 4 % at 16384^2 x
+#: 4096), over many waves of units (at least MIN_WAVES units a cluster: 62
+#: and 140 won, 35 at 12288^2 and 15.5 at 8192^2 lost 0-15 %), and at up
+#: to WALK_MAX_PAIRS pairs (ns = 9 and 12 won at 16384^2, ns = 15 came out
+#: even and ns = 18 lost 2-12 %); all read on an H100 (PERF.md §6)
+MIN_WAVES = 48
+WALK_MAX_PAIRS = 78
+#: launches of :func:`recombine` and :func:`group_totals` that took the
+#: bounded-skew walk, counted as :data:`LAUNCHES`
+LOCKSTEP_LAUNCHES = 0
+#: the window and the progress array of the last such launch (last_walk)
+_last_walk = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +120,7 @@ class LaunchPlan:
     grid: int  # persistent blocks, at most one per SM
     smem_bytes: int
     pairs: int
+    window: int = 0  # the bounded-skew walk's window in steps; 0: the free walk
 
 
 def _smem_bytes(block_m: int, block_n: int, stages: int) -> int:
@@ -99,7 +131,7 @@ def _smem_bytes(block_m: int, block_n: int, stages: int) -> int:
 
 def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
                 tile: Optional[int] = None, batch: int = 1, groups: Optional[int] = None,
-                totals: bool = False) -> LaunchPlan:
+                totals: bool = False, l2_bytes: Optional[int] = None) -> LaunchPlan:
     """The launch of ``batch`` m x n products over ``k`` (the planes' k)
     with ``num_split`` planes on a card with ``sms`` SMs, folding
     ``groups`` groups (by default those of ``group_schedule(num_split,
@@ -109,7 +141,17 @@ def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
     groups x its fold's cost) — the large tile leaves most SMs idle on
     small products, and the parked triple's round trips weigh most at
     short k.  The totals mode has no triple: it weighs the int8 work alone,
-    among :data:`TOTALS_TILES`."""
+    among :data:`TOTALS_TILES`.
+
+    On a card with an L2 of ``l2_bytes`` (None: no walk), a class of
+    :data:`WALK_TILES` takes the bounded-skew walk, with the window of
+    :func:`lockstep_window`, where one cluster unit's own plane bytes,
+    ``num_split * k_pad * (cluster rows + cluster columns)``, exceed half
+    the L2 (the clusters that share a panel find it in L2 only while they
+    stay near the same step), where each cluster walks at least
+    :data:`MIN_WAVES` units, and at up to :data:`WALK_MAX_PAIRS` pairs: the
+    shapes at which the free walk's clusters were measured to drift apart
+    and the walk to win."""
     pairs = num_split * (num_split + 1) // 2
     if pairs > MAX_PAIRS or min(m, n, k, sms, batch) < 1:
         raise ValueError(
@@ -141,11 +183,41 @@ def launch_plan(m: int, n: int, k: int, num_split: int, sms: int,
     units = units_of(tile)
     if units * cl >= 2**31 or num_split * batch >= 2**31:
         raise ValueError(f"{units} units of {batch} matrices exceed the kernel's 32-bit unit index")
-    return LaunchPlan(
+    plan = LaunchPlan(
         tile=tile, block_m=64 * nc, block_n=bn, stages=stages, cluster=cl, k_pad=k_pad,
         tiles=units * cl, grid=cl * min(sms // cl, units),
         smem_bytes=_smem_bytes(64 * nc, bn, stages), pairs=pairs,
     )
+    if l2_bytes is not None and tile in WALK_TILES and units >= MIN_WAVES * (plan.grid // cl) \
+            and pairs <= WALK_MAX_PAIRS \
+            and 2 * num_split * k_pad * (64 * nc * cm + bn * cn) > l2_bytes:
+        plan = dataclasses.replace(plan, window=lockstep_window(l2_bytes, plan, m, n))
+    return plan
+
+
+def lockstep_window(l2_bytes: int, plan: LaunchPlan, m: int, n: int) -> int:
+    """The bounded-skew walk's window, in steps (one k tile of one pair),
+    for ``plan``'s launch over m x n on a card with an L2 of ``l2_bytes``:
+    :data:`WINDOW_SHARE` times the steps whose plane tiles the L2 holds, at
+    the distinct bytes the clusters in flight read a step — the A tiles of
+    a band's :data:`GROUP_M` cluster rows and the B tiles of the columns
+    that the clusters cover — never below 1 nor above one unit's steps.
+    On an H100 (50 MiB) at 16384^3 and ns = 9: 66 clusters over 8 rows and
+    9 columns, 544 KiB a step, 94 steps of L2, a window of 282 steps.
+
+    The L2 sets only the scale: the multiple is fitted, not derived.  At
+    three L2s of steps the clusters that share a panel can be further apart
+    than the L2 keeps it, yet the window won where windows under one L2
+    lost (:data:`WINDOW_SHARE`); what it bounds is the pack's split into
+    two paces, not each tile's reuse."""
+    nc, bn, _, cm, cn = TILES[plan.tile]
+    units_m = math.ceil(math.ceil(m / plan.block_m) / cm)
+    units_n = math.ceil(math.ceil(n / bn) / cn)
+    rows = min(GROUP_M, units_m)
+    cols = min(units_n, math.ceil(plan.grid // plan.cluster / rows))
+    step_bytes = (rows * cm * plan.block_m + cols * cn * bn) * BLOCK_K
+    steps = plan.pairs * math.ceil(plan.k_pad / BLOCK_K)
+    return max(1, min(steps, int(WINDOW_SHARE * l2_bytes / step_bytes)))
 
 
 #: the totals fold's blocks: threads each, and at most this many per SM
@@ -256,6 +328,39 @@ def _host_ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
+def _card(device):
+    """The card's SMs and L2 size in bytes."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.L2_cache_size
+
+
+def _progress(plan: LaunchPlan, device) -> Optional[torch.Tensor]:
+    """The bounded-skew walk's counters and slots (csrc/recombine.cu,
+    struct Walk), zero, where ``plan`` takes the walk."""
+    if not plan.window:
+        return None
+    return torch.zeros(2 + plan.grid // plan.cluster, dtype=torch.int32, device=device)
+
+
+def _walked(plan: LaunchPlan, progress: Optional[torch.Tensor]) -> None:
+    global LOCKSTEP_LAUNCHES, _last_walk
+    if progress is not None:
+        LOCKSTEP_LAUNCHES += 1
+        _last_walk = (plan.window, progress)
+
+
+def last_walk() -> Optional[dict]:
+    """The last launch that took the bounded-skew walk: its ``window``, how
+    many times its producers had to wait for the slowest cluster
+    (``waits``) and gave up waiting (``releases``); None before any.  Reads
+    the counters from the card, so it waits for that launch."""
+    if _last_walk is None:
+        return None
+    window, progress = _last_walk
+    waits, releases = progress[:2].tolist()
+    return {"window": window, "waits": waits, "releases": releases}
+
+
 def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int,
               tile: Optional[int] = None, b_kmajor: bool = False) -> Triple:
     """The 2^ACC_SHIFT-scaled triple-f32 accumulator [m, n] of the digit
@@ -264,7 +369,9 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
     matrix i the product of the planes of matrix i.  ``k`` is the true
     contraction length, which sets the group caps.  ``tile`` forces a tile
     class of :data:`TILES` (the launch plan chooses otherwise); every class
-    gives the same bits.
+    gives the same bits.  The launch plan, told the card's L2 size,
+    chooses the bounded-skew walk and its window; the walk gives the same
+    bits as the free one.
 
     The kernel reads both operands k-contiguous (8-bit ``wgmma`` takes only
     K-major operands), k zero-padded to a multiple of :data:`K_ALIGN`.
@@ -280,23 +387,27 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
     if min(bsz, m, n, k_in) == 0:
         out = tuple(o.zero_() for o in out)
         return out if batched else tuple(o[0] for o in out)
-    sms = torch.cuda.get_device_properties(da.device).multi_processor_count
+    sms, l2 = _card(da.device)
     n_groups, start, pi, pj, shi, slo = _schedule_arrays(num_split, k, b)
-    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz, groups=n_groups)
+    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz, groups=n_groups,
+                       l2_bytes=l2)
     if not b_kmajor:
         da = _pad_k_major(da, plan.k_pad)
         db = _pad_k_major(db.transpose(2, 3), plan.k_pad)
     da, dbt = _k_major(da, plan.k_pad, "A"), _k_major(db, plan.k_pad, "B")
     ptr = _host_ptr
+    progress = _progress(plan, da.device)
     with torch.cuda.device(da.device):
         code = native.lib().oz_recombine(
             da.data_ptr(), dbt.data_ptr(), out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             m, n, num_split, plan.k_pad, bsz, n_groups, ptr(start), ptr(pi), ptr(pj), ptr(shi),
-            ptr(slo), plan.tile, plan.grid, plan.smem_bytes, _stream(da.device),
+            ptr(slo), plan.tile, plan.grid, plan.smem_bytes,
+            None if progress is None else progress.data_ptr(), plan.window, _stream(da.device),
         )
     native.check(code, "recombine launch")
     LAUNCHES += 1
     LAUNCHES_BY_TILE[plan.tile] += 1
+    _walked(plan, progress)
     return out if batched else tuple(o[0] for o in out)
 
 
@@ -313,7 +424,7 @@ def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: 
     sum over all of it, so the totals of its k panels add without
     overflow.  The planes' own width k_pad (a multiple of :data:`K_ALIGN`,
     zero beyond the panel's k) sets the k tiles.  Planes in any other
-    layout raise: nothing is copied."""
+    layout raise: nothing is copied.  ``tile`` as in :func:`recombine`."""
     global TOTALS_LAUNCHES
     batched, da, db, bsz, m, n, k_in = _operands(da, db, num_split, b, k, True,
                                                  "recombine (totals)")
@@ -331,18 +442,21 @@ def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: 
         out = totals.view(shape)
     if min(bsz, m, n) == 0:
         return out.zero_() if totals is None else totals
-    sms = torch.cuda.get_device_properties(da.device).multi_processor_count
-    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz, totals=True)
+    sms, l2 = _card(da.device)
+    plan = launch_plan(m, n, k_in, num_split, sms, tile, batch=bsz, totals=True, l2_bytes=l2)
     da, dbt = _k_major(da, plan.k_pad, "A"), _k_major(db, plan.k_pad, "B")
     ptr = _host_ptr
+    progress = _progress(plan, da.device)
     with torch.cuda.device(da.device):
         code = native.lib().oz_recombine_totals(
             da.data_ptr(), dbt.data_ptr(), out.data_ptr(), int(totals is not None), m, n,
             num_split, plan.k_pad, bsz, n_groups, ptr(start), ptr(pi), ptr(pj), plan.tile,
-            plan.grid, plan.smem_bytes, _stream(da.device),
+            plan.grid, plan.smem_bytes, None if progress is None else progress.data_ptr(),
+            plan.window, _stream(da.device),
         )
     native.check(code, "recombine (totals) launch")
     TOTALS_LAUNCHES += 1
+    _walked(plan, progress)
     return out if batched else out.view(n_groups, m, n)
 
 

@@ -205,6 +205,25 @@ def test_kept_class_equals_plain_and_the_large_class(dev, ns):
                                     tile=recombine_cuda.KEPT_TILE)
 
 
+@pytest.mark.parametrize("case", ["partial-wave", "partial-wave-window", "fewer-units", "batch3",
+                                  "odd", "ns3", "ns18", "totals"])
+def test_bounded_skew_walk_equals_the_free_walk(dev, case):
+    """Class 0 with the bounded-skew walk engaged (a small stand-in for the
+    card's L2) == the free walk == the plain version, bit for bit, in a
+    process of its own with its own time limit, so that a producer that
+    never stops waiting fails the case and hangs nothing: a partial last
+    wave, fewer units than clusters, a batch of 3, odd m and n, ns = 3 and
+    18, the totals mode (tests/torch_walk_cases.py); the launch is counted
+    in LOCKSTEP_LAUNCHES and its waits and releases read back."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tests", "torch_walk_cases.py"), "--case", case],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root), capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    assert proc.stdout.count(" ok") == 1, proc.stdout
+
+
 @pytest.mark.parametrize("ns,b", [(3, 7), (9, 5), (18, 5)])
 def test_split_kernel_on_a_batch_equals_plain(dev, ns, b):
     """One launch over [3, 1000, 777] (each matrix against its own row or

@@ -3,6 +3,7 @@ its tensor maps need, and its launch plan (tile class, padded k, grid,
 shared memory).  The padding is checked through the plain version, which
 is what the kernel must equal bitwise on the card."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -148,3 +149,74 @@ def test_launch_plan_refuses_what_the_kernel_cannot_hold():
         K.launch_plan(64, 64, 0, 9, 132)
     with pytest.raises(ValueError):
         K.launch_plan(64, 64, 64, 9, 0)
+
+
+#: an 80 GB H100's L2 (torch's ``L2_cache_size``)
+H100_L2 = 50 * 2**20
+
+
+@pytest.mark.parametrize("m,n,k,ns,batch,tile,totals,engaged", [
+    (16384, 16384, 16384, 9, 1, None, False, True),   # the headline: 75.5 MB of planes a unit
+    (16384, 16384, 16384, 9, 1, None, True, True),    # the totals mode takes the same rule
+    (16384, 16384, 16384, 12, 1, None, False, True),  # 101 MB, 78 pairs
+    (16384, 16384, 32768, 9, 1, None, False, True),   # 151 MB
+    (32768, 8192, 16384, 9, 1, None, False, True),    # 75.5 MB, 4096 units
+    (16384, 16384, 8192, 9, 1, None, False, True),    # 37.7 MB: over half the L2
+    (24576, 24576, 8192, 9, 1, None, False, True),    # 37.7 MB, 140 waves
+    (16384, 16384, 8192, 12, 1, None, False, True),   # 50.3 MB, 78 pairs
+    (16384, 16384, 16384, 15, 1, None, False, False),  # 126 MB, but 120 pairs
+    (8192, 8192, 8192, 18, 1, None, False, False),    # 75.5 MB, but 15.5 waves and 171 pairs
+    (16384, 16384, 8192, 18, 1, None, False, False),  # 75.5 MB and 62 waves, but 171 pairs
+    (8192, 8192, 16384, 9, 1, None, False, False),    # 75.5 MB, but 15.5 waves
+    (12288, 12288, 12288, 9, 1, None, False, False),  # 56.6 MB, but 35 waves
+    (8192, 8192, 8192, 9, 1, None, False, False),     # 37.7 MB; the ZGEMM cell's four passes
+    (4096, 4096, 4096, 9, 4, None, False, False),     # 18.9 MB, the batch cell
+    (16384, 16384, 4096, 9, 1, None, False, False),   # 18.9 MB: under half the L2
+    (44032, 44032, 1024, 9, 1, None, False, False),   # HPL's update: the kept class
+    (1024, 44032, 1024, 9, 1, None, False, False),    # HPL's U12 product
+    (1024, 1024, 1024, 9, 1, None, False, False),     # the intercepted call
+    (16384, 16384, 1024, 18, 1, 0, False, False),     # class 0 forced at k = 1024: 18.9 MB
+    (16384, 16384, 16384, 9, 1, 1, False, False),     # the classes without the walk,
+    (16384, 16384, 16384, 9, 1, 2, False, False),     # even where a unit exceeds the L2
+    (1025, 1023, 16384, 9, 1, None, False, False),    # the kept class's few tiles at long k
+    (200, 200, 65536, 18, 1, 0, False, False),        # one cluster, one unit
+])
+def test_lockstep_engages_where_the_free_walk_drifts(m, n, k, ns, batch, tile, totals, engaged):
+    """The bounded-skew walk engages exactly where one cluster unit's own
+    plane bytes, ns * k_pad * (256 + 256) in class 0, exceed half the
+    card's L2, each cluster walks at least MIN_WAVES units and the schedule has at
+    most WALK_MAX_PAIRS pairs (where an H100 measured the walk to win), in
+    class 0 only; without an L2 size it never does.  Engaged or not, the
+    plan is otherwise the one it was."""
+    plan = K.launch_plan(m, n, k, ns, sms=132, tile=tile, batch=batch, totals=totals,
+                         l2_bytes=H100_L2)
+    free = K.launch_plan(m, n, k, ns, sms=132, tile=tile, batch=batch, totals=totals)
+    assert free.window == 0
+    assert (plan.window > 0) == engaged
+    assert dataclasses.replace(plan, window=0) == free
+    if engaged:
+        assert plan.tile in K.WALK_TILES and plan.pairs <= K.WALK_MAX_PAIRS
+        assert plan.tiles // plan.cluster >= K.MIN_WAVES * (plan.grid // plan.cluster)
+        assert 2 * ns * plan.k_pad * (plan.block_m * 2 + plan.block_n) > H100_L2
+        assert plan.window == K.lockstep_window(H100_L2, plan, m, n)
+    if (m, n, k, ns, batch, tile, totals) == (16384, 16384, 16384, 9, 1, None, False):
+        # 66 clusters over 8 cluster rows and 9 columns: 544 KiB of tiles a step
+        assert plan.window == int(K.WINDOW_SHARE * H100_L2 / 557_056) == 282
+
+
+@pytest.mark.parametrize("l2", [1, 2**20, 2**23, H100_L2, 2**40])
+@pytest.mark.parametrize("m,n,k,ns,batch", [
+    (16384, 16384, 16384, 9, 1), (8192, 8192, 8192, 18, 1), (1792, 2560, 2048, 9, 1),
+    (300, 520, 2000, 3, 3), (65536, 512, 777, 16, 1),
+])
+def test_lockstep_window_is_bounded_and_grows_with_the_l2(l2, m, n, k, ns, batch):
+    """The window is a pure function of the L2 size, the class and the band
+    of clusters in flight: at least 1 step, at most one unit's steps (pairs
+    x k tiles), and never smaller for a larger L2."""
+    plan = K.launch_plan(m, n, k, ns, sms=132, tile=0, batch=batch)
+    steps = plan.pairs * math.ceil(plan.k_pad / K.BLOCK_K)
+    w = K.lockstep_window(l2, plan, m, n)
+    assert 1 <= w <= steps and w == K.lockstep_window(l2, plan, m, n)
+    assert K.lockstep_window(2 * l2, plan, m, n) >= w
+    if l2 == 2**40:
+        assert w == steps

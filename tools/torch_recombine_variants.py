@@ -3,6 +3,9 @@
 
     python3 tools/torch_recombine_variants.py [--shapes crossover] [--rounds 2]
         [--copies shipped,kept2x1,tiles,noload] [--calls 3] [--seconds 1]
+    python3 tools/torch_recombine_variants.py --shapes long [--walks off,on]
+        [--launches 10] [--soak 6] [--shares 2,3,4] [--long-shapes "m,n,k,batch[,ns];..."]
+        [--long-modes fold,totals]
 
 ``--shapes`` is a list of ``m,n,k`` or ``m,n,k,batch`` separated by ``;``,
 or a name: ``crossover`` (the launch plan's crossover: k = 1024 .. 16384 at
@@ -33,6 +36,28 @@ Every class of every copy but ``noload`` is first checked bitwise against
 the plain version at 1000 x 1234 x 777.  Prints one JSON line per timing.
 Exits non-zero without a GPU or if a source anchor that an alteration needs
 has moved.
+
+``--shapes long`` times class 0 alone at long k, in this checkout: 16384^3,
+8192^3 and 4 x 4096^3 at ns = 9 (or ``--long-shapes``, ns 9 unless a fifth
+number gives it), each launch on its own (CUDA events around
+it, a synchronise between launches) after ``--soak`` seconds of launches
+that bring the card to its power cap, ``--launches`` launches a turn, the
+walks of ``--walks`` in turns, mirrored (off, on, on, off):
+
+  * ``off``: the free persistent walk (window 0, whatever the plan says);
+  * ``plan``: what the launch plan does with the card's L2 (the bounded-skew
+    walk only where one cluster unit's planes exceed it);
+  * ``on``: the bounded-skew walk forced wherever class 0 runs, with the
+    window the card's L2 gives (``recombine_cuda.WINDOW_SHARE`` times the
+    steps the L2 holds, or each of ``--shares`` in turn).
+
+Each turn prints the launches' ms (least, median, most, and each), the
+window, and the times producers had to wait and gave up waiting.
+``--long-modes`` names the kernel's modes timed at each shape: ``fold``
+(:func:`recombine`, its B planes made k-contiguous in the launch, as the
+public path does) and ``totals`` (:func:`group_totals` on k-major planes,
+storing the totals).  A checkout without the walk times
+``off`` alone.
 """
 
 from __future__ import annotations
@@ -54,9 +79,11 @@ SHAPES = {
                  "1025,1023,1024;1024,1024,1024;4096,4096,4096,4;1024,1024,1024,8",
     "quick": "16384,16384,1024;16384,16384,16384",
 }
+LONG = ((16384, 16384, 16384, 1), (8192, 8192, 8192, 1), (4096, 4096, 4096, 4))
 
 SWITCH = "    case 2:  // the kept class folds only"
-COLS = "__host__ __device__ constexpr int cluster_cols(int mode) { return mode == kKeep ? 2 : 1; }"
+COLS = ("__host__ __device__ constexpr int cluster_cols(int mode) { return (mode & kWhat) == kKeep "
+        "? 2 : 1; }")
 FIT = "    if (grid > fit * CL) cfg.gridDim = dim3(fit * CL);\n"
 FOLD_LOAD = "      if (!first && row < m && col < n) {"
 
@@ -184,9 +211,10 @@ def make_copies(root: str, names) -> dict:
         elif name == "tiles":
             _edit(_cu(path),
                   (SWITCH, "    case 3:\n      return launch<2, 256, 4, 1, MODE>(da, dbt, o0, o1, o2, tot, "
-                           "add, m, n, ns, k_pad, batch, sch, grid, smem_bytes, s);\n"
+                           "add, m, n, ns, k_pad, batch, sch, grid, smem_bytes, nullptr, 0, s);\n"
                            "    case 4:\n      return launch<2, 256, 4, 4, MODE>(da, dbt, o0, o1, o2, tot, "
-                           "add, m, n, ns, k_pad, batch, sch, grid, smem_bytes, s);\n" + SWITCH))
+                           "add, m, n, ns, k_pad, batch, sch, grid, smem_bytes, nullptr, 0, s);\n"
+                           + SWITCH))
             with open(_py(path), "a") as f:  # timed forced only: the plan never takes them
                 f.write("\nTILES = TILES + ((2, 256, 4, 1, 1), (2, 256, 4, 4, 1))\n"
                         "TILE_RATE = TILE_RATE + (1e-9, 1e-9)\n"
@@ -201,6 +229,107 @@ def make_copies(root: str, names) -> dict:
     return copies
 
 
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,clocks_throttle_reasons.active",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+def run_long(walks, launches: int, soak: float, shares, long_shapes=LONG,
+             modes=("fold",)) -> int:
+    """``--shapes long``: class 0 at long k, each launch timed on its own,
+    the walks in turns (the module docstring)."""
+    import dataclasses
+    import statistics
+    import time
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    from ozimmu_tpu_torch.ops import recombine_cuda as rc
+    from ozimmu_tpu_torch.ops.recombine import padded_k
+    from ozimmu_tpu_torch.ops.split import split_f64, split_f64_cols
+    from ozimmu_tpu_torch.schedule import bits_per_int8
+
+    dev = torch.device("cuda")
+    has_walk = hasattr(rc, "LOCKSTEP_LAUNCHES")
+    if not has_walk:
+        walks = ["off"]
+    print(json.dumps({"walk_in_checkout": has_walk}), flush=True)
+    plan_of = rc.launch_plan
+
+    def set_window(on):  # launch_plan with the window set here, whatever the rule says
+        def plan(m, n, k, ns, sms, tile=None, **kw):
+            p = plan_of(m, n, k, ns, sms, tile, **kw)
+            window = rc.lockstep_window(kw["l2_bytes"], p, m, n) \
+                if on and p.tile in rc.WALK_TILES else 0
+            return dataclasses.replace(p, window=window)
+        return plan
+
+    for shape in long_shapes:
+        m, n, k, bsz = shape[:4]
+        ns = shape[4] if len(shape) > 4 else 9
+        b, kp = bits_per_int8(k), padded_k(k)
+        g = torch.Generator(device=dev).manual_seed(k + bsz)
+        a = torch.rand((bsz, m, k), dtype=torch.float64, device=dev, generator=g)
+        bm = torch.rand((bsz, k, n), dtype=torch.float64, device=dev, generator=g)
+        if bsz == 1:
+            a, bm = a[0], bm[0]
+        planes = (split_f64, split_f64_cols)
+        da, db = (split(x, ns, b)[0] for split, x in zip(planes, (a, bm)))
+        if "totals" in modes:  # the totals mode reads only k-major planes
+            ka, kb = (split(x, ns, b, kp)[0] for split, x in zip(planes, (a, bm)))
+        del a, bm
+        turns = []
+        for w in walks:
+            turns += [(w, s) for s in (shares if w == "on" else [None])]
+        for mode in modes:
+            if mode == "totals":
+                f = lambda: rc.group_totals(ka, kb, ns, b, k, tile=0)  # noqa: E731
+            else:
+                f = lambda: rc.recombine(da, db, ns, b, k, tile=0)  # noqa: E731
+            for walk, share in turns + turns[::-1]:
+                if share is not None:
+                    rc.WINDOW_SHARE = share
+                if has_walk and walk != "plan":
+                    rc.launch_plan = set_window(walk == "on")
+                try:
+                    t_end = time.perf_counter() + soak
+                    while time.perf_counter() < t_end:
+                        f()
+                        torch.cuda.synchronize()
+                    ms, waits, window = [], [], None
+                    seen = getattr(rc, "LOCKSTEP_LAUNCHES", 0)
+                    for _ in range(launches):
+                        s, e = torch.cuda.Event(enable_timing=True), \
+                            torch.cuda.Event(enable_timing=True)
+                        torch.cuda.synchronize()
+                        s.record()
+                        f()
+                        e.record()
+                        e.synchronize()
+                        ms.append(s.elapsed_time(e))
+                        if has_walk:
+                            walked = rc.LOCKSTEP_LAUNCHES
+                            last = rc.last_walk() if walked != seen else None
+                            seen = walked
+                            window = last["window"] if last else 0
+                            waits.append(last and [last["waits"], last["releases"]])
+                finally:
+                    rc.launch_plan = plan_of
+                print(json.dumps({
+                    "m": m, "n": n, "k": k, "batch": bsz, "ns": ns, "mode": mode, "walk": walk,
+                    "share": share, "window": window, "launches": launches,
+                    "ms_least": min(ms), "ms_median": statistics.median(ms), "ms_most": max(ms),
+                    "most_over_least": max(ms) / min(ms), "ms": ms,
+                    "int8_tops_median": bsz * ns * (ns + 1) * m * n * k
+                    / statistics.median(ms) / 1e9,
+                    "waits_and_releases": waits, "after": _smi()}), flush=True)
+        del da, db
+        ka = kb = None
+        torch.cuda.empty_cache()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shapes", default="crossover")
@@ -208,12 +337,26 @@ def main(argv=None) -> int:
     ap.add_argument("--copies", default="shipped,kept2x1,tiles,noload")
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--seconds", type=float, default=1.0)
+    ap.add_argument("--walks", default="off,on")
+    ap.add_argument("--launches", type=int, default=10)
+    ap.add_argument("--soak", type=float, default=6.0)
+    ap.add_argument("--shares", default="")
+    ap.add_argument("--long-shapes", default="")
+    ap.add_argument("--long-modes", default="fold")
     args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
         print("torch_recombine_variants: no CUDA GPU", file=sys.stderr)
         return 1
+    if args.shapes == "long":
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+        shares = [float(x) for x in args.shares.split(",") if x] or [None]
+        shapes = [tuple(int(x) for x in s.split(",")) for s in args.long_shapes.split(";")] \
+            if args.long_shapes else LONG
+        return run_long(args.walks.split(","), args.launches, args.soak, shares, shapes,
+                        args.long_modes.split(","))
     shapes = SHAPES.get(args.shapes, args.shapes)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
