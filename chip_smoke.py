@@ -1050,7 +1050,7 @@ def phase_epilogue(label, main_SE, sass) -> dict:
     Returns the figures of the kernels line."""
     import ozimmu_tpu_torch as ozt
     from ozimmu_tpu_torch.core.gemm import (
-        Exponents, _epilogue_block, _epilogue_SE, _zfold_block, _zpasses, _zsplit,
+        Exponents, _epilogue_block, _epilogue_SE, _recombine_passes, _zfold_block,
     )
     from ozimmu_tpu_torch.ops import epilogue_cuda
     from ozimmu_tpu_torch.ops.pack import unpack_f64
@@ -1189,10 +1189,10 @@ def phase_epilogue(label, main_SE, sass) -> dict:
     kp = padded_k(N)
     planes = [torch.from_numpy(generate_input("urand01", (N, N), seed=26 + i)).cuda()
               for i in range(4)]
-    a_planes = _zsplit(planes[0], planes[1], NS, bb, kp, cols=False)
-    b_planes = _zsplit(planes[2], planes[3], NS, bb, kp, cols=True)
+    a_planes = [split_f64(x, NS, bb, kp) for x in planes[:2]]
+    b_planes = [split_f64_cols(x, NS, bb, kp) for x in planes[2:]]
     del planes
-    SEs = _zpasses(a_planes, b_planes, NS, bb, N, b_kmajor=True)
+    SEs = _recombine_passes(a_planes, b_planes, NS, bb, N, b_kmajor=True)
     del a_planes, b_planes
     c_re, c_im = (torch.from_numpy(generate_input("normal01", (N, N), seed=30 + i)).cuda()
                   for i in range(2))
@@ -1336,8 +1336,8 @@ def plain_zgemm(a_re, a_im, b_re, b_im, ns, alpha, beta, c_re, c_im):
 def phase_zgemm(ozt, label, rng) -> dict:
     """9. ZGEMM at 8192^3 fp64_int8_9 on complex urand01 operands, and a
     1000x1234x777 op_a=C probe with complex alpha, beta and c; each with
-    the complex layout's copies (``core.api.ZLAYOUT_COPIES``)."""
-    from ozimmu_tpu_torch.core import api
+    the complex layout's copies (``core.gemm.ZLAYOUT_COPIES``)."""
+    from ozimmu_tpu_torch.core import gemm as engine
     from ozimmu_tpu_torch.schedule import effective_flops
     from ozimmu_tpu_torch.testing import generate_input, reference_gemm
 
@@ -1346,12 +1346,12 @@ def phase_zgemm(ozt, label, rng) -> dict:
     a = torch.from_numpy(a_np).cuda()
     b = torch.from_numpy(b_np).cuda()
     reset_launches()
-    copies = api.ZLAYOUT_COPIES
+    copies = engine.ZLAYOUT_COPIES
     out = ozt.gemm(a, b, mode=f"fp64_int8_{NS}")
     counts = read_launches()
     if counts != gemms(complex_=1):
         raise AssertionError(f"ZGEMM launches {counts}, expected {gemms(complex_=1)}")
-    copies = api.ZLAYOUT_COPIES - copies
+    copies = engine.ZLAYOUT_COPIES - copies
     if copies != 5:  # the planes of a and b, the result's interleave
         raise AssertionError(f"ZGEMM layout copies {copies}, expected 5")
     planes = [x.contiguous() for x in (a.real, a.imag, b.real, b.imag)]
@@ -1381,10 +1381,10 @@ def phase_zgemm(ozt, label, rng) -> dict:
     bp_np = generate_input("normal01", (k, n), seed=43, complex_=True)
     cp_np = generate_input("normal01", (m, n), seed=44, complex_=True)
     alpha, beta = 2.0 - 0.5j, 0.25 + 1.0j
-    copies = api.ZLAYOUT_COPIES
+    copies = engine.ZLAYOUT_COPIES
     got = ozt.gemm(ah_np, bp_np, mode=f"fp64_int8_{NS}", op_a="C", alpha=alpha, beta=beta,
                    c=cp_np, device="cuda")
-    copies = api.ZLAYOUT_COPIES - copies
+    copies = engine.ZLAYOUT_COPIES - copies
     if copies != 7:  # the planes of a, b and c, the result's interleave
         raise AssertionError(f"ZGEMM with c: layout copies {copies}, expected 7")
     rows, cols = block(rng, m, n)
@@ -2968,7 +2968,7 @@ def mesh_step_kernel_checks() -> list:
     a = _mesh_matrix("cholesky")
     _, inv_t = linalg._cholesky_diagonal(np.ascontiguousarray(a[:blk, :blk].cpu().numpy()), 0)
     inv_t = torch.from_numpy(inv_t).cuda()
-    l21 = linalg.gemm_f64(a[blk:, :blk], inv_t, NS)
+    l21 = linalg.gemm_int8(a[blk:, :blk], inv_t, NS)
     done += products_equal_plain((
         ("cholesky L21 = A21 @ inv(L11)^T rank 0", a[blk:h, :blk], inv_t),
         ("cholesky L21 = A21 @ inv(L11)^T rank 1", a[h:2 * h, :blk], inv_t),

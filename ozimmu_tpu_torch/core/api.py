@@ -1,9 +1,11 @@
 """Public GEMM API: mode dispatch, operand normalization, profiling.
 
 Port of ``ozimmu_tpu.core.api``, the equivalent of ``mtk::ozimmu::gemm``
-(reference src/gemm.cu:524-653): argument validation, per-mode dispatch
-(int8 engine / AUTO selection / native f64 / f32 demotion), the staged
-profiled path, the batched entry and warm-up.
+(reference src/gemm.cu:524-653): argument parsing and placement, per-mode
+dispatch (int8 engine / AUTO selection / native f64 / f32 demotion), the
+batched entry and warm-up.  The operand checks, the complex plane layout
+and every int8 product are the engine's (core/gemm.py); a call with the
+handle's phase profiler on runs the engine with its phase hook.
 
 Input/output convention: row-major logical matrices, as numpy float64 or
 complex128 arrays or torch float64 or complex128 tensors (``a``, ``b`` and
@@ -18,6 +20,7 @@ to the *logical* matrices: ``gemm(a, b, op_a="T")`` computes
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Union
 
 import numpy as np
@@ -27,23 +30,19 @@ from ..ops import tf32x3
 from ..ops.mantissa_loss import auto_mode_select as _auto_mode_select_core
 from ..ops.mantissa_loss import auto_mode_select_complex
 from ..ops.pack import unpack_f64
-from ..ops.recombine import acc_shift, padded_k, recombine
-from ..ops.split import split_f64, split_f64_cols
-from ..schedule import bits_per_int8
 from ..types import ComputeMode, ComputeModeLike, ElementKind, Operation, OperationLike
 from ..utils.env import env_flag
 from ..utils.log import log
 from ..utils.profiling import culip_timer, span, synchronize
-from .gemm import (
-    Exponents, _epilogue_SE, _k0_result, _zfold_passes, _zk0_result, _zpasses, _zsplit,
-    gemm_f64, gemm_f64_batched, zgemm_f64, zgemm_f64_batched,
-)
+from .gemm import _check, _complex_result, _epilogue_SE, _k0_result, _planes, _run
 from .handle import Handle, default_handle
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
-def _apply_op(x: torch.Tensor, op: Operation) -> torch.Tensor:
+def apply_op(x: torch.Tensor, op: Operation) -> torch.Tensor:
+    """The BLAS op of a logical matrix: ``x``, its transpose (T, or C on
+    real input), or its exact conjugate transpose (C)."""
     if op is Operation.N:
         return x
     if op is Operation.C and x.is_complex():
@@ -69,47 +68,26 @@ def _operand(x, name: str, is_np: bool, device) -> torch.Tensor:
 
 
 def _operands(a, b, c, handle: Handle, device):
-    """(is_np, a, b, c) with a, b, c tensors on one device (c may be None)."""
+    """(is_np, a, b, c) with a, b, c tensors (c may be None), numpy arrays
+    placed on ``device``; all promoted to complex128 where any is complex."""
     is_np = isinstance(a, np.ndarray)
     dev = torch.device(device if device is not None else handle.device) if is_np else None
     at, bt = _operand(a, "a", is_np, dev), _operand(b, "b", is_np, dev)
     ct = _operand(c, "c", is_np, dev) if c is not None else None
+    if at.is_complex() or bt.is_complex() or (ct is not None and ct.is_complex()):
+        at, bt = at.to(torch.complex128), bt.to(torch.complex128)
+        ct = ct.to(torch.complex128) if ct is not None else None
     return is_np, at, bt, ct
 
 
-#: copies made by the complex layout: one for each float64 plane made from
-#: a complex operand (:func:`_planes`) and one for each interleave of a
-#: result (:func:`_complex_result`); 7 a complex GEMM with c, 5 without
-ZLAYOUT_COPIES = 0
-
-
-def _planes(x: torch.Tensor):
-    """Contiguous real and imaginary float64 planes of a complex tensor
-    (``x.real`` / ``x.imag`` are stride-2 views, which the split kernel
-    does not take)."""
-    global ZLAYOUT_COPIES
-    with span("oz.zlayout"):
-        ZLAYOUT_COPIES += 2
-        return x.real.contiguous(), x.imag.contiguous()
-
-
-def _complex_result(re: torch.Tensor, im: torch.Tensor, is_np: bool):
-    global ZLAYOUT_COPIES
-    with span("oz.zlayout"):
-        ZLAYOUT_COPIES += 1
-        if is_np:
-            # the JAX package's construction (signed zeros follow numpy's
-            # complex arithmetic), so the numpy results match it bit for bit
-            return re.cpu().numpy() + 1j * im.cpu().numpy()
-        return torch.complex(re, im)
-
-
-def _check_k_supported(k: int) -> None:
-    if bits_per_int8(k) <= 0:
-        raise ValueError(
-            f"k={k} exceeds the int8 emulation bound (needs k*2^(2b) <= 2^31);"
-            " shard or chunk the contraction"
-        )
+def _phases(handle: Handle, dev) -> dict:
+    """The engine's arguments for the handle's phase profiler: each step a
+    phase ended by a device synchronisation (reference labels
+    gemm.cu:38-48,312,393,404), in one unchunked run so that each phase
+    counts once a call; none while the profiler is off."""
+    if not handle.profiler.enabled:
+        return {}
+    return dict(n_chunks=1, phase=functools.partial(handle.profiler.phase, sync=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -174,52 +152,6 @@ def _csgemm_core(a_re, a_im, b_re, b_im, alpha: complex, beta: complex, c_re=Non
 
 
 # ---------------------------------------------------------------------------
-# staged (profiled) int8 paths: the same steps as core.gemm's cores, each
-# phase ended by a device synchronisation (reference labels
-# gemm.cu:38-48,312,393,404).
-# ---------------------------------------------------------------------------
-
-
-def _gemm_staged(handle: Handle, a, b, num_split: int, alpha: float, beta: float, c):
-    prof = handle.profiler
-    dev = a.device
-    k = a.shape[1]
-    bb = bits_per_int8(k)
-    kp = padded_k(k)
-    with prof.phase("split_A", sync=dev):
-        da, pa = split_f64(a, num_split, bb, kp)
-    with prof.phase("split_B", sync=dev):
-        db, pb = split_f64_cols(b, num_split, bb, kp)
-    with prof.phase("int8tc+accumulate_in_f64", sync=dev):
-        S = recombine(da, db, num_split, bb, k, b_kmajor=True)
-    with prof.phase("copy_result", sync=dev):
-        E = Exponents(pa, pb, acc_shift(num_split, bb))
-        out = _epilogue_SE(S, E, float(alpha), float(beta), c)
-    return out
-
-
-def _zgemm_staged(handle: Handle, a_re, a_im, b_re, b_im, num_split: int,
-                  alpha: complex, beta: complex, c_re, c_im):
-    """Phase-profiled 4-pass complex engine (the reference profiles the
-    complex engine with the real one's labels, gemm.cu:412-521)."""
-    prof = handle.profiler
-    dev = a_re.device
-    m, k = a_re.shape
-    n = b_re.shape[1]
-    bb = bits_per_int8(k)
-    kp = padded_k(k)
-    with prof.phase("split_A", sync=dev):
-        a_planes = _zsplit(a_re, a_im, num_split, bb, kp, cols=False)
-    with prof.phase("split_B", sync=dev):
-        b_planes = _zsplit(b_re, b_im, num_split, bb, kp, cols=True)
-    with prof.phase("int8tc+accumulate_in_f64", sync=dev):
-        SEs = _zpasses(a_planes, b_planes, num_split, bb, k, b_kmajor=True)
-    with prof.phase("copy_result", sync=dev):
-        out = _zfold_passes(SEs, m, n, alpha, beta, c_re, c_im, dev)
-    return out
-
-
-# ---------------------------------------------------------------------------
 # public entry points
 # ---------------------------------------------------------------------------
 
@@ -270,24 +202,16 @@ def gemm(
                         "engine contract)"
                     )
         mode_r = handle.resolve_mode(mode)
-        op_a = Operation.parse(op_a)
-        op_b = Operation.parse(op_b)
         is_np, at, bt, ct = _operands(a, b, c, handle, device)
-        if any(x is not None and x.is_complex() for x in (at, bt, ct)):
-            return _gemm_complex(handle, at, bt, ct, mode_r, op_a, op_b, alpha, beta, is_np)
+        at, bt = apply_op(at, Operation.parse(op_a)), apply_op(bt, Operation.parse(op_b))
+        _check((at,), (bt,), (ct,), beta, False, at.dtype)
+        if at.is_complex():
+            return _gemm_complex(handle, at, bt, ct, mode_r, alpha, beta, is_np)
         dev = at.device
-        at, bt = _apply_op(at, op_a), _apply_op(bt, op_b)
-
         m, k = at.shape
-        k2, n = bt.shape
-        if k != k2:
-            raise ValueError(f"shape mismatch: op(a)={tuple(at.shape)} @ op(b)={tuple(bt.shape)}")
-        if ct is not None and tuple(ct.shape) != (m, n):
-            raise ValueError(f"c has shape {tuple(ct.shape)}, expected {(m, n)}")
-        if beta != 0.0 and ct is None:
-            raise ValueError("beta != 0 requires c")
+        n = bt.shape[1]
         if k == 0:  # BLAS: C <- beta * C, in every mode
-            out = _k0_result(float(beta), ct, (m, n), dev)
+            (out,) = _k0_result(float(beta), (ct,), (m, n), dev)
             return out.cpu().numpy() if is_np else out
 
         if mode_r is ComputeMode.FP64_INT8_AUTO:
@@ -300,12 +224,8 @@ def gemm(
         name = f"ozimmu_gemm-{mode_r.value}-m{m}-n{n}-k{k}"
         with culip_timer(name, sync_fn=lambda: synchronize(dev)):
             if mode_r.is_int8:
-                _check_k_supported(k)
-                at, bt = at.contiguous(), bt.contiguous()
-                if handle.profiler.enabled:
-                    out = _gemm_staged(handle, at, bt, mode_r.num_split, alpha, beta, ct)
-                else:
-                    out = gemm_f64(at, bt, mode_r.num_split, alpha=alpha, beta=beta, c=ct)
+                (out,) = _run((at,), (bt,), (ct,), mode_r.num_split, float(alpha), float(beta),
+                              **_phases(handle, dev))
             elif mode_r is ComputeMode.SGEMM:
                 out = _sgemm_core(at, bt)
                 if alpha != 1.0 or beta != 0.0:
@@ -322,26 +242,16 @@ def gemm(
         return out.cpu().numpy() if is_np else out
 
 
-def _gemm_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, op_a, op_b, alpha, beta,
-                  is_np: bool):
-    """Complex GEMM (the JAX package's ``_gemm_complex_np``) on complex128
-    tensors; real operands are promoted."""
-    at = _apply_op(at.to(torch.complex128), op_a)
-    bt = _apply_op(bt.to(torch.complex128), op_b)
-    ct = ct.to(torch.complex128) if ct is not None else None
+def _gemm_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha, beta, is_np: bool):
+    """Complex GEMM (the JAX package's ``_gemm_complex_np``) on checked
+    complex128 tensors, the ops applied."""
     m, k = at.shape
-    k2, n = bt.shape
-    if k != k2:
-        raise ValueError(f"shape mismatch: op(a)={tuple(at.shape)} @ op(b)={tuple(bt.shape)}")
-    if ct is not None and tuple(ct.shape) != (m, n):
-        raise ValueError(f"c has shape {tuple(ct.shape)}, expected {(m, n)}")
-    if beta != 0 and ct is None:
-        raise ValueError("beta != 0 requires c")
+    n = bt.shape[1]
     dev = at.device
     alpha, beta = complex(alpha), complex(beta)
     if k == 0:  # BLAS: C <- beta * C, in every mode
         c_planes = _planes(ct) if ct is not None else (None, None)
-        return _complex_result(*_zk0_result(beta, *c_planes, (m, n), dev), is_np)
+        return _complex_result(*_k0_result(beta, c_planes, (m, n), dev), is_np)
 
     # the dgemm mode alone runs on the complex tensors themselves
     ab_planes = (*_planes(at), *_planes(bt)) if mode_r is not ComputeMode.DGEMM else None
@@ -355,12 +265,8 @@ def _gemm_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, op_a, op_b, a
     with culip_timer(name, sync_fn=lambda: synchronize(dev)):
         c_planes = _planes(ct) if ct is not None else (None, None)
         if mode_r.is_int8:
-            _check_k_supported(k)
-            args = (*ab_planes, mode_r.num_split, alpha, beta, *c_planes)
-            if handle.profiler.enabled:
-                re, im = _zgemm_staged(handle, *args)
-            else:
-                re, im = zgemm_f64(*args)
+            re, im = _run(ab_planes[:2], ab_planes[2:], c_planes, mode_r.num_split, alpha, beta,
+                          **_phases(handle, dev))
         elif mode_r is ComputeMode.DGEMM:
             out = alpha * torch.matmul(at, bt)
             if beta != 0:
@@ -392,28 +298,22 @@ def gemm_batched(
 ):
     """Batched GEMM ``alpha * a[i] @ b[i] + beta * c[i]`` for a [B, m, k],
     b [B, k, n] and c [B, m, n] (strided-batched parity, reference
-    cublas.cu:380-406).  The int8 modes run the batched engine
-    (``core.gemm.gemm_f64_batched``): each kernel launches once per
-    sub-batch, as the JAX package's ``vmap`` makes one call of each.  Real
-    and complex batches; one AUTO mode for the whole batch.  Numpy or
-    tensor inputs, placed and returned as :func:`gemm` does."""
+    cublas.cu:380-406).  The int8 modes run the engine's batch
+    (core/gemm.py): each kernel launches once per sub-batch, as the JAX
+    package's ``vmap`` makes one call of each.  Real and complex batches;
+    one AUTO mode for the whole batch.  Numpy or tensor inputs, placed and
+    returned as :func:`gemm` does."""
     with span("oz.api"):
         handle = handle or default_handle()
         mode_r = handle.resolve_mode(mode)
         is_np, at, bt, ct = _operands(a, b, c, handle, device)
-        if at.dim() != 3 or bt.dim() != 3 or at.shape[0] != bt.shape[0] \
-                or at.shape[2] != bt.shape[1]:
-            raise ValueError(f"batched shape mismatch: {tuple(at.shape)} @ {tuple(bt.shape)}")
+        _check((at,), (bt,), (ct,), beta, True, at.dtype)
+        if at.is_complex():
+            return _gemm_batched_complex(handle, at, bt, ct, mode_r, alpha, beta, is_np)
         B, m, k = at.shape
         n = bt.shape[2]
-        if ct is not None and tuple(ct.shape) != (B, m, n):
-            raise ValueError(f"c has shape {tuple(ct.shape)}, expected {(B, m, n)}")
-        if beta != 0 and ct is None:
-            raise ValueError("beta != 0 requires c")
-        if any(x is not None and x.is_complex() for x in (at, bt, ct)):
-            return _gemm_batched_complex(handle, at, bt, ct, mode_r, alpha, beta, is_np)
         if k == 0:  # BLAS: C <- beta * C, in every mode
-            out = _k0_result(float(beta), ct, (B, m, n), at.device)
+            (out,) = _k0_result(float(beta), (ct,), (B, m, n), at.device)
             return out.cpu().numpy() if is_np else out
 
         if mode_r is ComputeMode.FP64_INT8_AUTO:
@@ -430,8 +330,7 @@ def gemm_batched(
         elif not mode_r.is_int8:
             out = torch.matmul(at, bt) * alpha
         else:
-            _check_k_supported(k)
-            out = gemm_f64_batched(at, bt, mode_r.num_split, float(alpha), float(beta), ct)
+            (out,) = _run((at,), (bt,), (ct,), mode_r.num_split, float(alpha), float(beta))
             return out.cpu().numpy() if is_np else out
         if beta != 0:
             out = out + beta * ct
@@ -440,9 +339,8 @@ def gemm_batched(
 
 def _gemm_batched_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha, beta,
                           is_np: bool):
-    """Complex batch (reference ZgemmStridedBatched shim parity)."""
-    at, bt = at.to(torch.complex128), bt.to(torch.complex128)
-    ct = ct.to(torch.complex128) if ct is not None else None
+    """Complex batch (reference ZgemmStridedBatched shim parity) on checked
+    complex128 tensors."""
     k = at.shape[2]
     a_re, a_im = _planes(at)
     b_re, b_im = _planes(bt)
@@ -450,7 +348,7 @@ def _gemm_batched_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha
     al, be = complex(alpha), complex(beta)
     if k == 0:  # BLAS: C <- beta * C, in every mode
         shape = (at.shape[0], at.shape[1], bt.shape[2])
-        return _complex_result(*_zk0_result(be, c_re, c_im, shape, at.device), is_np)
+        return _complex_result(*_k0_result(be, (c_re, c_im), shape, at.device), is_np)
     if mode_r is ComputeMode.FP64_INT8_AUTO:
         # one mode for the whole batch: the shared four-plane counter over
         # the flattened batch (rows of [B*m, k] / [B*n, k] are exactly the
@@ -470,8 +368,7 @@ def _gemm_batched_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha
         if be != 0:
             out = out + be * ct
         return out.cpu().numpy() if is_np else out
-    _check_k_supported(k)
-    re, im = zgemm_f64_batched(a_re, a_im, b_re, b_im, mode_r.num_split, al, be, c_re, c_im)
+    re, im = _run((a_re, a_im), (b_re, b_im), (c_re, c_im), mode_r.num_split, al, be)
     return _complex_result(re, im, is_np)
 
 
@@ -494,8 +391,8 @@ def auto_mode_select(
     _, at, bt, _ = _operands(a, b, None, handle, device)
     if at.is_complex() or bt.is_complex():
         raise TypeError("auto_mode_select takes real operands")
-    at = _apply_op(at, Operation.parse(op_a))
-    bt = _apply_op(bt, Operation.parse(op_b))
+    at = apply_op(at, Operation.parse(op_a))
+    bt = apply_op(bt, Operation.parse(op_b))
     return _auto_mode_select_core(at, bt, at.shape[1], threshold)
 
 

@@ -9,9 +9,24 @@ orchestration layer (src/gemm.cu:344-521 ``gemm_int8<double>`` and
   * the epilogue (alpha/beta folding, reference gemm.cu:124-239) runs in
     triple-f32 extended precision with a single final rounding.
 
-Operands are float64 tensors; every step runs on the operands' device.
-On a CUDA device the split, the recombination and the epilogue (or the
-complex fold) are the hand-written kernels (ops/split_cuda.py,
+Every int8 product of the package, from any surface (the public API, the
+interceptor, ``traced``, the solvers), runs through one loop,
+:func:`_loop`: split each part of A once; then for each column panel of
+B (one panel as a rule), split each part of B's panel, recombine each
+pass (one for real operands, :data:`ZGEMM_PASSES` for complex ones) and
+hand the results to the finisher, :func:`_epilogue_SE` or
+:func:`_zfold_passes`.  :func:`_run` chooses the column panels and, for a
+batch [B, m, k] @ [B, k, n] (each matrix with its own scales, the JAX
+package's ``vmap`` of the cores), the sub-batches that each launch every
+kernel once.  :func:`_check` makes the operand checks of every entry.
+
+This module also owns the complex layout: a complex128 operand becomes
+its contiguous real and imaginary float64 planes (:func:`_planes`), and
+the result planes are interleaved again (:func:`_complex_result`).
+
+Operands are float64 tensors (planes); every step runs on the operands'
+device.  On a CUDA device the split, the recombination and the epilogue
+(or the complex fold) are the hand-written kernels (ops/split_cuda.py,
 ops/recombine_cuda.py, ops/epilogue_cuda.py), one launch of the epilogue
 per output or column panel; on the CPU, their plain PyTorch versions.
 
@@ -19,18 +34,17 @@ BLAS defines a product with k = 0 as ``C <- beta * C``: the engine returns
 that, or zeros where beta == 0 or c is None (c is then never read), and
 launches nothing.
 
-Layout contract: row-major logical matrices.  ``gemm_f64(a, b)`` computes
-``alpha * (a @ b) + beta * c`` for a [m, k] and b [k, n]; ``zgemm_f64``
-does the same on the real and imaginary float64 planes of complex
-operands.  ``gemm_f64_batched`` and ``zgemm_f64_batched`` take batches
-[B, m, k] @ [B, k, n], each matrix with its own scales (the JAX package's
-``vmap`` of the cores), and launch each kernel once for as many matrices
-as the memory budget holds.  Transpose flags are applied by the public
-API (core/api.py).
+Layout contract: row-major logical matrices.  :func:`gemm_int8` computes
+``alpha * (a @ b) + beta * c`` on float64 or complex128 tensors, 2-D or
+batched; ``gemm_f64`` / ``gemm_f64_batched`` on float64 tensors and
+``zgemm_f64`` / ``zgemm_f64_batched`` on the real and imaginary float64
+planes of complex operands are the JAX package's entries.  Transpose
+flags are applied by the public API (core/api.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -160,30 +174,21 @@ def _epilogue_block(S, E, alpha: float, beta: float, c: Optional[torch.Tensor]) 
     return pack_f64(S, E)
 
 
-def _k0_result(beta: float, c: Optional[torch.Tensor], shape, device) -> torch.Tensor:
-    """A product with k = 0 (BLAS: ``C <- beta * C``): ``beta * c``, one
-    IEEE float64 multiply per element; zeros where beta == 0 or c is None,
-    c then never read."""
-    if c is not None and tuple(c.shape) != tuple(shape):
-        raise ValueError(f"c has shape {tuple(c.shape)}, expected {tuple(shape)}")
-    if beta == 0.0 or c is None:
+def _k0_result(beta, C, shape, device) -> tuple:
+    """A product with k = 0 (BLAS: ``C <- beta * C``) by parts: ``C`` holds
+    c (real) or its (re, im) planes, each None where absent.  Real:
+    ``beta * c``, one IEEE float64 multiply per element.  Complex:
+    ``re = br*cr - bi*ci``, ``im = br*ci + bi*cr``, each an IEEE float64
+    operation (no fused multiply-add, so the bits are the same on every
+    device).  Zeros where beta == 0 or c is None, c then never read."""
+    def zeros():
         return torch.zeros(shape, dtype=torch.float64, device=device)
-    return beta * c
 
-
-def _zk0_result(beta: complex, c_re, c_im, shape, device):
-    """The complex :func:`_k0_result` on planes: ``re = br*cr - bi*ci``,
-    ``im = br*ci + bi*cr``, each an IEEE float64 operation (no fused
-    multiply-add, so the bits are the same on every device); zeros where
-    beta == 0 or c is None."""
-    for x in (c_re, c_im):
-        if x is not None and tuple(x.shape) != tuple(shape):
-            raise ValueError(f"c has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if beta == 0 or (c_re is None and c_im is None):
-        return (torch.zeros(shape, dtype=torch.float64, device=device),
-                torch.zeros(shape, dtype=torch.float64, device=device))
-    cr, ci = (x if x is not None else torch.zeros(shape, dtype=torch.float64, device=device)
-              for x in (c_re, c_im))
+    if beta == 0 or all(x is None for x in C):
+        return tuple(zeros() for _ in C)
+    if len(C) == 1:
+        return (beta * C[0],)
+    cr, ci = (x if x is not None else zeros() for x in C)
     br, bi = beta.real, beta.imag
     return br * cr - bi * ci, br * ci + bi * cr
 
@@ -193,90 +198,6 @@ def _exponent_plane(pa: torch.Tensor, pb: torch.Tensor, shift: int) -> torch.Ten
     batch pa [B, m], pb [B, n] (int32 so that the ZERO_ROW_PEXP sentinel
     arithmetic matches the JAX package's)."""
     return (pa[..., :, None] + pb[..., None, :] - shift).to(torch.int32)
-
-
-def _gemm_core(a, b, num_split: int, alpha: float, beta: float, c=None) -> torch.Tensor:
-    """Real-valued engine core on one device: [m, k] @ [k, n], or a batch
-    [B, m, k] @ [B, k, n] with one split per operand, one recombination
-    and one epilogue for the whole batch.  Both operands are split straight
-    into the k-major, k-padded planes that recombine reads (no copy of
-    either)."""
-    k = a.shape[-1]
-    bb = bits_per_int8(k)
-    kp = padded_k(k)
-    da, pa = split_f64(a, num_split, bb, kp)
-    db, pb = split_f64_cols(b, num_split, bb, kp)
-    S = recombine(da, db, num_split, bb, k, b_kmajor=True)
-    return _epilogue_SE(S, Exponents(pa, pb, acc_shift(num_split, bb)), alpha, beta, c)
-
-
-def _gemm_core_nchunked(a, b, num_split: int, n_chunks: int, alpha: float = 1.0,
-                        beta: float = 0.0, c=None) -> torch.Tensor:
-    """Column-panel-chunked engine: split A once, stream B in n panels.
-
-    Bitwise-identical to :func:`_gemm_core` (B's split is per-column
-    independent, the recombination sees the full k, and the epilogue is
-    elementwise), but peak memory for the B planes / int32 partials /
-    triple-f32 accumulator drops by ~n_chunks.  Any ``n`` (the last panel
-    is simply narrower).  Each B panel is split where it lies in ``b`` (the
-    kernels read it through its row stride), straight into k-major planes,
-    and its epilogue writes the panel's columns of the output in place.
-    """
-    k = a.shape[1]
-    n = b.shape[1]
-    if n == 0:
-        return _gemm_core(a, b, num_split, alpha, beta, c)
-    w = -(-n // n_chunks)
-    bb = bits_per_int8(k)
-    kp = padded_k(k)
-    shift = acc_shift(num_split, bb)
-    da, pa = split_f64(a, num_split, bb, kp)
-    out = torch.empty((a.shape[0], n), dtype=torch.float64, device=a.device)
-    for j0 in range(0, n, w):
-        j1 = min(j0 + w, n)
-        db, pb = split_f64_cols(b[:, j0:j1], num_split, bb, kp)
-        S = recombine(da, db, num_split, bb, k, b_kmajor=True)
-        cj = c[:, j0:j1] if c is not None else None
-        _epilogue_SE(S, Exponents(pa, pb, shift), alpha, beta, cj, out[:, j0:j1])
-    return out
-
-
-def gemm_f64(
-    a: torch.Tensor,
-    b: torch.Tensor,
-    num_split: int,
-    alpha: float = 1.0,
-    beta: float = 0.0,
-    c: Optional[torch.Tensor] = None,
-    n_chunks: Optional[int] = None,
-) -> torch.Tensor:
-    """Emulated FP64 GEMM on float64 tensors: alpha*(a@b) + beta*c.
-
-    ``a`` [m, k], ``b`` [k, n] (and ``c`` [m, n]) must lie on one device.
-    ``n_chunks=None`` auto-selects column-panel streaming from the
-    working-set estimate against that device's memory
-    (schedule.auto_n_chunks); 1 forces the unchunked engine.  Chunked and
-    unchunked results are bitwise identical.
-    """
-    with span("oz.engine"):
-        if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
-            raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-        if a.dtype != torch.float64 or b.dtype != torch.float64:
-            raise TypeError(f"gemm_f64 takes float64 tensors, got {a.dtype} and {b.dtype}")
-        if a.shape[1] > 0 and bits_per_int8(a.shape[1]) <= 0:
-            raise ValueError(f"k={a.shape[1]} too large for int8 emulation")
-        if b.device != a.device or (c is not None and c.device != a.device):
-            raise ValueError("a, b and c must lie on one device")
-        m, k = a.shape
-        n = b.shape[1]
-        if k == 0:
-            return _k0_result(float(beta), c, (m, n), a.device)
-        a, b = a.contiguous(), b.contiguous()
-        if n_chunks is None:
-            n_chunks = auto_n_chunks(m, n, k, num_split, device=a.device)
-        if n_chunks > 1:
-            return _gemm_core_nchunked(a, b, num_split, n_chunks, float(alpha), float(beta), c)
-        return _gemm_core(a, b, num_split, float(alpha), float(beta), c)
 
 
 # ---------------------------------------------------------------------------
@@ -295,8 +216,8 @@ _EMPTY_EXP = -(2**20)
 
 def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im, device,
                   out=None):
-    """Fold the four pass results into the complex output (shared by the
-    fused `_zgemm_core` and the staged/profiled path in core.api).
+    """Fold the four pass results into the complex output (the finisher of
+    :func:`_loop`'s complex products, and of ``parallel``'s).
 
     ``SEs`` lists (S, E) per entry of :data:`ZGEMM_PASSES`, S [m, n] and E
     :class:`Exponents` (or, on the CPU, a plane; a batch's S by its
@@ -377,72 +298,257 @@ def _zfold_block(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im,
     return pack_f64(*acc_re), pack_f64(*acc_im)
 
 
-def _zpasses(a_planes, b_planes, num_split: int, bb: int, k: int, b_kmajor: bool = False):
-    """(S, E) of every pass of :data:`ZGEMM_PASSES`; ``a_planes`` and
-    ``b_planes`` map 0/1 (real/imag) to (digits, pexp), B's planes k-major
-    where ``b_kmajor`` (as the engine splits them: each B part is laid out
-    once and read by two passes as it is)."""
+# ---------------------------------------------------------------------------
+# Complex layout: complex128 tensors <-> contiguous float64 planes.
+# ---------------------------------------------------------------------------
+
+#: copies made by the complex layout: one for each float64 plane made from
+#: a complex operand (:func:`_planes`) and one for each interleave of a
+#: result (:func:`_complex_result`); 7 a complex GEMM with c, 5 without
+ZLAYOUT_COPIES = 0
+
+
+def _planes(x: torch.Tensor):
+    """Contiguous real and imaginary float64 planes of a complex tensor
+    (``x.real`` / ``x.imag`` are stride-2 views, which the split kernel
+    does not take)."""
+    global ZLAYOUT_COPIES
+    with span("oz.zlayout"):
+        ZLAYOUT_COPIES += 2
+        return x.real.contiguous(), x.imag.contiguous()
+
+
+def _complex_result(re: torch.Tensor, im: torch.Tensor, is_np: bool):
+    """The complex result of its planes: a complex128 tensor where they lie,
+    or, with ``is_np``, a numpy complex128 array."""
+    global ZLAYOUT_COPIES
+    with span("oz.zlayout"):
+        ZLAYOUT_COPIES += 1
+        if is_np:
+            # the JAX package's construction (signed zeros follow numpy's
+            # complex arithmetic), so the numpy results match it bit for bit
+            return re.cpu().numpy() + 1j * im.cpu().numpy()
+        return torch.complex(re, im)
+
+
+# ---------------------------------------------------------------------------
+# The loop: every int8 product on one device.
+# ---------------------------------------------------------------------------
+
+#: the one pass of a real product: A's part 0 with B's part 0
+_REAL_PASSES = ((0, 0),)
+
+_NO_PHASE = contextlib.nullcontext()
+
+
+def _no_phase(name: str):
+    return _NO_PHASE
+
+
+def _recombine_passes(a_planes, b_planes, num_split: int, bb: int, k: int,
+                      b_kmajor: bool = False, passes=ZGEMM_PASSES):
+    """(S, E) of every pass (A-part, B-part) of ``passes``; ``a_planes``
+    and ``b_planes`` map 0/1 (real/imag) to (digits, pexp), B's planes
+    k-major where ``b_kmajor`` (as the engine splits them: each B part is
+    laid out once and read by two complex passes as it is)."""
     shift = acc_shift(num_split, bb)
     SEs = []
-    for ap, bp in ZGEMM_PASSES:
+    for ap, bp in passes:
         da, pa = a_planes[ap]
         db, pb = b_planes[bp]
         SEs.append((recombine(da, db, num_split, bb, k, b_kmajor), Exponents(pa, pb, shift)))
     return SEs
 
 
-def _zsplit(x_re, x_im, num_split: int, bb: int, kp: int, cols: bool):
-    """The k-major planes of a complex operand's two parts: 0/1 (real/imag)
-    to (digits, pexp); ``cols`` for the B operand."""
-    split = split_f64_cols if cols else split_f64
-    return {0: split(x_re, num_split, bb, kp), 1: split(x_im, num_split, bb, kp)}
-
-
-def _zgemm_core(a_re, a_im, b_re, b_im, num_split: int, alpha: complex, beta: complex,
-                c_re=None, c_im=None):
-    """Complex engine core on one device: four plane splits, four
-    recombinations, one fold; on a batch [B, m, k] @ [B, k, n] as many
-    launches, the fold running over the [B*m, n] view (it is elementwise)."""
-    k = a_re.shape[-1]
-    shape = (*a_re.shape[:-1], b_re.shape[-1])
-    bb = bits_per_int8(k)
-    kp = padded_k(k)
-    a_planes = _zsplit(a_re, a_im, num_split, bb, kp, cols=False)
-    b_planes = _zsplit(b_re, b_im, num_split, bb, kp, cols=True)
-    SEs = _zpasses(a_planes, b_planes, num_split, bb, k, b_kmajor=True)
-    n = shape[-1]
+def _finish(SEs, C, alpha, beta, out):
+    """The finisher: the epilogue of a real product's one pass, or the fold
+    of a complex product's four; results by parts, new or written into
+    ``out`` (the parts of an output's column panel).  A complex batch folds
+    over its [B*m, n] rows (the fold is elementwise)."""
+    if len(SEs) == 1:
+        ((S, E),) = SEs
+        return (_epilogue_SE(S, E, alpha, beta, C[0], None if out is None else out[0]),)
+    S0 = SEs[0][0][0]
+    if S0.dim() == 2:
+        return _zfold_passes(SEs, *S0.shape, alpha, beta, *C, S0.device, out)
+    shape, n = S0.shape, S0.shape[-1]
     rows = lambda x: None if x is None else x.reshape(-1, n)  # noqa: E731
     SEs = [(tuple(map(rows, S)), E) for S, E in SEs]
-    re, im = _zfold_passes(SEs, SEs[0][0][0].shape[0], n, alpha, beta, rows(c_re), rows(c_im),
-                           a_re.device)
+    re, im = _zfold_passes(SEs, shape[0] * shape[1], n, alpha, beta, *map(rows, C), S0.device)
     return re.reshape(shape), im.reshape(shape)
 
 
-def _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split: int, n_chunks: int,
-                         alpha: complex, beta: complex, c_re=None, c_im=None):
-    """Column-panel-chunked 4-pass complex engine (bitwise identical to
-    :func:`_zgemm_core`): A's two plane splits happen once; each B column
-    panel runs the four recombinations and the complex fold locally (the
-    fold is elementwise, so chunking columns is exact)."""
-    m, k = a_re.shape
-    n = b_re.shape[1]
-    if n == 0:
-        return _zgemm_core(a_re, a_im, b_re, b_im, num_split, alpha, beta, c_re, c_im)
-    w = -(-n // n_chunks)
+def _loop(A, B, C, num_split: int, alpha, beta, n_chunks: int, phase=_no_phase):
+    """The int8 product ``alpha * (a @ b) + beta * c`` by parts (one for a
+    real product, (re, im) planes for a complex one), on contiguous A parts
+    [m, k] or [B, m, k], B parts [k, n] or [B, k, n], and C's parts (None
+    where absent); returns the output's parts.
+
+    A's parts are split once.  Then, for each of ``n_chunks`` column panels
+    of B (the last narrower; one panel for a batch): split B's parts where
+    they lie (the kernels read a panel through its row stride) straight
+    into k-major planes, recombine every pass, and finish into the panel's
+    columns of the output.  Chunked and unchunked results are bitwise
+    identical: B's split is per column, the recombination sees the full k
+    and the finisher is elementwise.  ``phase(name)`` is a context around
+    each step (the handle's phase profiler, or nothing)."""
+    k = A[0].shape[-1]
+    n = B[0].shape[-1]
     bb = bits_per_int8(k)
+    if bb <= 0:
+        raise ValueError(f"k={k} exceeds the int8 emulation bound (needs k*2^(2b) <= 2^31);"
+                         " shard or chunk the contraction")
     kp = padded_k(k)
-    a_planes = _zsplit(a_re, a_im, num_split, bb, kp, cols=False)
-    out_re = torch.empty((m, n), dtype=torch.float64, device=a_re.device)
-    out_im = torch.empty((m, n), dtype=torch.float64, device=a_re.device)
-    for j0 in range(0, n, w):
-        j1 = min(j0 + w, n)
-        b_planes = _zsplit(b_re[:, j0:j1], b_im[:, j0:j1], num_split, bb, kp, cols=True)
-        SEs = _zpasses(a_planes, b_planes, num_split, bb, k, b_kmajor=True)
-        cr = c_re[:, j0:j1] if c_re is not None else None
-        ci = c_im[:, j0:j1] if c_im is not None else None
-        _zfold_passes(SEs, m, j1 - j0, alpha, beta, cr, ci, a_re.device,
-                      (out_re[:, j0:j1], out_im[:, j0:j1]))
-    return out_re, out_im
+    passes = ZGEMM_PASSES if len(A) == 2 else _REAL_PASSES
+    with phase("split_A"):
+        a_planes = [split_f64(x, num_split, bb, kp) for x in A]
+    if n_chunks == 1 or n == 0:
+        panels, out = ((B, C, None),), None
+    else:
+        w = -(-n // n_chunks)
+        out = tuple(torch.empty((A[0].shape[0], n), dtype=torch.float64, device=A[0].device)
+                    for _ in A)
+        panels = (([x[:, j:j + w] for x in B], [None if x is None else x[:, j:j + w] for x in C],
+                   tuple(o[:, j:j + w] for o in out)) for j in range(0, n, w))
+    for Bp, Cp, out_p in panels:
+        with phase("split_B"):
+            b_planes = [split_f64_cols(x, num_split, bb, kp) for x in Bp]
+        with phase("int8tc+accumulate_in_f64"):
+            SEs = _recombine_passes(a_planes, b_planes, num_split, bb, k, True, passes)
+        with phase("copy_result"):
+            got = _finish(SEs, Cp, alpha, beta, out_p)
+    return got if out is None else out
+
+
+def _sub_batches(bsz: int, m: int, n: int, k: int, num_split: int, complex_: bool, device):
+    """Slices of a batch of ``bsz`` products, each run as one launch of each
+    kernel: as many matrices as :func:`~ozimmu_tpu_torch.schedule.hbm_budget_bytes`
+    holds at one matrix's working set (the 2-D engine's model at one
+    panel) plus its epilogue's temporaries (none on a CUDA device, at least
+    one matrix).  None where a single matrix needs column panels: that
+    batch runs matrix by matrix, each in its panels."""
+    if auto_n_chunks(m, n, k, num_split, complex_, device=device) > 1:
+        return None
+    temps = _temp_bytes(complex_, device) * m * n
+    per = working_set_bytes_chunked(m, n, k, num_split, 1, complex_) + temps
+    step = max(1, min(bsz, hbm_budget_bytes(device) // per))
+    return [slice(i, min(i + step, bsz)) for i in range(0, bsz, step)]
+
+
+def _run(A, B, C, num_split: int, alpha, beta, n_chunks: Optional[int] = None,
+         phase=_no_phase):
+    """The engine on checked operands by parts (see :func:`_loop`), k > 0:
+    the span ``oz.engine`` around the loop, run once, or once per
+    sub-batch.  ``n_chunks`` sets a 2-D product's column panels, None
+    choosing them from the working-set estimate against the device's
+    memory (schedule.auto_n_chunks).  A batch runs in the sub-batches of
+    :func:`_sub_batches`, or matrix by matrix where one matrix needs
+    column panels.  Returns the output's parts."""
+    with span("oz.engine"):
+        A = [x.contiguous() for x in A]
+        B = [x.contiguous() for x in B]
+        complex_, dev = len(A) == 2, A[0].device
+        m, k = A[0].shape[-2:]
+        n = B[0].shape[-1]
+        if A[0].dim() == 2:
+            if n_chunks is None:
+                n_chunks = auto_n_chunks(m, n, k, num_split, complex_, device=dev)
+            return _loop(A, B, C, num_split, alpha, beta, n_chunks, phase)
+        bsz = A[0].shape[0]
+        parts = _sub_batches(bsz, m, n, k, num_split, complex_, dev)
+        if parts is not None and len(parts) == 1:
+            return _loop(A, B, C, num_split, alpha, beta, 1, phase)
+        chunks = 1 if parts is not None else auto_n_chunks(m, n, k, num_split, complex_, device=dev)
+        out = tuple(torch.empty((bsz, m, n), dtype=torch.float64, device=dev) for _ in A)
+        for s in range(bsz) if parts is None else parts:
+            pick = lambda X: [None if x is None else x[s] for x in X]  # noqa: E731
+            for o, r in zip(out, _loop(pick(A), pick(B), pick(C), num_split, alpha, beta,
+                                       chunks, phase)):
+                o[s] = r
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Entries: the operand checks, k = 0, the layout.
+# ---------------------------------------------------------------------------
+
+
+def _check(A, B, C, beta, batched: bool, dtype=torch.float64) -> None:
+    """The operand checks of every entry, on parts: A's [m, k], B's [k, n]
+    and C's [m, n] (None where absent), or [B, m, k], [B, k, n] and
+    [B, m, n] where ``batched``; all of ``dtype`` on one device, and c
+    given where beta != 0.  The k bound is the loop's (:func:`_loop`)."""
+    a, b = A[0], B[0]
+    sa, sb = a.shape, b.shape
+    if len(sa) != (3 if batched else 2) or len(sb) != len(sa) or sa[-1] != sb[-2] \
+            or (batched and sa[0] != sb[0]) or A[-1].shape != sa or B[-1].shape != sb:
+        what = "batched shape mismatch" if batched else "shape mismatch"
+        raise ValueError(f"{what}: {tuple(sa)} @ {tuple(sb)}")
+    cs = [x for x in C if x is not None]
+    if cs:
+        want = (*sa[:-1], sb[-1])
+        for x in cs:
+            if x.shape != want:
+                raise ValueError(f"c has shape {tuple(x.shape)}; c must have shape {want}")
+    elif beta != 0:
+        raise ValueError("beta != 0 requires c")
+    dev = a.device
+    for x in (*A, *B, *cs):
+        if x.dtype != dtype:
+            raise TypeError(f"expected {dtype} operands, got {x.dtype}")
+        if x.device != dev:
+            raise ValueError("a, b and c must lie on one device")
+
+
+def _entry(A, B, C, num_split: int, alpha, beta, batched: bool, n_chunks=None):
+    """:func:`_check`, then :func:`_run` or the k = 0 result, by parts."""
+    _check(A, B, C, beta, batched)
+    if A[0].shape[-1] == 0:
+        return _k0_result(beta, C, (*A[0].shape[:-1], B[0].shape[-1]), A[0].device)
+    return _run(A, B, C, num_split, alpha, beta, n_chunks)
+
+
+def gemm_int8(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    num_split: int,
+    alpha=1.0,
+    beta=0.0,
+    c: Optional[torch.Tensor] = None,
+    n_chunks: Optional[int] = None,
+) -> torch.Tensor:
+    """Emulated ``alpha * (a @ b) + beta * c`` on float64 or complex128
+    tensors a [m, k], b [k, n] (c [m, n]), or batches [B, m, k] @
+    [B, k, n], all of one dtype on one device; the result is of that dtype
+    there.  Complex operands run the 4-pass engine on their planes.
+    ``n_chunks`` as in :func:`gemm_f64`."""
+    batched = a.dim() == 3
+    if not a.is_complex():
+        return _entry((a,), (b,), (c,), num_split, float(alpha), float(beta), batched, n_chunks)[0]
+    C = _planes(c) if c is not None else (None, None)
+    re, im = _entry(_planes(a), _planes(b), C, num_split, complex(alpha), complex(beta), batched,
+                    n_chunks)
+    return _complex_result(re, im, False)
+
+
+def gemm_f64(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    num_split: int,
+    alpha: float = 1.0,
+    beta: float = 0.0,
+    c: Optional[torch.Tensor] = None,
+    n_chunks: Optional[int] = None,
+) -> torch.Tensor:
+    """Emulated FP64 GEMM on float64 tensors: alpha*(a@b) + beta*c.
+
+    ``a`` [m, k], ``b`` [k, n] (and ``c`` [m, n]) must lie on one device.
+    ``n_chunks=None`` auto-selects column-panel streaming from the
+    working-set estimate against that device's memory
+    (schedule.auto_n_chunks); 1 forces the unchunked engine.  Chunked and
+    unchunked results are bitwise identical.
+    """
+    return _entry((a,), (b,), (c,), num_split, float(alpha), float(beta), False, n_chunks)[0]
 
 
 def zgemm_f64(
@@ -466,66 +572,8 @@ def zgemm_f64(
     streaming from the working-set estimate; chunked output is bitwise
     identical.
     """
-    with span("oz.engine"):
-        planes = [a_re, a_im, b_re, b_im] + [x for x in (c_re, c_im) if x is not None]
-        if any(x.dtype != torch.float64 or x.dim() != 2 for x in planes):
-            raise TypeError("zgemm_f64 takes 2-D float64 planes")
-        if any(x.device != a_re.device for x in planes):
-            raise ValueError("all planes must lie on one device")
-        if a_im.shape != a_re.shape or b_im.shape != b_re.shape or a_re.shape[1] != b_re.shape[0]:
-            raise ValueError(f"shape mismatch: {tuple(a_re.shape)} @ {tuple(b_re.shape)}")
-        if a_re.shape[1] > 0 and bits_per_int8(a_re.shape[1]) <= 0:
-            raise ValueError(f"k={a_re.shape[1]} too large for int8 emulation")
-        m, k = a_re.shape
-        n = b_re.shape[1]
-        if k == 0:
-            return _zk0_result(complex(beta), c_re, c_im, (m, n), a_re.device)
-        a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
-        if n_chunks is None:
-            n_chunks = auto_n_chunks(m, n, k, num_split, complex_=True, device=a_re.device)
-        args = (complex(alpha), complex(beta), c_re, c_im)
-        if n_chunks > 1:
-            return _zgemm_core_nchunked(a_re, a_im, b_re, b_im, num_split, n_chunks, *args)
-        return _zgemm_core(a_re, a_im, b_re, b_im, num_split, *args)
-
-
-# ---------------------------------------------------------------------------
-# Batched engine: one launch of each kernel per sub-batch.
-# ---------------------------------------------------------------------------
-
-
-def _sub_batches(bsz: int, m: int, n: int, k: int, num_split: int, complex_: bool, device):
-    """Slices of a batch of ``bsz`` products, each run as one launch of each
-    kernel: as many matrices as :func:`~ozimmu_tpu_torch.schedule.hbm_budget_bytes`
-    holds at one matrix's working set (the 2-D engine's model at one
-    panel) plus its epilogue's temporaries (none on a CUDA device, at least
-    one matrix).  None where a single matrix needs column panels: that
-    batch runs matrix by matrix through the 2-D engine and its panels."""
-    if auto_n_chunks(m, n, k, num_split, complex_, device=device) > 1:
-        return None
-    temps = _temp_bytes(complex_, device) * m * n
-    per = working_set_bytes_chunked(m, n, k, num_split, 1, complex_) + temps
-    step = max(1, min(bsz, hbm_budget_bytes(device) // per))
-    return [slice(i, min(i + step, bsz)) for i in range(0, bsz, step)]
-
-
-def _check_batch(ops, cs, what: str) -> None:
-    """Operands [B, m, k] and [B, k, n] (``ops``: the A's then the B's, two
-    for complex planes), ``cs`` [B, m, n] or None, float64 on one device."""
-    a, b = ops[0], ops[-1]
-    if any(x.dim() != 3 for x in ops) or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1] \
-            or any(x.shape != ops[0].shape for x in ops[:len(ops) // 2]) \
-            or any(x.shape != b.shape for x in ops[len(ops) // 2:]):
-        raise ValueError(f"{what}: batched shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    want = (a.shape[0], a.shape[1], b.shape[2])
-    if any(x is not None and tuple(x.shape) != want for x in cs):
-        raise ValueError(f"{what}: c must have shape {want}")
-    if any(x.dtype != torch.float64 for x in (*ops, *(c for c in cs if c is not None))):
-        raise TypeError(f"{what} takes float64 tensors")
-    if any(x.device != a.device for x in (*ops, *(c for c in cs if c is not None))):
-        raise ValueError(f"{what}: all operands must lie on one device")
-    if a.shape[2] > 0 and bits_per_int8(a.shape[2]) <= 0:
-        raise ValueError(f"k={a.shape[2]} too large for int8 emulation")
+    return _entry((a_re, a_im), (b_re, b_im), (c_re, c_im), num_split, complex(alpha),
+                  complex(beta), False, n_chunks)
 
 
 def gemm_f64_batched(
@@ -544,28 +592,7 @@ def gemm_f64_batched(
     many matrices as the memory budget holds (:func:`_sub_batches`): on a
     CUDA device each kernel launches once per sub-batch.  A batch whose
     single matrix needs column panels runs matrix by matrix."""
-    with span("oz.engine"):
-        _check_batch((a, b), (c,), "gemm_f64_batched")
-        if beta != 0.0 and c is None:
-            raise ValueError("beta != 0 requires c")
-        bsz, m, k = a.shape
-        n = b.shape[2]
-        alpha, beta = float(alpha), float(beta)
-        if k == 0:
-            return _k0_result(beta, c, (bsz, m, n), a.device)
-        a, b = a.contiguous(), b.contiguous()
-        parts = _sub_batches(bsz, m, n, k, num_split, False, a.device)
-
-        def one(s, core):
-            return core(a[s], b[s], num_split, alpha, beta, None if c is None else c[s])
-
-        if parts is not None and len(parts) == 1:
-            return one(parts[0], _gemm_core)
-        out = torch.empty((bsz, m, n), dtype=torch.float64, device=a.device)
-        core = gemm_f64 if parts is None else _gemm_core
-        for s in range(bsz) if parts is None else parts:
-            out[s] = one(s, core)
-        return out
+    return _entry((a,), (b,), (c,), num_split, float(alpha), float(beta), True)[0]
 
 
 def zgemm_f64_batched(
@@ -584,25 +611,5 @@ def zgemm_f64_batched(
     :func:`zgemm_f64` on it alone: four plane splits and four
     recombinations (one per entry of :data:`ZGEMM_PASSES`) per sub-batch.
     Returns the (re, im) float64 planes [B, m, n]."""
-    with span("oz.engine"):
-        _check_batch((a_re, a_im, b_re, b_im), (c_re, c_im), "zgemm_f64_batched")
-        bsz, m, k = a_re.shape
-        n = b_re.shape[2]
-        alpha, beta = complex(alpha), complex(beta)
-        if k == 0:
-            return _zk0_result(beta, c_re, c_im, (bsz, m, n), a_re.device)
-        a_re, a_im, b_re, b_im = (x.contiguous() for x in (a_re, a_im, b_re, b_im))
-        parts = _sub_batches(bsz, m, n, k, num_split, True, a_re.device)
-
-        def one(s, core):
-            cs = [None if x is None else x[s] for x in (c_re, c_im)]
-            return core(a_re[s], a_im[s], b_re[s], b_im[s], num_split, alpha, beta, *cs)
-
-        if parts is not None and len(parts) == 1:
-            return one(parts[0], _zgemm_core)
-        out_re = torch.empty((bsz, m, n), dtype=torch.float64, device=a_re.device)
-        out_im = torch.empty_like(out_re)
-        core = zgemm_f64 if parts is None else _zgemm_core
-        for s in range(bsz) if parts is None else parts:
-            out_re[s], out_im[s] = one(s, core)
-        return out_re, out_im
+    return _entry((a_re, a_im), (b_re, b_im), (c_re, c_im), num_split, complex(alpha),
+                  complex(beta), True)

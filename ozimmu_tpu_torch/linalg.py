@@ -23,9 +23,8 @@ Two paths, chosen by ``resident=`` (default: by the container of ``a``):
     stays one float64 or complex128 tensor on its device; each step's
     triangular solve is a product with the explicit inverse of the unit
     lower block (the standard GPU-HPL formulation), so both it and the
-    trailing update are engine GEMMs (``core.gemm.gemm_f64`` /
-    ``zgemm_f64``), and on a CUDA tensor every step launches the split and
-    the recombine kernel.  ``panel="host"`` pulls each pivot panel to the
+    trailing update are engine GEMMs (``core.gemm.gemm_int8``), and on
+    a CUDA tensor every step launches the split and the recombine kernel.  ``panel="host"`` pulls each pivot panel to the
     host for LAPACK ``getrf``; ``panel="device"`` factors it where it lies
     with ``torch.linalg.lu_factor_ex``.  Needs a fixed ``fp64_int8_<ns>``
     mode.  With ``mesh=`` it runs row-sharded over a ``DeviceMesh``
@@ -53,8 +52,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .core.api import _planes, gemm
-from .core.gemm import gemm_f64, zgemm_f64
+from .core.api import gemm
+from .core.gemm import gemm_int8
 from .core.handle import default_handle
 from .utils.profiling import span, synchronize
 
@@ -207,12 +206,7 @@ def _engine(a: torch.Tensor, b: torch.Tensor, num_split: int, alpha: float = 1.0
     float64 or complex128 tensors (windows of the matrix are fine: the
     engine copies its operands contiguous and returns a new tensor, so the
     result may be written back over ``c``)."""
-    if a.is_complex():
-        c_planes = _planes(c) if c is not None else (None, None)
-        re, im = zgemm_f64(*_planes(a), *_planes(b), num_split, complex(alpha), complex(beta),
-                           *c_planes)
-        return torch.complex(re, im)
-    return gemm_f64(a, b, num_split, alpha=alpha, beta=beta, c=c)
+    return gemm_int8(a, b, num_split, alpha, beta, c)
 
 
 def _panel_moves(j: int, n: int, p_loc: np.ndarray, piv: np.ndarray):
@@ -430,10 +424,10 @@ def _cholesky_device(a: torch.Tensor, num_split: int, block: int, profile=None) 
         clock.lap("panel_host_s")
         A[j:rest, j:rest] = torch.from_numpy(l11).to(dev)
         if rest < n:
-            l21 = gemm_f64(A[rest:, j:rest], torch.from_numpy(inv_t).to(dev), num_split)
+            l21 = gemm_int8(A[rest:, j:rest], torch.from_numpy(inv_t).to(dev), num_split)
             A[rest:, j:rest] = l21
-            A[rest:, rest:] = gemm_f64(l21, l21.T, num_split, alpha=-1.0, beta=1.0,
-                                       c=A[rest:, rest:])
+            A[rest:, rest:] = gemm_int8(l21, l21.T, num_split, alpha=-1.0, beta=1.0,
+                                        c=A[rest:, rest:])
         clock.lap("device_update_s", wait=True)
     return torch.tril(A)
 

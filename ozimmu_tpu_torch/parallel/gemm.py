@@ -63,9 +63,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.api import _apply_op, _complex_result, _planes
+from ..core.api import apply_op
 from ..core.bits import exponent_field
-from ..core.gemm import ZGEMM_PASSES, Exponents, _epilogue_SE, _zfold_passes, _zpasses
+from ..core.gemm import (ZGEMM_PASSES, Exponents, _complex_result, _epilogue_SE, _planes,
+                         _recombine_passes, _zfold_passes)
 from ..ops.mantissa_loss import loss_totals_with_group_exp, select_mode_from_totals
 from ..ops.recombine import acc_shift, fold_totals, group_totals_into, padded_k, recombine
 from ..ops.split import row_exponent, split_with_exp
@@ -325,8 +326,9 @@ def sharded_zgemm_fn(mesh, num_split: int, k_global: int, axis_x: str = "x", axi
     ``fn(a_re, a_im, b_re, b_im, c_re=None, c_im=None) -> (re, im)``:
     each re/im plane is split and its int8 planes gathered along the
     contraction axis as in :func:`sharded_gemm_fn` (twice the planes of
-    DGEMM per operand), then the four recombinations (``core.gemm._zpasses``,
-    the CUDA kernel on the card) and the complex fold run on the C block.
+    DGEMM per operand), then the four recombinations
+    (``core.gemm._recombine_passes``, the CUDA kernel on the card) and the
+    complex fold run on the C block.
     All blocks sharded (x, y)."""
     b = _bits(k_global)
     alpha, beta = complex(alpha), complex(beta)
@@ -340,7 +342,7 @@ def sharded_zgemm_fn(mesh, num_split: int, k_global: int, axis_x: str = "x", axi
         for idx, x in ((0, b_re), (1, b_im)):
             d, p = _local_split(x, mesh, axis_x, num_split, b, axis=0)
             b_planes[idx] = (comm.all_gather_k(d, mesh, axis_x, x.shape[0], kp), p)
-        SEs = _zpasses(a_planes, b_planes, num_split, b, k_global, b_kmajor=True)
+        SEs = _recombine_passes(a_planes, b_planes, num_split, b, k_global, b_kmajor=True)
         del a_planes, b_planes
         m_l, n_l = SEs[0][0][0].shape
         return _zfold_passes(SEs, m_l, n_l, alpha, beta, c_re, c_im, a_re.device)
@@ -634,7 +636,7 @@ def _result(blocks, mesh, row_axis: Optional[str], col_axis: Optional[str], m: i
 def _apply_op_host(x: torch.Tensor, op) -> torch.Tensor:
     """BLAS op on a global operand: N / T / C (conjugate transpose, exact;
     the reference degrades OP_C to OP_T, src/cublas.cu:50-56)."""
-    return _apply_op(x, Operation.parse(op))
+    return apply_op(x, Operation.parse(op))
 
 
 def _run_2d(a, b, num_split: int, mesh, axis_x: str, axis_y: str, variant: str, alpha, beta,

@@ -248,9 +248,9 @@ def _cholesky_steps(rows: _Rows, num_split: int, block: int, clock) -> None:
         if rest < n:
             mine = rows.mine(rest, n)
             if mine.stop > mine.start:
-                A[mine, j:rest] = linalg.gemm_f64(A[mine, j:rest], buf[jb:2 * jb], num_split)
+                A[mine, j:rest] = linalg.gemm_int8(A[mine, j:rest], buf[jb:2 * jb], num_split)
             l21 = rows.everywhere(rest, n, j, rest)
             if mine.stop > mine.start:
-                A[mine, rest:] = linalg.gemm_f64(A[mine, j:rest], l21.T, num_split, alpha=-1.0,
-                                                 beta=1.0, c=A[mine, rest:])
+                A[mine, rest:] = linalg.gemm_int8(A[mine, j:rest], l21.T, num_split, alpha=-1.0,
+                                                  beta=1.0, c=A[mine, rest:])
         clock.lap("device_update_s", wait=True)

@@ -178,7 +178,7 @@ def working_set_bytes_chunked(
 ) -> int:
     """Peak device working set of the column-panel-chunked engine.
 
-    The chunked engine (core.gemm._gemm_core_nchunked) keeps A's operand
+    The chunked engine (core.gemm._loop over column panels) keeps A's operand
     and int8 planes plus B's operand and the full output resident, and
     streams B's planes / int32 partials / triple-f32 accumulator one
     n-panel at a time — so those scale by 1/n_chunks.  Each panel is split

@@ -33,30 +33,18 @@ from typing import Optional
 
 import torch
 
-from .core.gemm import gemm_f64, gemm_f64_batched, zgemm_f64, zgemm_f64_batched
-from .schedule import bits_per_int8
+from .core.gemm import gemm_int8
 
 
-def _check_k(k: int) -> None:
-    if bits_per_int8(k) <= 0:
-        raise ValueError(f"k={k} exceeds the int8 emulation bound")
-
-
-def _engine(a, b, c, num_split: int, alpha: complex, beta: complex, **kw):
-    """The engine on one [m, k] @ [k, n] product (``kw`` holds its
-    ``n_chunks``) or on a batch [B, m, k] @ [B, k, n], real or complex."""
+def _engine(a, b, c, num_split: int, alpha: complex, beta: complex, n_chunks=None):
+    """The engine on one [m, k] @ [k, n] product or on a batch
+    [B, m, k] @ [B, k, n], real or complex."""
     a, b = a.resolve_conj().resolve_neg(), b.resolve_conj().resolve_neg()
     if c is not None:
         c = c.resolve_conj().resolve_neg()
-    batched = a.dim() == 3
     if not a.is_complex():
-        f = gemm_f64_batched if batched else gemm_f64
-        return f(a, b, num_split, alpha.real, beta.real, c, **kw)
-    planes = [x.contiguous() for x in (a.real, a.imag, b.real, b.imag)]
-    cp = (c.real.contiguous(), c.imag.contiguous()) if c is not None else (None, None)
-    re, im = (zgemm_f64_batched if batched else zgemm_f64)(*planes, num_split, alpha, beta,
-                                                            *cp, **kw)
-    return torch.complex(re, im)
+        alpha, beta = alpha.real, beta.real
+    return gemm_int8(a, b, num_split, alpha, beta, c, n_chunks)
 
 
 @torch.library.custom_op("ozimmu_tpu_torch::gemm", mutates_args=())
@@ -121,11 +109,6 @@ def gemm(
     """
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"expected 2D operands, got {tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.shape[1] != b.shape[0]:
-        raise ValueError(f"shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    _check_k(a.shape[1])
-    if beta != 0 and c is None:
-        raise ValueError("beta != 0 requires c")
     a, b, c, scalars = _promote(a, b, c, alpha, beta)
     return _gemm_op(a, b, c, num_split, *scalars, n_chunks)
 
@@ -149,10 +132,5 @@ def gemm_batched(
     ``torch.compile(fullgraph=True)``."""
     if a.dim() != 3 or b.dim() != 3:
         raise ValueError(f"expected 3D operands, got {tuple(a.shape)} @ {tuple(b.shape)}")
-    if a.shape[0] != b.shape[0] or a.shape[2] != b.shape[1]:
-        raise ValueError(f"batched shape mismatch: {tuple(a.shape)} @ {tuple(b.shape)}")
-    _check_k(a.shape[2])
-    if beta != 0 and c is None:
-        raise ValueError("beta != 0 requires c")
     a, b, c, scalars = _promote(a, b, c, alpha, beta)
     return _gemm_batched_op(a, b, c, num_split, *scalars)

@@ -150,7 +150,8 @@ def culip_timer(name: str, sync_fn=None) -> Iterator[None]:
 #: 14-launch call from 240 s on, while their launches stay in the trace;
 #: pads of idle time around the block did not help.  With 64 adds and a
 #: synchronisation first, the trace kept every kernel of that call at
-#: every age to 300 s, in three processes (``tools/torch_trace_drift.py``).
+#: every age to 300 s, in three processes (the measurements stand in
+#: ROADMAP.md's records).
 TRACE_OPENING_LAUNCHES = 64
 
 

@@ -200,7 +200,7 @@ def test_row_blocked_fold_is_bitwise(monkeypatch, rows, alpha, beta):
     bb = ozt.bits_per_int8(K)
     a_planes = {0: core.split_f64(planes[0], 9, bb), 1: core.split_f64(planes[1], 9, bb)}
     b_planes = {0: core.split_f64_cols(planes[2], 9, bb), 1: core.split_f64_cols(planes[3], 9, bb)}
-    SEs = core._zpasses(a_planes, b_planes, 9, bb, K)
+    SEs = core._recombine_passes(a_planes, b_planes, 9, bb, K)
     args = (SEs, M, N, complex(alpha), complex(beta), cr, ci, "cpu")
     whole = core._zfold_block(*args)
     block = rows * core._ZFOLD_TEMP_BYTES * N

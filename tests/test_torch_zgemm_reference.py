@@ -3,7 +3,7 @@
 + beta·C0 with complex alpha, beta and C0 passes both of the ZGEMM
 configuration's limits; the complex64 control and each planted fault fail
 at least one.  And the complex layout's span (``oz.zlayout``) and counter
-(``core.api.ZLAYOUT_COPIES``)."""
+(``core.gemm.ZLAYOUT_COPIES``)."""
 
 import importlib
 import importlib.util
@@ -16,7 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import ozimmu_tpu_torch as ozt  # noqa: E402
-from ozimmu_tpu_torch.core import api  # noqa: E402
+from ozimmu_tpu_torch.core import gemm as engine  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFERENCE = os.path.join(ROOT, "ozbench", "reference")
@@ -138,17 +138,17 @@ def _calls(entry, with_c):
 @pytest.mark.parametrize("with_c, copies", [(True, 7), (False, 5)])
 def test_zlayout_copies_counts_each_plane_and_the_interleave(entry, with_c, copies):
     call = _calls(entry, with_c)
-    before = api.ZLAYOUT_COPIES
+    before = engine.ZLAYOUT_COPIES
     call()
     call()
-    assert api.ZLAYOUT_COPIES - before == 2 * copies
+    assert engine.ZLAYOUT_COPIES - before == 2 * copies
 
 
 def test_a_real_gemm_makes_no_layout_copy():
     a, b, _ = _operands(12, 10, 14, seed=4)
-    before = api.ZLAYOUT_COPIES
+    before = engine.ZLAYOUT_COPIES
     ozt.gemm(a.real.contiguous(), b.real.contiguous(), mode=MODE, handle=ozt.create(device="cpu"))
-    assert api.ZLAYOUT_COPIES == before
+    assert engine.ZLAYOUT_COPIES == before
 
 
 @pytest.mark.parametrize("entry", ["gemm", "gemm_batched"])

@@ -131,18 +131,18 @@ def case_budget(mesh):
 
     dev = mesh_device(mesh)
     inside = []
-    real = linalg.gemm_f64
+    real = linalg.gemm_int8
 
     def engine(*args, **kw):
         inside.append(schedule.hbm_budget_bytes(dev))
         return real(*args, **kw)
 
-    linalg.gemm_f64 = engine
+    linalg.gemm_int8 = engine
     try:  # every rank runs a GEMM in LU: the root of step 0 its U12
         factor("lu_host_90", mesh)
         factor("cholesky_90", mesh)
     finally:
-        linalg.gemm_f64 = real
+        linalg.gemm_int8 = real
     return {"count": ranks_sharing_device(mesh), "whole": schedule.hbm_budget_bytes(dev),
             "inside": np.array(inside)}
 
