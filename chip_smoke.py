@@ -331,8 +331,8 @@ def traced_events(run, name: str = None, attempts: int = 3) -> list:
         launches, kernels = launches_and_kernels(events, skip=TRACE_OPENING_LAUNCHES)
         if kernels == launches or attempt == attempts:
             return events
-        print(f"[trace] attempt {attempt}: {kernels} of {launches} kernels kept; tracing again",
-              flush=True)
+        print(f"[trace] attempt {attempt}: {kernels} of {launches} launches kept their kernels; "
+              "tracing again", flush=True)
 
 
 def kernel_ms(fn, names, iters: int = 5) -> float:
@@ -1754,6 +1754,7 @@ def phase_intercept(ozt, label) -> dict:
     ms_dir = cuda_ms(lambda: ozt.gemm(a, b, mode=mode), iters=3)
     print(f"[intercept] a @ b {N}^3 under intercept(mode={mode}): bits == gemm(a, b); launches "
           f"{counts}", flush=True)
+    phase_replay(ozt, mode)
     print(f"[time] {label}: intercepted a @ b {N}^3: {ms_int:.3f} ms; direct gemm: {ms_dir:.3f} "
           f"ms; difference {ms_int - ms_dir:+.3f} ms", flush=True)
     del a, b
@@ -1850,6 +1851,41 @@ def phase_intercept(ozt, label) -> dict:
         raise AssertionError(f"OZIMMU_COMPUTE_MODE={mode} did not route the call: {cenv}")
     print(f"[intercept] 512^3 launches {c512}; OZIMMU_COMPUTE_MODE={mode} with no pinned mode "
           f"routes 1024^3: launches {cenv}, bits == gemm", flush=True)
+    return counts
+
+
+def phase_replay(ozt, mode: str) -> dict:
+    """14a. The engine's replay: a 1024^3 product intercepted three times
+    on an empty cache, the eager first call, the capturing second and a
+    replay, each bit for bit the eager chain's, launching the kernels of
+    three GEMMs, with one capture and two replays."""
+    import ozimmu_tpu_torch.intercept as ozi
+    from ozimmu_tpu_torch.core import gemm as core
+    from ozimmu_tpu_torch.testing import generate_input
+
+    a = torch.from_numpy(generate_input("urand01", (1024, 1024), seed=87)).cuda()
+    b = torch.from_numpy(generate_input("urand01", (1024, 1024), seed=88)).cuda()
+    core._CACHE.clear()
+    before = (core.CAPTURES, core.REPLAYS, core.EAGER_SMALL, core.CAPTURE_FAILURES)
+    reset_launches()
+    with ozi.intercept(mode=mode):
+        got = [a @ b for _ in range(3)]
+    counts = read_launches()
+    moved = tuple(x - y for x, y in
+                  zip((core.CAPTURES, core.REPLAYS, core.EAGER_SMALL, core.CAPTURE_FAILURES),
+                      before))
+    if counts != gemms(3):
+        raise AssertionError(f"three intercepted 1024^3 calls launched {counts}, expected "
+                             f"{gemms(3)}")
+    if moved != (1, 2, 1, 0):
+        raise AssertionError(f"captures, replays, eager calls, failures moved {moved}, "
+                             f"expected (1, 2, 1, 0)")
+    if not all(bits_equal(x, got[0]) for x in got[1:]):
+        raise AssertionError("a replayed 1024^3 product differs from the eager chain's")
+    print(f"[replay] 1024^3 intercepted x3: eager, captured, replayed; bits == the eager chain; "
+          f"launches {counts}; captures, replays, eager, failures {moved}; cache "
+          f"{core._CACHE.nbytes} B", flush=True)
+    core._CACHE.clear()
     return counts
 
 

@@ -44,19 +44,26 @@ flags are applied by the public API (core/api.py).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
+import struct
+import threading
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
 
+from .. import native
 from ..ops import tf32x3
 from ..ops.pack import aligned_add, pack_f64, scalar_triple, unpack_f64
 from ..ops.recombine import acc_shift, padded_k, recombine
 from ..ops.split import split_f64, split_f64_cols
 from ..schedule import (
-    auto_n_chunks, bits_per_int8, epilogue_block_bytes, hbm_budget_bytes,
+    REPLAY_MAX_BYTES, REPLAY_MAX_WORK, auto_n_chunks, bits_per_int8, epilogue_block_bytes,
+    hbm_budget_bytes, replay_bytes, replay_cache_bytes, schedule_flops,
     working_set_bytes_chunked,
 )
+from ..utils.log import error
 from ..utils.profiling import span
 
 #: live temporaries per output element of one block of the plain (CPU)
@@ -435,24 +442,251 @@ def _sub_batches(bsz: int, m: int, n: int, k: int, num_split: int, complex_: boo
     return [slice(i, min(i + step, bsz)) for i in range(0, bsz, step)]
 
 
+# ---------------------------------------------------------------------------
+# Replay: a small product's kernel chain, captured once per call signature
+# and replayed as one CUDA graph.
+# ---------------------------------------------------------------------------
+
+#: calls of :func:`_run` since the process started that captured their
+#: signature's chain (and replayed it at once), that replayed a chain (the
+#: capturing calls included), and that ran eagerly under the cut: a
+#: signature's first call, or one whose chain is eager for good because
+#: its capture failed (:data:`CAPTURE_FAILURES` counts those failures) or
+#: would not fit the cache's cap
+CAPTURES = 0
+REPLAYS = 0
+EAGER_SMALL = 0
+CAPTURE_FAILURES = 0
+
+#: the signatures that :class:`ReplayCache` remembers, the least recently
+#: used forgotten first
+_SIGNATURES = 1024
+
+#: a signature's state in :class:`ReplayCache` beside a captured chain:
+#: called once (the next call captures), or eager for good
+_SEEN, _EAGER = "seen", "eager"
+
+
+def replays(m: int, n: int, k: int, num_split: int, complex_: bool = False) -> bool:
+    """Whether a product [m, k] @ [k, n] is small enough for :func:`_run`
+    to replay its captured chain (where it is a 2-D product in one column
+    panel, with no phase profiler, on a device that can capture now:
+    :func:`_run` checks those): int8 work at most
+    :data:`~ozimmu_tpu_torch.schedule.REPLAY_MAX_WORK` and an entry, c's
+    copies left out, of at most ``REPLAY_MAX_BYTES``."""
+    return (schedule_flops(num_split, m, n, k, complex_) <= REPLAY_MAX_WORK
+            and replay_bytes(m, n, k, num_split, complex_) <= REPLAY_MAX_BYTES)
+
+
+def _graphs(dev) -> bool:
+    """Whether a chain on ``dev`` can be captured now: a CUDA device whose
+    current stream is not capturing already (a user's graph,
+    ``torch.compile``'s reduce-overhead mode: their capture takes the
+    eager chain as it is)."""
+    return dev.type == "cuda" and not torch.cuda.is_current_stream_capturing()
+
+
+def _scalar_bits(x) -> bytes:
+    """A float or complex scalar's float64 bits, real and imaginary: a key
+    that tells -0.0 from 0.0 (the epilogue's signed zeros do) and finds a
+    NaN again."""
+    return struct.pack("<2d", x.real, x.imag)
+
+
+def replay_key(parts: int, m: int, n: int, k: int, num_split: int, alpha, beta, c_given,
+               device, stream: int) -> tuple:
+    """The signature of a product: everything the chain that :func:`_loop`
+    launches depends on.  ``parts`` 1 (real) or 2 (complex), alpha and beta
+    as values, ``c_given`` whether each part of c is read, the device and
+    the current stream's handle (static buffers are never shared across
+    streams)."""
+    return (parts, m, n, k, num_split, _scalar_bits(alpha), _scalar_bits(beta), tuple(c_given),
+            torch.device(device), stream)
+
+
+class _Replay:
+    """A captured chain: the graph, the static buffers it reads (A's, B's
+    and c's parts; None for a part of c it does not read), its outputs,
+    the tape of the wrappers' launches it holds, and the device bytes it
+    holds."""
+
+    def __init__(self, graph, inputs, out, tape, nbytes: int):
+        self.graph, self.inputs, self.out = graph, inputs, out
+        self.tape, self.nbytes = tape, nbytes
+        self.lock = threading.Lock()
+
+
+class ReplayCache:
+    """The signatures met, by key, the least recently used first: each
+    :data:`_SEEN`, :data:`_EAGER` or a captured chain (:class:`_Replay`).
+    Chains are dropped back to :data:`_SEEN`, the least recently used
+    first, while their bytes together pass the cap that :meth:`put` is
+    given; signatures beyond :data:`_SIGNATURES` are forgotten, the oldest
+    first.  Its methods may be called from several threads."""
+
+    def __init__(self):
+        self.states: OrderedDict = OrderedDict()
+        self.nbytes = 0
+        self.lock = threading.Lock()
+
+    def state(self, key):
+        """The state of ``key``, now the most recently used; None where it
+        was not met before (it is :data:`_SEEN` now)."""
+        with self.lock:
+            state = self.states.get(key)
+            if state is None:
+                self.states[key] = _SEEN
+                if len(self.states) > _SIGNATURES:
+                    self._set(next(iter(self.states)), None)
+            else:
+                self.states.move_to_end(key)
+            return state
+
+    def put(self, key, state, cap: int) -> None:
+        """Set the state of ``key``, then drop the least recently used
+        chains until the chains' bytes fit ``cap``."""
+        with self.lock:
+            self._set(key, state)
+            chains = [k for k, s in self.states.items() if isinstance(s, _Replay)]
+            for old in chains:
+                if self.nbytes <= cap:
+                    break
+                self._set(old, _SEEN)
+
+    def _set(self, key, state) -> None:
+        """Set (None: forget) the state of ``key``, counting chains' bytes."""
+        old = self.states.pop(key, None) if state is None else self.states.get(key)
+        self.nbytes -= old.nbytes if isinstance(old, _Replay) else 0
+        if state is not None:
+            self.states[key] = state
+            self.nbytes += state.nbytes if isinstance(state, _Replay) else 0
+
+    def clear(self) -> None:
+        with self.lock:
+            self.states.clear()
+            self.nbytes = 0
+
+
+_CACHE = ReplayCache()
+#: one capture at a time in the process (CUDA graphs allow no more)
+_CAPTURE_LOCK = threading.Lock()
+#: a side stream per device to capture on (the legacy default stream
+#: cannot capture)
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture(A, B, C, num_split: int, alpha, beta, dev, cap: int) -> Optional[_Replay]:
+    """Capture :func:`_loop`'s chain on static buffers of A's, B's and C's
+    shapes (C's parts None where not read) on a side stream; None where
+    the capture raises or the chain's bytes pass ``cap``.  Its bytes are
+    the static buffers and the growth of the device's reserved memory
+    over the capture: the graph's private pool, as the allocator holds
+    it.  The wrappers count the captured launches, which the chain's
+    first replay, at once, launches; their tape is kept for each later
+    replay to count."""
+    global CAPTURE_FAILURES
+    inputs = [None if x is None else torch.empty(x.shape, dtype=torch.float64, device=dev)
+              for x in (*A, *B, *C)]
+    sA, sB, sC = inputs[:len(A)], inputs[len(A):len(A) + len(B)], inputs[len(A) + len(B):]
+    graph = torch.cuda.CUDAGraph()
+    with _CAPTURE_LOCK:
+        if dev not in _CAPTURE_STREAMS:
+            if not _CAPTURE_STREAMS:
+                atexit.register(_CACHE.clear)  # the graphs go before the CUDA context
+            _CAPTURE_STREAMS[dev] = torch.cuda.Stream(device=dev)
+        side, caller = _CAPTURE_STREAMS[dev], torch.cuda.current_stream(dev)
+        side.wait_stream(caller)
+        reserved = torch.cuda.memory_reserved(dev)
+        with native.recording() as tape:
+            try:
+                with torch.cuda.stream(side):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        out = _loop(sA, sB, sC, num_split, alpha, beta, 1)
+                    finally:
+                        graph.capture_end()
+            except RuntimeError as e:
+                CAPTURE_FAILURES += 1
+                native.count(tape, -1)
+                error(f"replay: the capture of a {A[0].shape[0]}x{B[0].shape[1]}x{A[0].shape[1]} "
+                      f"product failed ({e}); it runs eagerly from now on")
+                return None
+        pool = torch.cuda.memory_reserved(dev) - reserved
+        caller.wait_stream(side)
+    nbytes = sum(8 * x.numel() for x in inputs if x is not None) + pool
+    if nbytes > cap:
+        native.count(tape, -1)
+        return None
+    return _Replay(graph, inputs, out, tape, nbytes)
+
+
+def _replayed(A, B, C, num_split: int, alpha, beta):
+    """The output's parts by the replay of the signature's captured chain,
+    the operands copied into its static buffers and the output cloned
+    (the next replay writes over it); the chain is captured at the
+    signature's second call, where its estimate (:func:`replay_bytes`)
+    fits the cache's cap (:func:`replay_cache_bytes`).  None where the
+    call is to run eagerly: the signature's first call, or a signature
+    eager for good."""
+    global CAPTURES, EAGER_SMALL, REPLAYS
+    dev = A[0].device
+    (m, k), n = A[0].shape, B[0].shape[1]
+    C = [x if beta != 0 else None for x in C]  # c is read only where beta != 0
+    key = replay_key(len(A), m, n, k, num_split, alpha, beta, (x is not None for x in C), dev,
+                     torch.cuda.current_stream(dev).cuda_stream)
+    entry = _CACHE.state(key)
+    if entry is None or entry is _EAGER:
+        EAGER_SMALL += 1
+        return None
+    again = 1
+    if entry is _SEEN:
+        cap = replay_cache_bytes(dev)
+        need = replay_bytes(m, n, k, num_split, len(A) == 2, sum(x is not None for x in C))
+        entry = _capture(A, B, C, num_split, alpha, beta, dev, cap) if need <= cap else None
+        _CACHE.put(key, entry or _EAGER, cap)
+        if entry is None:
+            EAGER_SMALL += 1
+            return None
+        CAPTURES += 1
+        again = 0  # the capture counted the launches of this first replay
+    with span("oz.replay"), entry.lock, torch.cuda.device(dev):
+        for s, x in zip(entry.inputs, (*A, *B, *C)):
+            if s is not None:
+                s.copy_(x)
+        entry.graph.replay()
+        out = tuple(o.clone() for o in entry.out)
+    native.count(entry.tape, again)
+    REPLAYS += 1
+    return out
+
+
 def _run(A, B, C, num_split: int, alpha, beta, n_chunks: Optional[int] = None,
          phase=_no_phase):
     """The engine on checked operands by parts (see :func:`_loop`), k > 0:
     the span ``oz.engine`` around the loop, run once, or once per
-    sub-batch.  ``n_chunks`` sets a 2-D product's column panels, None
-    choosing them from the working-set estimate against the device's
-    memory (schedule.auto_n_chunks).  A batch runs in the sub-batches of
+    sub-batch, or around the replay of the product's captured chain (a
+    2-D product in one column panel with no phase profiler, on a device
+    that can capture now, small enough for :func:`replays`; ``oz.replay``).
+    ``n_chunks`` sets a 2-D product's column panels, None choosing them
+    from the working-set estimate against the device's memory
+    (schedule.auto_n_chunks).  A batch runs in the sub-batches of
     :func:`_sub_batches`, or matrix by matrix where one matrix needs
     column panels.  Returns the output's parts."""
     with span("oz.engine"):
-        A = [x.contiguous() for x in A]
-        B = [x.contiguous() for x in B]
         complex_, dev = len(A) == 2, A[0].device
         m, k = A[0].shape[-2:]
         n = B[0].shape[-1]
-        if A[0].dim() == 2:
-            if n_chunks is None:
-                n_chunks = auto_n_chunks(m, n, k, num_split, complex_, device=dev)
+        batched = A[0].dim() == 3
+        if not batched and n_chunks is None:
+            n_chunks = auto_n_chunks(m, n, k, num_split, complex_, device=dev)
+        if (not batched and n_chunks == 1 and phase is _no_phase and _graphs(dev)
+                and replays(m, n, k, num_split, complex_)):
+            got = _replayed(A, B, C, num_split, alpha, beta)
+            if got is not None:
+                return got
+        A = [x.contiguous() for x in A]
+        B = [x.contiguous() for x in B]
+        if not batched:
             return _loop(A, B, C, num_split, alpha, beta, n_chunks, phase)
         bsz = A[0].shape[0]
         parts = _sub_batches(bsz, m, n, k, num_split, complex_, dev)

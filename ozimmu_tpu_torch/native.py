@@ -12,11 +12,13 @@ The build directory is ``ozimmu_tpu_torch/_build/`` (git-ignored).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from typing import List, Optional
 
@@ -165,3 +167,40 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = lib().oz_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+#: the calling thread's tape of the launches its wrappers count, while it
+#: records (:func:`recording`)
+_TAPE = threading.local()
+
+
+def counted(module: str, counter: str, index: Optional[int] = None) -> None:
+    """A kernel wrapper of ``module`` counted one launch in its module
+    counter ``counter`` (at ``index`` of a list counter): noted on the
+    calling thread's tape while it records."""
+    tape = getattr(_TAPE, "tape", None)
+    if tape is not None:
+        tape.append((module, counter, index))
+
+
+@contextlib.contextmanager
+def recording():
+    """The launches that the calling thread's wrappers count inside the
+    block, as (module, counter, index) on the list it yields; other
+    threads' launches stay off it."""
+    _TAPE.tape = tape = []
+    try:
+        yield tape
+    finally:
+        _TAPE.tape = None
+
+
+def count(tape, times: int = 1) -> None:
+    """Add ``times`` each launch of ``tape`` to its wrapper's counter: a
+    captured chain's launches, counted at each replay of the chain."""
+    for module, counter, index in tape:
+        mod = sys.modules[module]
+        if index is None:
+            setattr(mod, counter, getattr(mod, counter) + times)
+        else:
+            getattr(mod, counter)[index] += times

@@ -347,6 +347,7 @@ def epilogue(S, E, alpha: float, beta: float, c: Optional[torch.Tensor] = None,
         )
     native.check(code, "epilogue launch")
     LAUNCHES += 1
+    native.counted(__name__, "LAUNCHES")
     return out
 
 
@@ -408,4 +409,5 @@ def zfold(SEs: Sequence, alpha: complex, beta: complex, c_re: Optional[torch.Ten
         )
     native.check(code, "zfold launch")
     ZFOLD_LAUNCHES += 1
+    native.counted(__name__, "ZFOLD_LAUNCHES")
     return tuple(outs)

@@ -346,6 +346,7 @@ def _walked(plan: LaunchPlan, progress: Optional[torch.Tensor]) -> None:
     global LOCKSTEP_LAUNCHES, _last_walk
     if progress is not None:
         LOCKSTEP_LAUNCHES += 1
+        native.counted(__name__, "LOCKSTEP_LAUNCHES")
         _last_walk = (plan.window, progress)
 
 
@@ -407,6 +408,8 @@ def recombine(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: int
     native.check(code, "recombine launch")
     LAUNCHES += 1
     LAUNCHES_BY_TILE[plan.tile] += 1
+    native.counted(__name__, "LAUNCHES")
+    native.counted(__name__, "LAUNCHES_BY_TILE", plan.tile)
     _walked(plan, progress)
     return out if batched else tuple(o[0] for o in out)
 
@@ -456,6 +459,7 @@ def group_totals(da: torch.Tensor, db: torch.Tensor, num_split: int, b: int, k: 
         )
     native.check(code, "recombine (totals) launch")
     TOTALS_LAUNCHES += 1
+    native.counted(__name__, "TOTALS_LAUNCHES")
     _walked(plan, progress)
     return out if batched else out.view(n_groups, m, n)
 
@@ -483,4 +487,5 @@ def fold_totals(totals: torch.Tensor, num_split: int, k: int, b: int) -> Triple:
             plan.vec, plan.grid, plan.threads, _stream(totals.device))
     native.check(code, "totals fold launch")
     FOLD_LAUNCHES += 1
+    native.counted(__name__, "FOLD_LAUNCHES")
     return tuple(out.unbind(0))

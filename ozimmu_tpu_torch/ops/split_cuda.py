@@ -148,4 +148,5 @@ def split_digits(
         )
     native.check(code, "split_digits launch")
     LAUNCHES += 1
+    native.counted(__name__, "LAUNCHES")
     return out

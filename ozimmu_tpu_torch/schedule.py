@@ -205,6 +205,39 @@ def working_set_bytes_chunked(
     return resident + per_chunk
 
 
+#: the cuts of the engine's replay (core/gemm.py::replays): a 2-D product
+#: on a CUDA device in one column panel replays its kernel chain as one
+#: captured CUDA graph where its int8 work (:func:`schedule_flops`) is at
+#: most REPLAY_MAX_WORK, that of 2048^3 at ns = 9, and its entry
+#: (:func:`replay_bytes`) at most REPLAY_MAX_BYTES.  On an H100 at 700 W
+#: (tools/torch_replay_cut.py, PERF.md §6), replay against eager:
+#: synchronised calls gained at every shape up to 4096^3; calls queued back
+#: to back, where the eager host path hides behind the card and the replay
+#: adds its copies, gained up to 2048^3 (time x 0.66) and lost from 2560^3
+#: (x 1.04-1.05), and lost at 8192^2 x 64 and x 128 (x 1.15), whose entries
+#: of 1.36 GB the bytes cut keeps out, where 4096^2 x 512 (0.41 GB) gained.
+REPLAY_MAX_WORK = 45 * 2 * 2048**3
+REPLAY_MAX_BYTES = 512 << 20
+
+#: share of :func:`hbm_budget_bytes` that the captured chains may hold
+#: together (:func:`replay_cache_bytes`)
+REPLAY_BUDGET_SHARE = 1 / 12
+
+
+def replay_bytes(m: int, n: int, k: int, num_split: int, complex_: bool = False,
+                 c_parts: int = 0) -> int:
+    """Device bytes that one captured chain holds: the static copies of
+    A's and B's parts (8 B an element) and of the ``c_parts`` parts of c
+    that it reads, the digit planes (ns B an element, k padded to 16) and
+    row and column scales of every part, the triple of every pass (12 B an
+    output element) and the output's parts (8 B).  About 55 MB a real
+    1024^3 product at ns = 9."""
+    parts, passes = (2, 4) if complex_ else (1, 1)
+    kp = -(-k // 16) * 16
+    per_part = 8 * (m * k + k * n) + num_split * (m + n) * kp + 4 * (m + n) + 8 * m * n
+    return parts * per_part + 8 * m * n * c_parts + 12 * m * n * passes
+
+
 #: share of the device's memory that auto-chunking plans to use; the rest
 #: is headroom for the caching allocator's slack.
 _BUDGET_SHARE = 0.6
@@ -245,6 +278,15 @@ def hbm_budget_bytes(device=None) -> int:
     else:
         total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
     return int(total * _BUDGET_SHARE) // _SHARERS
+
+
+def replay_cache_bytes(device) -> int:
+    """Device bytes that the engine's captured chains (core/gemm.py) may
+    hold together on ``device``: :data:`REPLAY_BUDGET_SHARE` of
+    :func:`hbm_budget_bytes`, so it follows ``OZIMMU_HBM_BUDGET_MB`` and the
+    processes that share the card.  4.0 GB of an 80 GB card's default
+    budget, outside the share that auto-chunking plans with."""
+    return int(hbm_budget_bytes(device) * REPLAY_BUDGET_SHARE)
 
 
 def epilogue_block_bytes(device) -> int:

@@ -156,16 +156,18 @@ TRACE_OPENING_LAUNCHES = 64
 
 
 def launches_and_kernels(events, skip: int = 0) -> tuple:
-    """(kernel launches, their device kernels) among a Chrome trace's
-    events, leaving out the first ``skip`` launches (in issue order) and
-    their kernels; a kernel is joined to its launch by correlation id."""
+    """(launches, those of them whose device kernels the trace holds) among
+    a Chrome trace's events, leaving out the first ``skip`` launches (in
+    issue order); a launch is a kernel's (``cudaLaunchKernel``,
+    ``cuLaunchKernelEx``, ...) or a CUDA graph's (``cudaGraphLaunch``: the
+    engine's replayed chains), and a kernel is joined to its launch by
+    correlation id."""
     launches = sorted((e for e in events if e.get("cat") == "cuda_runtime"
-                       and "LaunchKernel" in e.get("name", "")),
+                       and ("LaunchKernel" in e.get("name", "")
+                            or "GraphLaunch" in e.get("name", ""))),
                       key=lambda e: float(e["ts"]))[skip:]
-    ids = {e.get("args", {}).get("correlation") for e in launches}
-    kernels = sum(1 for e in events if e.get("cat") == "kernel"
-                  and e.get("args", {}).get("correlation") in ids)
-    return len(launches), kernels
+    kept = {e.get("args", {}).get("correlation") for e in events if e.get("cat") == "kernel"}
+    return len(launches), sum(1 for e in launches if e.get("args", {}).get("correlation") in kept)
 
 
 def open_trace_window() -> None:

@@ -210,6 +210,22 @@ def test_trace_check_leaves_out_the_opening_launches():
     assert launches_and_kernels([]) == (0, 0)
 
 
+def test_trace_check_counts_a_graph_launch_by_its_kernels():
+    """A replayed chain's kernels all carry its ``cudaGraphLaunch``'s
+    correlation id: the launch counts once, kept while any of its kernels
+    is in the trace."""
+    from ozimmu_tpu_torch.utils.profiling import launches_and_kernels
+
+    graph = {"cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 20.0,
+             "args": {"correlation": 7}}
+    events = [_launch(1.0, 1), _kernel(2.0, 1), graph]
+    assert launches_and_kernels(events, skip=1) == (1, 0)
+    assert launches_and_kernels(events + [_kernel(21.0 + i, 7) for i in range(6)],
+                                skip=1) == (1, 1)
+    assert launches_and_kernels(events + [_kernel(21.0, 7)]) == (2, 2)
+    assert launches_and_kernels([{**graph, "name": "cudaGraphLaunch_v10000"}]) == (1, 0)
+
+
 def test_device_trace_raises_when_the_block_lost_every_kernel(tmp_path, monkeypatch):
     from ozimmu_tpu_torch.utils import profiling
 

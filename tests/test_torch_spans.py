@@ -185,8 +185,8 @@ g = torch.Generator(device="cuda").manual_seed(11)
 a, b = (torch.rand((1024, 1024), dtype=torch.float64, device="cuda", generator=g)
         for _ in range(2))
 with ozi.intercept(mode="fp64_int8_9"):
-    a @ b  # warm
-    torch.cuda.synchronize()
+    torch.cat((a, a)) @ b  # warm at another signature: the traced call, its signature's
+    torch.cuda.synchronize()  # first, runs the eager chain (a later one would replay it)
     with ozt.device_trace(sys.argv[1]):
         c = a @ b
 (path,) = [os.path.join(sys.argv[1], f) for f in os.listdir(sys.argv[1])]
