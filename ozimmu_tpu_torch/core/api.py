@@ -34,7 +34,7 @@ from ..types import ComputeMode, ComputeModeLike, ElementKind, Operation, Operat
 from ..utils.env import env_flag
 from ..utils.log import log
 from ..utils.profiling import culip_timer, span, synchronize
-from .gemm import _check, _complex_result, _epilogue_SE, _k0_result, _planes, _run
+from .gemm import AUTO_CHOICES, _check, _complex_result, _epilogue_SE, _k0_result, _planes, _run
 from .handle import Handle, default_handle
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -78,6 +78,16 @@ def _operands(a, b, c, handle: Handle, device):
         at, bt = at.to(torch.complex128), bt.to(torch.complex128)
         ct = ct.to(torch.complex128) if ct is not None else None
     return is_np, at, bt, ct
+
+
+def _auto(select, *args, **kwargs) -> ComputeMode:
+    """One AUTO decision, ``select(*args, **kwargs)``, inside the span
+    ``oz.auto`` and counted in ``AUTO_CHOICES`` by the chosen mode (the
+    four AUTO sites below and the interceptor's 2-D route)."""
+    with span("oz.auto"):
+        mode = select(*args, **kwargs)
+    AUTO_CHOICES[mode.value] += 1
+    return mode
 
 
 def _phases(handle: Handle, dev) -> dict:
@@ -215,7 +225,7 @@ def gemm(
             return out.cpu().numpy() if is_np else out
 
         if mode_r is ComputeMode.FP64_INT8_AUTO:
-            mode_r = _auto_mode_select_core(at, bt, k, handle.avg_mantissa_loss_threshold)
+            mode_r = _auto(_auto_mode_select_core, at, bt, k, handle.avg_mantissa_loss_threshold)
             log(
                 f"AUTO selected mode = {mode_r.value}, threshold average mantissa "
                 f"loss = {handle.avg_mantissa_loss_threshold}"
@@ -258,7 +268,8 @@ def _gemm_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha, beta, 
     if mode_r is ComputeMode.FP64_INT8_AUTO:
         # ONE shared loss counter over all four re/im planes (reference
         # complex estimator split.cu:69-152 + selection 473-493)
-        mode_r = auto_mode_select_complex(*ab_planes, k, handle.avg_mantissa_loss_threshold)
+        mode_r = _auto(auto_mode_select_complex, *ab_planes, k,
+                       handle.avg_mantissa_loss_threshold)
         log(f"AUTO selected mode = {mode_r.value} (complex)")
 
     name = f"ozimmu_zgemm-{mode_r.value}-m{m}-n{n}-k{k}"
@@ -318,8 +329,8 @@ def gemm_batched(
 
         if mode_r is ComputeMode.FP64_INT8_AUTO:
             # one mode for the whole batch, selected on the flattened batch
-            mode_r = _auto_mode_select_core(
-                at.reshape(-1, k), bt.transpose(1, 2).reshape(-1, k), k,
+            mode_r = _auto(
+                _auto_mode_select_core, at.reshape(-1, k), bt.transpose(1, 2).reshape(-1, k), k,
                 handle.avg_mantissa_loss_threshold, b_is_cols=False)
             log(f"AUTO selected mode = {mode_r.value} (batched)")
         if mode_r is ComputeMode.SGEMM:
@@ -353,8 +364,8 @@ def _gemm_batched_complex(handle: Handle, at, bt, ct, mode_r: ComputeMode, alpha
         # one mode for the whole batch: the shared four-plane counter over
         # the flattened batch (rows of [B*m, k] / [B*n, k] are exactly the
         # per-matrix scale groups)
-        mode_r = auto_mode_select_complex(
-            a_re.reshape(-1, k), a_im.reshape(-1, k),
+        mode_r = _auto(
+            auto_mode_select_complex, a_re.reshape(-1, k), a_im.reshape(-1, k),
             b_re.transpose(1, 2).reshape(-1, k), b_im.transpose(1, 2).reshape(-1, k),
             k, handle.avg_mantissa_loss_threshold, b_is_cols=False)
         log(f"AUTO selected mode = {mode_r.value} (batched complex)")

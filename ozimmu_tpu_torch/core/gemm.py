@@ -22,7 +22,9 @@ kernel once.  :func:`_check` makes the operand checks of every entry.
 
 This module also owns the complex layout: a complex128 operand becomes
 its contiguous real and imaginary float64 planes (:func:`_planes`), and
-the result planes are interleaved again (:func:`_complex_result`).
+the result planes are interleaved again (:func:`_complex_result`); and
+the module counters of the entries above it (:data:`ZLAYOUT_COPIES`,
+:data:`AUTO_CHOICES`, the replay's).
 
 Operands are float64 tensors (planes); every step runs on the operands'
 device.  On a CUDA device the split, the recombination and the epilogue
@@ -48,7 +50,7 @@ import atexit
 import contextlib
 import struct
 import threading
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
@@ -313,6 +315,13 @@ def _zfold_block(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im,
 #: a complex operand (:func:`_planes`) and one for each interleave of a
 #: result (:func:`_complex_result`); 7 a complex GEMM with c, 5 without
 ZLAYOUT_COPIES = 0
+
+#: the modes that AUTO chose, by the mode's value: one for each AUTO
+#: decision of the public API's real, complex, batched real and batched
+#: complex entries and of the interceptor's 2-D route (``core.api._auto``,
+#: inside the span ``oz.auto``); a fallback counts as the mode it falls
+#: back to, ``"dgemm"`` by default
+AUTO_CHOICES: Counter = Counter()
 
 
 def _planes(x: torch.Tensor):

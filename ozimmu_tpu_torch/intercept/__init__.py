@@ -138,10 +138,10 @@ def _route_2d(mode: ComputeMode, handle: Handle, a: torch.Tensor, b: torch.Tenso
     if mode is ComputeMode.FP64_INT8_AUTO:
         thr = handle.avg_mantissa_loss_threshold
         if a.is_complex():
-            mode = auto_mode_select_complex(a.real.contiguous(), a.imag.contiguous(),
-                                            b.real.contiguous(), b.imag.contiguous(), k, thr)
+            mode = api._auto(auto_mode_select_complex, a.real.contiguous(), a.imag.contiguous(),
+                             b.real.contiguous(), b.imag.contiguous(), k, thr)
         else:
-            mode = auto_mode_select(a, b, k, thr)
+            mode = api._auto(auto_mode_select, a, b, k, thr)
         log(f"AUTO selected mode = {mode.value} (intercept)")
         if not mode.is_int8:
             return None  # fall through to native
