@@ -36,6 +36,8 @@ counts set to 0 just before it and read just after:
 
   * AUTO: ``gemm(a, b)`` with no mode at 8192^3, its 16 loss totals held
     against the literal estimator, its bits against the chosen mode's;
+    then the estimator kernel (phase 8b) on exp_rand-2 operands at 8192^2,
+    its totals against the plain histogram's, its time against its bound;
   * ZGEMM: complex128 8192^3 ``fp64_int8_9``, bits against the plain
     pipeline, residual, time against ``torch.matmul`` on complex128, and an
     op_a="C" / complex alpha, beta, c probe;
@@ -116,6 +118,7 @@ before it is a JSON object with one entry per kernel.
 from __future__ import annotations
 
 import contextlib
+from collections import Counter
 import glob
 import io
 import json
@@ -215,13 +218,15 @@ def bits_equal(x: torch.Tensor, y: torch.Tensor) -> bool:
 
 
 #: the kernels' launch counters, by the name each has in the results
-#: (``recombine_totals``: the recombine kernel's totals mode)
+#: (``recombine_totals``: the recombine kernel's totals mode;
+#: ``mantissa_loss``: AUTO's estimator)
 KERNEL_KEYS = ("split_digits", "row_exponent", "recombine", "recombine_totals", "totals_fold",
-               "epilogue", "zfold")
+               "epilogue", "zfold", "mantissa_loss")
 
 
 def reset_launches() -> None:
-    from ozimmu_tpu_torch.ops import epilogue_cuda, exponent_cuda, recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops import (epilogue_cuda, exponent_cuda, mantissa_loss_cuda,
+                                      recombine_cuda, split_cuda)
 
     torch.cuda.synchronize()
     split_cuda.LAUNCHES = 0
@@ -233,31 +238,35 @@ def reset_launches() -> None:
     recombine_cuda.FOLD_LAUNCHES = 0
     epilogue_cuda.LAUNCHES = 0
     epilogue_cuda.ZFOLD_LAUNCHES = 0
+    mantissa_loss_cuda.LAUNCHES = 0
 
 
 def read_launches() -> dict:
-    from ozimmu_tpu_torch.ops import epilogue_cuda, exponent_cuda, recombine_cuda, split_cuda
+    from ozimmu_tpu_torch.ops import (epilogue_cuda, exponent_cuda, mantissa_loss_cuda,
+                                      recombine_cuda, split_cuda)
 
     torch.cuda.synchronize()
     return {"split_digits": split_cuda.LAUNCHES, "row_exponent": exponent_cuda.LAUNCHES,
             "recombine": recombine_cuda.LAUNCHES,
             "recombine_totals": recombine_cuda.TOTALS_LAUNCHES,
             "totals_fold": recombine_cuda.FOLD_LAUNCHES, "epilogue": epilogue_cuda.LAUNCHES,
-            "zfold": epilogue_cuda.ZFOLD_LAUNCHES}
+            "zfold": epilogue_cuda.ZFOLD_LAUNCHES, "mantissa_loss": mantissa_loss_cuda.LAUNCHES}
 
 
 def per_path(split: int, recombine: int, epilogue: int = 0, zfold: int = 0, totals: int = 0,
-             fold: int = 0) -> dict:
+             fold: int = 0, loss: int = 0) -> dict:
     """The launch counts of a path that splits ``split`` operands (each
     split is one exponent-max launch and one split launch), runs
     ``recombine`` recombine launches, ``epilogue`` epilogue launches (one
     per real GEMM, column panel or sub-batch), ``zfold`` complex folds
     (one per ZGEMM, panel or sub-batch), ``totals`` launches of the
     recombine kernel's totals mode (one per k panel and pass of a streamed
-    distributed product) and ``fold`` totals folds (one per pass)."""
+    distributed product), ``fold`` totals folds (one per pass) and
+    ``loss`` launches of AUTO's estimator (one per real operand, or its
+    local block, of a decision)."""
     return {"split_digits": split, "row_exponent": split, "recombine": recombine,
             "recombine_totals": totals, "totals_fold": fold, "epilogue": epilogue,
-            "zfold": zfold}
+            "zfold": zfold, "mantissa_loss": loss}
 
 
 @contextlib.contextmanager
@@ -713,6 +722,7 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     by_path = {"main": launches}
     by_path["auto"] = walled(phase_auto, ozt, a, b, a_np, b_np, mats, label, rng)
+    est_figs = walled(phase_estimator, label)
     del a, b
     by_path["zgemm"] = walled(phase_zgemm, ozt, label, rng)
     walled(phase_sgemm, ozt)
@@ -791,6 +801,19 @@ def main() -> int:
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
         if by_path[path][name] < 1:
             raise AssertionError(f"the {path} path did not launch the {name} kernel")
+    # AUTO's estimator (plain XLA in the JAX package): launches from the
+    # AUTO path's run (phase 8), totals against the plain histogram, times
+    # and bound on the AUTO cell's operands at 8192^2 (phase 8b)
+    name = "mantissa_loss"
+    kernels.append({
+        "name": name, "route": "cuda", "source": "ozimmu_tpu_torch/csrc/mantissa_loss.cu",
+        "replaces": "ozimmu_tpu/ops/mantissa_loss.py:37", "launches": by_path["auto"][name],
+        "max_abs_err": est_figs["max_abs_err"], "ms": est_figs["ms"],
+        "plain_ms": est_figs["plain_ms"], "bound_ms": est_figs["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "ms_by_operand": est_figs["ms_by_operand"],
+        "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+    if by_path["auto"][name] < 1:
+        raise AssertionError(f"the auto path did not launch the {name} kernel")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1294,8 +1317,10 @@ def phase_auto(ozt, a, b, a_np, b_np, mats, label, rng) -> dict:
         raise AssertionError(f"AUTO output differs from mode={chosen.value}")
     rows, cols = block(rng, N, N)
     r = residual(out[rows][:, cols].cpu().numpy(), reference_gemm(a_np[rows], b_np[:, cols]))
-    if counts["split_digits"] < 2 or counts["recombine"] < 1 or counts["epilogue"] < 1:
-        raise AssertionError(f"the AUTO path did not launch the kernels: {counts}")
+    if (counts["split_digits"] < 2 or counts["recombine"] < 1 or counts["epilogue"] < 1
+            or counts["mantissa_loss"] != 2):
+        raise AssertionError(f"the AUTO path did not launch the kernels (the estimator once "
+                             f"an operand): {counts}")
     print(f"[auto] bits == gemm(mode={chosen.value}); sampled 64x256 block "
           f"relative_residual={r['relative_residual']:.3e}; launches {counts}", flush=True)
     del out
@@ -1305,6 +1330,60 @@ def phase_auto(ozt, a, b, a_np, b_np, mats, label, rng) -> dict:
           f"({chosen.value}) {N}^3: {ms_auto:.3f} ms, {2 * N**3 / ms_auto / 1e9:.3f} effective "
           f"FP64 TFLOPS", flush=True)
     return counts
+
+
+def phase_estimator(label) -> dict:
+    """8b. AUTO's estimator kernel on the AUTO cell's operands (exp_rand-2
+    A and B at N^2, made on the card): the totals of one decision (A by
+    rows and B by columns into one buffer) == the plain histogram's, bit
+    for bit; one launch an operand and a "kernel" decision; device time of
+    each operand and of both beside the bound (A and B read once, 8 B an
+    element), the plain version's, and a whole decision with its one
+    read-back."""
+    from ozimmu_tpu_torch.core.bits import exponent_field
+    from ozimmu_tpu_torch.ops import mantissa_loss as ML
+    from ozimmu_tpu_torch.ops import mantissa_loss_cuda
+    from ozimmu_tpu_torch.schedule import bits_per_int8
+
+    g = torch.Generator(device="cuda").manual_seed(2023)
+    a, b = ((torch.rand((N, N), dtype=torch.float64, device="cuda", generator=g) - 0.5)
+            * torch.exp(2.0 * torch.randn((N, N), dtype=torch.float64, device="cuda",
+                                          generator=g)) for _ in range(2))
+    bb = bits_per_int8(N)
+
+    def kernel():
+        return mantissa_loss_cuda.loss_totals(b, bb, 0, out=mantissa_loss_cuda.loss_totals(a, bb, 1))
+
+    def plain():
+        return (ML.loss_totals_plain(a, torch.amax(exponent_field(a), dim=1), bb, 1)
+                + ML.loss_totals_plain(b, torch.amax(exponent_field(b), dim=0), bb, 0))
+
+    paths, before = Counter(ML.PATHS), mantissa_loss_cuda.LAUNCHES
+    mode = ML.auto_mode_select(a, b, N, 1e-4)
+    launches = mantissa_loss_cuda.LAUNCHES - before
+    if launches != 2 or Counter(ML.PATHS) - paths != Counter({"kernel": 1}):
+        raise AssertionError(f"one decision launched {launches} estimator kernels, paths "
+                             f"{dict(Counter(ML.PATHS) - paths)}")
+    got, want = kernel(), plain()
+    err = float((got - want).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"estimator totals {got.tolist()} != plain {want.tolist()}")
+    avg = (want.cpu().double() / (2 * N * N)).tolist()
+    print(f"[auto] estimator kernel totals == plain histogram, bitwise: exp_rand-2 {N}^2 A by "
+          f"rows and B by columns; average bits lost ns 11 {avg[8]!r}, ns 12 {avg[9]!r}; "
+          f"threshold 1e-4 chooses {mode.value}; launches {launches}", flush=True)
+    ms_a = cuda_ms(lambda: mantissa_loss_cuda.loss_totals(a, bb, 1), iters=20, warmup=3)
+    ms_b = cuda_ms(lambda: mantissa_loss_cuda.loss_totals(b, bb, 0), iters=20, warmup=3)
+    ms_k = cuda_ms(kernel, iters=20, warmup=3)
+    ms_p = cuda_ms(plain, iters=3)
+    ms_d = cuda_ms(lambda: ML.auto_mode_select(a, b, N, 1e-4), iters=20, warmup=3)
+    b_ms, b_by = bound_ms(8 * (a.numel() + b.numel()), 0, INT8_OPS_PER_S)
+    print(f"[time] {label}: estimator kernel at exp_rand-2 {N}^2: A by rows {ms_a:.4f} ms, B by "
+          f"columns {ms_b:.4f} ms, both into one buffer {ms_k:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: A and B read once), {b_ms / ms_k:.1%} of the bound; plain PyTorch "
+          f"{ms_p:.3f} ms; a whole decision with its read-back {ms_d:.4f} ms", flush=True)
+    return {"max_abs_err": err, "ms": ms_k, "plain_ms": ms_p, "bound_ms": b_ms,
+            "ms_by_operand": {"A": ms_a, "B": ms_b}}
 
 
 def plain_zgemm(a_re, a_im, b_re, b_im, ns, alpha, beta, c_re, c_im):
@@ -2438,17 +2517,18 @@ def phase_solvers(ozt, label) -> dict:
 
 PAR_N = 4096  # the global size of the 4-rank variants but SUMMA's
 #: per-rank launches of each distributed path (split, recombine, epilogue,
-#: fold, totals mode, totals fold; the exponent max launches once per
-#: split, :func:`per_path`): a real variant splits its two operands, a
+#: fold, totals mode, totals fold, estimator; the exponent max launches
+#: once per split, :func:`per_path`): a real variant splits its two operands, a
 #: complex one four planes; SUMMA recombines once per pass, the kernel
 #: folding; the ring, stream and k variants run the recombine kernel's
 #: totals mode once per k panel and pass (the ring q = 2 steps, the stream
 #: lcm(x, y) panels, k one) and the totals fold once per pass; every
 #: variant runs one epilogue (real) or one complex fold on each rank's
-#: block
+#: block; AUTO's decision runs the estimator on the rank's blocks of A
+#: and B
 PAR_LAUNCHES = {"summa": (2, 1, 1, 0), "zsumma": (4, 4, 0, 1), "ring": (2, 0, 1, 0, 2, 1),
                 "zring": (4, 0, 0, 1, 8, 4), "stream": (2, 0, 1, 0, 2, 1),
-                "k": (2, 0, 1, 0, 1, 1), "auto": (2, 1, 1, 0), "summa_epilogue": (2, 1, 1, 0),
+                "k": (2, 0, 1, 0, 1, 1), "auto": (2, 1, 1, 0, 0, 0, 2), "summa_epilogue": (2, 1, 1, 0),
                 "stream_1x4": (2, 0, 1, 0, 4, 1), "presharded_recheck": (2, 0, 1, 0, 4, 1)}
 #: the same on one NCCL rank: one k panel per pass in every streamed
 #: variant (auto_k: ``sharded_gemm_auto`` on the tall 2048 x 65536 x 2048
@@ -3311,19 +3391,20 @@ def example_kernel_checks(name: str, r: dict) -> list:
     return []
 
 
-#: launches (split, recombine, epilogue, fold) of each single-process
+#: launches (split, recombine, epilogue, fold, and for 01 the estimator) of each single-process
 #: example at its own size (the exponent max once per split,
 #: :func:`per_path`): a real GEMM splits twice, recombines once and runs
 #: one epilogue, a complex one splits and recombines four times each and
 #: runs one fold.  01: matmul, the op_a=T gemm, a 512^2 ZGEMM (AUTO's two
-#: queries run no kernel); 02: three routed products, the 64^3 one below
+#: queries run no engine kernel, the estimator on both operands each); 02: three routed products, the 64^3 one below
 #: the threshold adds nothing; 04: two profiled gemms and the traced
 #: matmul; 05: one residual per refinement step (one step converges);
 #: 06: the compiled gemm and matmul, the host gemm, the second compiled
 #: gemm, a batch of two matrices (one launch of each kernel); 08: three factorizations of n = 1024 in
 #: blocks of 256, three trailing updates each (the refinement's residuals
 #: are host matvecs)
-EXAMPLE_LAUNCHES = {"torch_01_basic_gemm": (8, 6, 2, 1), "torch_02_interception": (6, 3, 3, 0),
+EXAMPLE_LAUNCHES = {"torch_01_basic_gemm": (8, 6, 2, 1, 0, 0, 4),
+                    "torch_02_interception": (6, 3, 3, 0),
                     "torch_04_profiling": (6, 3, 3, 0), "torch_05_iterative_refinement": (2, 1, 1, 0),
                     "torch_06_compiled": (10, 5, 5, 0), "torch_08_hpl_lu": (18, 9, 9, 0)}
 #: per-rank launches of each case of example 03 on 4 ranks, the
@@ -3333,9 +3414,11 @@ EXAMPLE_LAUNCHES = {"torch_01_basic_gemm": (8, 6, 2, 1), "torch_02_interception"
 #: 2 x 2 mesh (2 + 0 + 1, the totals mode once per step, 2, and one totals
 #: fold) and the k-sharded complex product (4 + 0 + a fold, the totals
 #: mode and the totals fold once per pass, 4 each); the AUTO queries none
+#: but the estimator, on the rank's blocks of A and B and on the whole
+#: operands of the one-device reference, 2 + 2
 EX03_LAUNCHES = {"summa": (4, 2, 2, 0), "epilogue": (4, 2, 2, 0), "zgemm": (8, 8, 0, 2),
-                 "ring": (4, 1, 2, 0, 2, 1), "auto_select": (0, 0, 0, 0),
-                 "auto_gemm": (4, 2, 2, 0), "tall_k": (8, 4, 0, 2, 4, 4)}
+                 "ring": (4, 1, 2, 0, 2, 1), "auto_select": (0, 0, 0, 0, 0, 0, 4),
+                 "auto_gemm": (4, 2, 2, 0, 0, 0, 4), "tall_k": (8, 4, 0, 2, 4, 4)}
 #: 07's body (SUMMA + ``gemm_f64``) and 09's run (pre-sharded + dense gemm)
 EX_PAIR_LAUNCHES = (4, 2, 2, 0)
 

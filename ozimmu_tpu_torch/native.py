@@ -146,6 +146,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p, p, i32, i64, i64, p, p, p, p, p, p, i64, i64, i32, i32, p, p, p,
     ]
     lib.oz_zfold.restype = i32
+    lib.oz_mantissa_loss.argtypes = [
+        p, p, p, i32, i64, i64, i64, i64, i64, i32, i32, i32, i32, i32, i64, i32, p,
+    ]
+    lib.oz_mantissa_loss.restype = i32
     lib.oz_error_string.argtypes = [i32]
     lib.oz_error_string.restype = ctypes.c_char_p
 

@@ -11,15 +11,22 @@ wins, else the fallback mode (split.cu:453-494).
 The JAX package broadcasts ``required`` against all 16 candidates and sums
 in int64, which XLA fuses.  Eagerly that would materialise an int32
 [16, rows, cols] loss and its int64 copy (~13 GB per operand at 8192^2),
-so here ``required`` (an integer in 0..2101) is histogrammed once and
-every total follows from the histogram exactly:
-``total(ns) = sum_v count[v] * max(0, v - ns*b)``.  Both are exact int64
-sums, so the totals equal the JAX package's bit for bit.
+so the plain version here (:func:`loss_totals_plain`) histograms
+``required`` (an integer in 0..2101) once and every total follows from the
+histogram exactly: ``total(ns) = sum_v count[v] * max(0, v - ns*b)``.
+Both are exact int64 sums, so the totals equal the JAX package's bit for
+bit.  That is the path of CPU tensors.  On the card the kernel of
+``mantissa_loss_cuda`` (csrc/mantissa_loss.cu) computes the same totals in
+one launch an operand, every operand of a decision adding into one device
+buffer, which comes to the host once (:func:`decide`); :data:`PATHS`
+counts the decisions by the path that formed their totals.
 """
 
 from __future__ import annotations
 
 import os
+from collections import Counter
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,9 +35,15 @@ from ..core.bits import bits64, exponent_field
 from ..schedule import bits_per_int8
 from ..types import MAX_NUM_SPLIT, MIN_NUM_SPLIT, ComputeMode
 from ..utils.log import log
+from . import mantissa_loss_cuda
 
 _NS_CANDIDATES = list(range(MIN_NUM_SPLIT, MAX_NUM_SPLIT + 1))
 _MANT_MASK = (1 << 52) - 1
+
+#: AUTO decisions since the process started, by the path that formed their
+#: totals: ``"kernel"`` (CUDA tensors, csrc/mantissa_loss.cu) or
+#: ``"torch"`` (the plain histogram, CPU tensors)
+PATHS: Counter = Counter()
 
 
 def _required_bits(x: torch.Tensor, e_group: torch.Tensor, axis: int) -> torch.Tensor:
@@ -47,6 +60,20 @@ def _required_bits(x: torch.Tensor, e_group: torch.Tensor, axis: int) -> torch.T
     return torch.where(valid, required, torch.zeros_like(required))
 
 
+def loss_totals_plain(
+    x: torch.Tensor, e_group: torch.Tensor, b: int, axis: int
+) -> torch.Tensor:
+    """The plain version of :func:`loss_totals_with_group_exp` on any
+    device: the histogram of ``required`` (``torch.bincount``, which on a
+    CUDA tensor reads its input's range back to the host first)."""
+    req = _required_bits(x, e_group, axis).clamp_(min=0).reshape(-1)
+    counts = torch.bincount(req)  # int64 [max(req) + 1]
+    v = torch.arange(counts.numel(), dtype=torch.int64, device=counts.device)
+    space = torch.tensor(_NS_CANDIDATES, dtype=torch.int64, device=counts.device) * b
+    loss = torch.clamp(v[None, :] - space[:, None], min=0)  # [16, V]
+    return (loss * counts[None, :]).sum(dim=1)
+
+
 def loss_totals_with_group_exp(
     x: torch.Tensor, e_group: torch.Tensor, b: int, axis: int
 ) -> torch.Tensor:
@@ -57,25 +84,29 @@ def loss_totals_with_group_exp(
     package's: the distributed estimator supplies a global group maximum
     and sums the partial totals of its shards.  A ``required`` below zero
     (an ``e_group`` below an element's own exponent) loses nothing, as in
-    the JAX package, so it is clamped to 0 before the histogram.
+    the JAX package, so it is clamped to 0.  A CUDA tensor takes the
+    kernel's totals-only entry, a CPU tensor :func:`loss_totals_plain`.
     """
-    req = _required_bits(x, e_group, axis).clamp_(min=0).reshape(-1)
-    counts = torch.bincount(req)  # int64 [max(req) + 1]
-    v = torch.arange(counts.numel(), dtype=torch.int64, device=counts.device)
-    space = torch.tensor(_NS_CANDIDATES, dtype=torch.int64, device=counts.device) * b
-    loss = torch.clamp(v[None, :] - space[:, None], min=0)  # [16, V]
-    return (loss * counts[None, :]).sum(dim=1)
+    if x.device.type == "cuda":
+        return mantissa_loss_cuda.loss_totals(
+            x, b, axis, e_group=e_group.to(torch.int32).contiguous())
+    return loss_totals_plain(x, e_group, b, axis)
 
 
-def mantissa_loss_totals(x: torch.Tensor, b: int, axis: int = 1) -> torch.Tensor:
+def mantissa_loss_totals(x: torch.Tensor, b: int, axis: int = 1,
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Loss totals for ns = 3..18 over the scale groups of ``x``.
 
     ``axis`` is the contraction axis: 1 for A [rows, k] (per-row scale),
     0 for B [k, cols] (per-column scale, in its natural layout).  Returns
-    int64 [16] on ``x``'s device.
+    int64 [16] on ``x``'s device, added into ``out`` where it is given.
+    A CUDA tensor takes the kernel (one launch, the group maxima found in
+    it), a CPU tensor the plain histogram.
     """
-    e_group = torch.amax(exponent_field(x), dim=axis)
-    return loss_totals_with_group_exp(x, e_group, b, axis)
+    if x.device.type == "cuda":
+        return mantissa_loss_cuda.loss_totals(x, b, axis, out=out)
+    totals = loss_totals_plain(x, torch.amax(exponent_field(x), dim=axis), b, axis)
+    return totals if out is None else out.add_(totals)
 
 
 def auto_fallback_mode() -> ComputeMode:
@@ -96,6 +127,15 @@ def auto_fallback_mode() -> ComputeMode:
     return mode
 
 
+def decide(totals: torch.Tensor, denom: float, threshold: float) -> ComputeMode:
+    """One AUTO decision from the summed totals of its operands: the one
+    read-back of the decision (``totals`` to the host), counted in
+    :data:`PATHS` by the device that formed them, then
+    :func:`select_mode_from_totals`."""
+    PATHS["kernel" if totals.device.type == "cuda" else "torch"] += 1
+    return select_mode_from_totals(totals.cpu().numpy(), denom, threshold)
+
+
 def select_mode_from_totals(totals, denom: float, threshold: float) -> ComputeMode:
     """The reference selection loop (split.cu:473-493): smallest ns whose
     AVERAGE loss (``totals[ns] / denom``) is within threshold, else
@@ -114,12 +154,10 @@ def complex_loss_totals(a_re, a_im, b_re, b_im, k: int, b_is_cols: bool = True) 
     package's docstring for the deviation).  Returns int64 [16]."""
     bb = bits_per_int8(k)
     b_axis = 0 if b_is_cols else 1
-    return (
-        mantissa_loss_totals(a_re, bb, 1)
-        + mantissa_loss_totals(a_im, bb, 1)
-        + mantissa_loss_totals(b_re, bb, b_axis)
-        + mantissa_loss_totals(b_im, bb, b_axis)
-    )
+    totals = mantissa_loss_totals(a_re, bb, 1)
+    for x, axis in ((a_im, 1), (b_re, b_axis), (b_im, b_axis)):
+        mantissa_loss_totals(x, bb, axis, out=totals)
+    return totals
 
 
 def auto_mode_select_complex(
@@ -127,10 +165,10 @@ def auto_mode_select_complex(
 ) -> ComputeMode:
     """Complex AUTO selection from the single shared counter; the average
     divides by the number of real plane elements, ``2 * (m*k + k*n)``."""
-    totals = complex_loss_totals(a_re, a_im, b_re, b_im, k, b_is_cols).cpu().numpy()
+    totals = complex_loss_totals(a_re, a_im, b_re, b_im, k, b_is_cols)
     m = a_re.shape[0]
     n = b_re.shape[1] if b_is_cols else b_re.shape[0]
-    return select_mode_from_totals(totals, 2.0 * (m * k + k * n), threshold)
+    return decide(totals, 2.0 * (m * k + k * n), threshold)
 
 
 def auto_mode_select(
@@ -139,13 +177,12 @@ def auto_mode_select(
     """Pick the smallest adequate split count, else the fallback mode.
 
     ``a`` is [m, k]; ``b_mat`` is [k, n] when ``b_is_cols`` (split along
-    columns), else [n, k] — matching reference split.cu:464-471.  The 16
-    totals come to the host once.
+    columns), else [n, k] — matching reference split.cu:464-471.  A and B
+    add into one buffer, whose 16 totals come to the host once.
     """
     bb = bits_per_int8(k)
-    la = mantissa_loss_totals(a, bb, axis=1)
-    lb = mantissa_loss_totals(b_mat, bb, axis=0 if b_is_cols else 1)
-    totals = (la + lb).cpu().numpy()
+    totals = mantissa_loss_totals(a, bb, axis=1)
+    mantissa_loss_totals(b_mat, bb, axis=0 if b_is_cols else 1, out=totals)
     m = a.shape[0]
     n = b_mat.shape[1] if b_is_cols else b_mat.shape[0]
-    return select_mode_from_totals(totals, float(m * k + k * n), threshold)
+    return decide(totals, float(m * k + k * n), threshold)

@@ -67,7 +67,7 @@ from ..core.api import apply_op
 from ..core.bits import exponent_field
 from ..core.gemm import (ZGEMM_PASSES, Exponents, _complex_result, _epilogue_SE, _planes,
                          _recombine_passes, _zfold_passes)
-from ..ops.mantissa_loss import loss_totals_with_group_exp, select_mode_from_totals
+from ..ops.mantissa_loss import decide, loss_totals_with_group_exp
 from ..ops.recombine import acc_shift, fold_totals, group_totals_into, padded_k, recombine
 from ..ops.split import row_exponent, split_with_exp
 from ..schedule import (BYTES_PER_OUTPUT_ELEMENT, bits_per_int8, group_schedule,
@@ -766,7 +766,7 @@ def sharded_auto_mode_select(a, b, mesh, threshold: Optional[float] = None, axis
                              axis_y: str = "y") -> ComputeMode:
     """Distributed AUTO mode selection: the operands sharded as the engine
     will shard them, the distributed estimator, the shared selection loop
-    (``ops.mantissa_loss.select_mode_from_totals``).
+    (``ops.mantissa_loss.decide``).
 
     The totals equal the one-device estimator's (exact int64 sums; zero
     padding loses nothing), so where the mesh divides the shapes the
@@ -789,7 +789,7 @@ def sharded_auto_mode_select(a, b, mesh, threshold: Optional[float] = None, axis
     else:
         totals = sharded_loss_totals_fn(mesh, k_p, axis_x, axis_y)(a, b)
         denom = float(m * k + k * n)
-    return select_mode_from_totals(totals.cpu().numpy(), denom, threshold)
+    return decide(totals, denom, threshold)
 
 
 def _sharded_dgemm_native(is_np: bool, a, b, c, mesh, axis_x: str, axis_y: str, alpha, beta):

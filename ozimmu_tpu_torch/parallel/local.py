@@ -11,7 +11,7 @@ Starts ``--nproc`` processes with ``subprocess``, each one rank of a
 every case of ``TABLE``, a dict ``name -> fn(mesh) -> dict`` of arrays,
 tensors, numbers or strings, in order.  Per case and rank it records the
 results, the traceback of an exception (``<case>/error``), and the whole
-case's seconds, split, exponent, recombine (both modes), totals-fold, epilogue and fold
+case's seconds, split, exponent, recombine (both modes), totals-fold, epilogue, fold and estimator
 kernel launches and bytes staged through host memory (``<case>/case_seconds``, ``case_launches_*``,
 ``case_staged_bytes``); each rank writes them to its own ``.npz``.  The parent waits with
 a timeout: a rank that fails or hangs has every rank killed and raises, so
@@ -80,7 +80,7 @@ def _run_case(name: str, fn, mesh, cuda: bool) -> Dict[str, np.ndarray]:
     import torch
     import torch.distributed as dist
 
-    from ..ops import epilogue_cuda, exponent_cuda, recombine_cuda, split_cuda
+    from ..ops import epilogue_cuda, exponent_cuda, mantissa_loss_cuda, recombine_cuda, split_cuda
     from . import comm
 
     dist.barrier()
@@ -89,6 +89,7 @@ def _run_case(name: str, fn, mesh, cuda: bool) -> Dict[str, np.ndarray]:
     split_cuda.LAUNCHES = exponent_cuda.LAUNCHES = recombine_cuda.LAUNCHES = 0
     recombine_cuda.TOTALS_LAUNCHES = recombine_cuda.FOLD_LAUNCHES = 0
     epilogue_cuda.LAUNCHES = epilogue_cuda.ZFOLD_LAUNCHES = 0
+    mantissa_loss_cuda.LAUNCHES = 0
     comm.STAGED_BYTES = 0
     t0 = time.perf_counter()
     try:
@@ -105,6 +106,7 @@ def _run_case(name: str, fn, mesh, cuda: bool) -> Dict[str, np.ndarray]:
                case_launches_totals_fold=np.asarray(recombine_cuda.FOLD_LAUNCHES),
                case_launches_epilogue=np.asarray(epilogue_cuda.LAUNCHES),
                case_launches_zfold=np.asarray(epilogue_cuda.ZFOLD_LAUNCHES),
+               case_launches_mantissa_loss=np.asarray(mantissa_loss_cuda.LAUNCHES),
                case_staged_bytes=np.asarray(comm.STAGED_BYTES))
     return {f"{name}/{k}": v for k, v in out.items()}
 
