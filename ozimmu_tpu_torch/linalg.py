@@ -47,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import time
 import warnings
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -71,6 +72,11 @@ __all__ = ["lu_factor", "lu_solve", "solve", "cholesky", "cho_solve"]
 #: compute mode of the residual ``b - A @ x`` on the resident path: exact
 #: to one f64 rounding for any realistic exponent spread
 RESIDUAL_MODE = "fp64_int8_12"
+
+#: resident factorization steps since the process started, one a step of
+#: :func:`_lu_factor_steps`, by the matrix's dtype name and the panel kind,
+#: e.g. ``("complex128", "device")``
+LU_STEPS: Counter = Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -182,9 +188,10 @@ def _lower_inverse(l: np.ndarray) -> np.ndarray:
 #            unit-lower diagonal block L11 (O(jb^3), backward-stable
 #            triangular solves against I) — on the host (scipy) or, with
 #            panel="device", where the matrix lies (torch.linalg);
-#   device : apply the step's row swaps across the full width, write the
-#            factored panel, U12 = L11inv @ A12 and A22 -= L21 @ U12
-#            through the int8 engine (exact to one f64 rounding).
+#   device : apply the step's row swaps across the full width, form
+#            U12 = L11inv @ A12 and A22 -= L21 @ U12 through the int8 engine
+#            (exact to one f64 rounding), then write the factored panel, U12
+#            and A22 back into the matrix.
 #
 # The multiply-by-explicit-inverse TRSM is the standard GPU-HPL
 # formulation (U12 = L11^-1 A12 evaluated as a GEMM); with partial
@@ -209,18 +216,22 @@ def _engine(a: torch.Tensor, b: torch.Tensor, num_split: int, alpha: float = 1.0
     return gemm_int8(a, b, num_split, alpha, beta, c)
 
 
-def _panel_moves(j: int, n: int, p_loc: np.ndarray, piv: np.ndarray):
+def _panel_moves(j: int, p_loc: np.ndarray, piv: np.ndarray):
     """Record a panel's getrf pivots in ``piv`` and return the rows its
-    sequential swaps ``j+i <-> j+p_loc[i]`` move, as ``(dst, src)``: row
-    ``dst[t]`` of the n-row matrix takes what row ``src[t]`` held."""
-    perm = np.arange(n - j)
-    for i, p in enumerate(p_loc):
-        p = int(p)
-        piv[j + i] = j + p
+    sequential swaps ``j+i <-> j+p_loc[i]`` move, as ``(dst, src)`` in
+    ascending ``dst``: row ``dst[t]`` of the matrix takes what row
+    ``src[t]`` held.  The device waits idle from the pivots' read-back
+    until the swaps are issued, so the swaps are replayed on plain ints
+    over the rows they touch, not on an index array of every row."""
+    p_loc = np.asarray(p_loc, dtype=np.int64)
+    piv[j:j + p_loc.size] = j + p_loc
+    held = {}  # a touched row -> the row whose content it holds now (local)
+    for i, p in enumerate(p_loc.tolist()):
         if p != i:
-            perm[[i, p]] = perm[[p, i]]
-    moved = np.flatnonzero(perm != np.arange(n - j))
-    return j + moved, j + perm[moved]
+            held[i], held[p] = held.get(p, p), held.get(i, i)
+    moved = sorted(r for r, src in held.items() if r != src)
+    return (j + np.array(moved, dtype=np.int64),
+            j + np.array([held[r] for r in moved], dtype=np.int64))
 
 
 def _apply_panel_pivots(A: torch.Tensor, j: int, p_loc: np.ndarray, piv: np.ndarray) -> None:
@@ -228,7 +239,7 @@ def _apply_panel_pivots(A: torch.Tensor, j: int, p_loc: np.ndarray, piv: np.ndar
     across the FULL width of ``A`` (getrf convention: the already-computed
     L history and the trailing columns swap together).  Only the rows that
     move are gathered and written."""
-    dst, src = _panel_moves(j, A.shape[0], p_loc, piv)
+    dst, src = _panel_moves(j, p_loc, piv)
     if dst.size:
         A[torch.from_numpy(dst).to(A.device)] = A[torch.from_numpy(src).to(A.device)]
 
@@ -279,16 +290,21 @@ def _unit_lower_inverse_device(l: torch.Tensor) -> torch.Tensor:
 def _lu_step_device(A: torch.Tensor, j: int, jb: int, num_split: int, lu_panel: torch.Tensor,
                     l11inv: Optional[torch.Tensor]) -> None:
     """The device half of one right-looking LU step, in place on ``A``
-    (rows already swapped): panel writeback, engine TRSM, trailing update."""
+    (rows already swapped): engine TRSM and trailing update from the
+    factored panel, then the step's writeback into ``A`` (span
+    ``oz.lu.writeback``): the panel, U12 and the trailing block."""
     n = A.shape[0]
     rest = j + jb
-    A[j:, j:rest] = lu_panel
     if rest < n:
         # U12 = L11^-1 @ A12 as an engine GEMM (explicit-inverse TRSM)
         u12 = _engine(l11inv, A[j:rest, rest:], num_split)
-        A[j:rest, rest:] = u12
         # A22 -= L21 @ U12 (asymptotically all the FLOPs)
-        A[rest:, rest:] = _engine(A[rest:, j:rest], u12, num_split, -1.0, 1.0, A[rest:, rest:])
+        a22 = _engine(lu_panel[jb:], u12, num_split, -1.0, 1.0, A[rest:, rest:])
+    with span("oz.lu.writeback"):
+        A[j:, j:rest] = lu_panel
+        if rest < n:
+            A[j:rest, rest:] = u12
+            A[rest:, rest:] = a22
 
 
 class _Clock:
@@ -381,8 +397,10 @@ def _lu_factor_steps(a: torch.Tensor, num_split: int, block: int, profile, panel
     A = a.clone(memory_format=torch.contiguous_format)
     clock = _Clock(profile, A.device)
     piv = np.arange(n)
+    step = (str(A.dtype).removeprefix("torch."), panel)
     for j in range(0, n, nb):
         jb = min(nb, n - j)
+        LU_STEPS[step] += 1
         clock.start()
         lu_p, p_loc, l11inv = _factor_panel(A[j:, j:j + jb], j, j + jb < n, panel, clock)
         with span("oz.lu.swap"):

@@ -127,7 +127,7 @@ class _Rows:
         """``linalg._apply_panel_pivots`` on the row blocks: the rows that
         change owner travel point to point, one message per pair of
         ranks."""
-        dst, src = linalg._panel_moves(j, self.n, p_loc, piv)
+        dst, src = linalg._panel_moves(j, p_loc, piv)
         to, frm = self.owner(dst), self.owner(src)
         dev = self.local.device
         rows = lambda g: torch.from_numpy(g - self.lo).to(dev)  # noqa: E731
