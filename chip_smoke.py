@@ -1066,7 +1066,11 @@ def phase_epilogue(label, main_SE, sass) -> dict:
     pb [B, n]; sgemm's alpha and beta through the E-plane route; the fold
     on crafted passes and at 8192^2 on four recombined passes with alpha =
     1 (ZGEMM's main path) and with complex alpha, beta and c, contiguous
-    and strided.  Then each timed case: the kernel, the same kernel on an
+    and strided; the fold into a complex128 window (``zfold_kernel<true>``,
+    C0 read from and written to that window of a larger matrix) against
+    the plane fold and ``torch.complex``, on the crafted passes and at
+    8192^2; the epilogue over its own c (HPL's update written in place)
+    against a separate output.  Then each timed case: the kernel, the same kernel on an
     exponent plane built in the call (the exponents as the callers passed
     them before: the plane's torch kernels, then the E-plane route), the
     plain version, the bound and the issue time of its SASS count.
@@ -1083,7 +1087,7 @@ def phase_epilogue(label, main_SE, sass) -> dict:
     from ozimmu_tpu_torch.testing import crafted_exponents, crafted_triples, generate_input
 
     err = {"epilogue": 0.0, "zfold": 0.0}
-    cases = {"epilogue": 0, "zfold": 0}
+    cases = {"epilogue": 0, "zfold": 0, "interleaved": 0, "in place": 0}
     plane = lambda E: E.plane() if isinstance(E, Exponents) else E  # noqa: E731
 
     def check_epilogue(what, S, E, alpha, beta, c, via=None, out=None):
@@ -1108,6 +1112,23 @@ def phase_epilogue(label, main_SE, sass) -> dict:
         err["zfold"] = max([err["zfold"]] + [max_abs_err(g, w) for g, w in zip(got, want)])
         cases["zfold"] += 1
         del want, got
+
+    def check_interleaved(what, SEs, alpha, beta, c):
+        """The fold into the complex128 window ``c``, C0 read from it (or
+        none where c is None: into a new output), == the plane fold, then
+        ``torch.complex``."""
+        parts = (None, None) if c is None else (c.real, c.imag)
+        want = torch.complex(*epilogue_cuda.zfold(SEs, alpha, beta, *parts))
+        out = torch.empty_like(want) if c is None else c
+        before = epilogue_cuda.ZFOLD_LAUNCHES
+        got = epilogue_cuda.zfold(SEs, alpha, beta, *parts, out)
+        torch.cuda.synchronize()
+        if epilogue_cuda.ZFOLD_LAUNCHES - before != 1 or got is not out or not bits_equal(
+                torch.view_as_real(got), torch.view_as_real(want)):
+            raise AssertionError(f"interleaved fold != plane fold: {what} alpha={alpha} "
+                                 f"beta={beta}")
+        cases["interleaved"] += 1
+        del want, got, out
 
     times = {}
 
@@ -1159,7 +1180,10 @@ def phase_epilogue(label, main_SE, sass) -> dict:
         for parts in ((None, None), (passes[0][2], passes[1][2]),
                       (window_of(passes[2][2], 5), window_of(passes[3][2], 3))):
             check_zfold("crafted 515x517", SEs, alpha, beta, *parts)
-    del St, Et, ct, Ex, passes, SEs
+        zc = window_of(torch.complex(passes[0][2], passes[1][2]), 5)
+        check_interleaved("crafted 515x517 into C0's window", SEs, alpha, beta, zc)
+        check_interleaved("crafted 515x517, no c", SEs, alpha, beta, None)
+    del St, Et, ct, Ex, passes, SEs, zc
 
     # sgemm's alpha and beta: the E-plane route on the unpacked result
     xa = torch.from_numpy(generate_input("normal01", (1000, 777), seed=27)).cuda()
@@ -1188,7 +1212,17 @@ def phase_epilogue(label, main_SE, sass) -> dict:
     c22 = a_hpl[k:, k:]
     check_epilogue(f"HPL update {m}^2, c a window of {m + k}^2", S, E, -1.0, 1.0, c22)
     time_epilogue("hpl", S, E, -1.0, 1.0, c22, 1)
-    del S, E, a_hpl, c22
+    # the update written over its own c, as the resident LU does
+    want = epilogue_cuda.epilogue(S, E, -1.0, 1.0, c22)
+    before = epilogue_cuda.LAUNCHES
+    got = epilogue_cuda.epilogue(S, E, -1.0, 1.0, c22, c22)
+    torch.cuda.synchronize()
+    if epilogue_cuda.LAUNCHES - before != 1 or got is not c22 or not bits_equal(c22, want):
+        raise AssertionError("the epilogue over its own c != into a separate output")
+    cases["in place"] += 1
+    times["hpl"]["in_place_ms"] = cuda_ms(
+        lambda: epilogue_cuda.epilogue(S, E, -1.0, 1.0, want, want), iters=10)
+    del S, E, a_hpl, c22, want, got
     torch.cuda.empty_cache()
 
     # a batch by its parts: pa [B, m], pb [B, n], through the dispatch
@@ -1224,6 +1258,14 @@ def phase_epilogue(label, main_SE, sass) -> dict:
     check_zfold(f"ZGEMM {N}^2 with c", SEs, za, zb, c_re, c_im)
     check_zfold(f"ZGEMM {N}^2 with c windows", SEs, za, zb, window_of(c_re, 64),
                 window_of(c_im, 64))
+    zc = window_of(torch.complex(c_re, c_im), 64)
+    check_interleaved(f"ZGEMM {N}^2 into C0's window", SEs, za, zb, zc)
+    zc.copy_(torch.complex(c_re, c_im))
+    interleaved_ms = cuda_ms(lambda: epilogue_cuda.zfold(SEs, za, zb, zc.real, zc.imag, zc),
+                             iters=5)
+    planes_then_complex_ms = cuda_ms(lambda: torch.complex(
+        *epilogue_cuda.zfold(SEs, za, zb, zc.real, zc.imag)), iters=5)
+    del zc
     four_planes = cuda_ms(lambda: [E.plane() for _, E in SEs], iters=5)
     for key, (alpha, beta, cs) in {"zfold": (1.0, 0.0, (None, None)),
                                    "zfold_c": (za, zb, (c_re, c_im))}.items():
@@ -1240,7 +1282,15 @@ def phase_epilogue(label, main_SE, sass) -> dict:
           f"triples in every branch with E as a plane and as crafted parts at odd n, c "
           f"contiguous and as strided windows, a panel at an odd column, sgemm's E-plane "
           f"route, HPL's 15360^2 update, a batch by pa [B, m] and pb [B, n], ZGEMM's four "
-          f"passes at {N}^2), one launch each", flush=True)
+          f"passes at {N}^2), one launch each; the fold into a complex128 window == the plane "
+          f"fold and torch.complex in {cases['interleaved']} cases (C0 read from that window "
+          f"of a larger matrix, or no c), the epilogue over its own c == into a separate "
+          f"output in {cases['in place']} (HPL's update)", flush=True)
+    print(f"[time] {label}: fold {N}^2 alpha={za} beta={zb} into C0's complex128 window "
+          f"{interleaved_ms:.4f} ms; the plane fold and torch.complex "
+          f"{planes_then_complex_ms:.4f} ms; HPL's {m}^2 epilogue over its own c "
+          f"{times['hpl']['in_place_ms']:.4f} ms (into a new output {times['hpl']['ms']:.4f} ms)",
+          flush=True)
     names = {"main": (f"epilogue {N}^2 alpha=1 beta=0 (the main path)",
                       "epilogue alpha=1 beta=0"),
              "scaled": (f"epilogue {N}^2 alpha=2 beta=-0.5 with c", "epilogue alpha beta"),

@@ -22,9 +22,11 @@ kernel once.  :func:`_check` makes the operand checks of every entry.
 
 This module also owns the complex layout: a complex128 operand becomes
 its contiguous real and imaginary float64 planes (:func:`_planes`), and
-the result planes are interleaved again (:func:`_complex_result`); and
-the module counters of the entries above it (:data:`ZLAYOUT_COPIES`,
-:data:`AUTO_CHOICES`, the replay's).
+the result planes are interleaved again (:func:`_complex_result`), except
+in :func:`gemm_int8`'s 2-D products, whose fold reads c's parts as the
+views of c and writes the complex128 output itself; and the module
+counters of the entries above it (:data:`ZLAYOUT_COPIES`,
+:data:`IN_PLACE`, :data:`AUTO_CHOICES`, the replay's).
 
 Operands are float64 tensors (planes); every step runs on the operands'
 device.  On a CUDA device the split, the recombination and the epilogue
@@ -38,9 +40,11 @@ launches nothing.
 
 Layout contract: row-major logical matrices.  :func:`gemm_int8` computes
 ``alpha * (a @ b) + beta * c`` on float64 or complex128 tensors, 2-D or
-batched; ``gemm_f64`` / ``gemm_f64_batched`` on float64 tensors and
-``zgemm_f64`` / ``zgemm_f64_batched`` on the real and imaginary float64
-planes of complex operands are the JAX package's entries.  Transpose
+batched, a 2-D product into a new tensor or the caller's ``out`` (a window
+of a larger matrix, or c itself); ``gemm_f64`` / ``gemm_f64_batched`` on
+float64 tensors and ``zgemm_f64`` / ``zgemm_f64_batched`` on the real and
+imaginary float64 planes of complex operands are the JAX package's
+entries.  Transpose
 flags are applied by the public API (core/api.py).
 """
 
@@ -234,10 +238,13 @@ def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im
     (reference gemm.cu:479-518): re*re -> +alpha, im*im -> -alpha, cross
     terms -> i*alpha; C is pre-scaled by beta (init_c_complex,
     gemm.cu:199-239).  Returns the (re, im) float64 planes, new or written
-    into ``out`` (a pair [m, n], e.g. column panels of wider planes).  On a
-    CUDA device, one launch of the fold kernel (ops/epilogue_cuda.py); on
+    into ``out`` (a pair [m, n], e.g. column panels of wider planes), or
+    ``out`` itself where it is a complex128 [m, n] tensor, written
+    interleaved (its rows contiguous; c's parts may be its own views).  On
+    a CUDA device, one launch of the fold kernel (ops/epilogue_cuda.py); on
     the CPU, the plain version :func:`_zfold_block` over row blocks, as
-    :func:`_epilogue_SE` runs its plain version.
+    :func:`_epilogue_SE` runs its plain version, into
+    ``torch.view_as_real``'s views of a complex128 ``out``.
     """
     with span("oz.epilogue"):
         if _on_cuda(device):
@@ -250,13 +257,19 @@ def _zfold_passes(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im
             return _zfold_block(SEs, m, n, alpha, beta, c_re, c_im, device)
         if out is None:
             out = tuple(torch.empty((m, n), dtype=torch.float64, device=device) for _ in range(2))
-        out_re, out_im = out
+        out_re, out_im = _part_views(out)
         for rows in blocks:
             block = [(tuple(s[rows] for s in S), E[rows]) for S, E in SEs]
             out_re[rows], out_im[rows] = _zfold_block(
                 block, rows.stop - rows.start, n, alpha, beta,
                 None if c_re is None else c_re[rows], None if c_im is None else c_im[rows], device)
-        return out_re, out_im
+        return out
+
+
+def _part_views(out):
+    """The float64 parts of an output: a tuple of parts as it is, or the
+    (re, im) views of a complex128 tensor (stride 2)."""
+    return torch.view_as_real(out).unbind(-1) if isinstance(out, torch.Tensor) else out
 
 
 def _zfold_block(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im, device):
@@ -313,8 +326,13 @@ def _zfold_block(SEs, m: int, n: int, alpha: complex, beta: complex, c_re, c_im,
 
 #: copies made by the complex layout: one for each float64 plane made from
 #: a complex operand (:func:`_planes`) and one for each interleave of a
-#: result (:func:`_complex_result`); 7 a complex GEMM with c, 5 without
+#: result (:func:`_complex_result`); 7 a complex GEMM of the public API
+#: with c, 5 without; 4 a 2-D complex :func:`gemm_int8` (A's and B's planes)
 ZLAYOUT_COPIES = 0
+
+#: products finished into a caller's ``out`` (:func:`gemm_int8`), by the
+#: dtype's name (``"float64"``, ``"complex128"``): one a product
+IN_PLACE: Counter = Counter()
 
 #: the modes that AUTO chose, by the mode's value: one for each AUTO
 #: decision of the public API's real, complex, batched real and batched
@@ -379,7 +397,8 @@ def _recombine_passes(a_planes, b_planes, num_split: int, bb: int, k: int,
 def _finish(SEs, C, alpha, beta, out):
     """The finisher: the epilogue of a real product's one pass, or the fold
     of a complex product's four; results by parts, new or written into
-    ``out`` (the parts of an output's column panel).  A complex batch folds
+    ``out`` (the parts of an output's column panel, or a complex128 panel,
+    which the fold writes interleaved and returns).  A complex batch folds
     over its [B*m, n] rows (the fold is elementwise)."""
     if len(SEs) == 1:
         ((S, E),) = SEs
@@ -394,11 +413,15 @@ def _finish(SEs, C, alpha, beta, out):
     return re.reshape(shape), im.reshape(shape)
 
 
-def _loop(A, B, C, num_split: int, alpha, beta, n_chunks: int, phase=_no_phase):
+def _loop(A, B, C, num_split: int, alpha, beta, n_chunks: int, phase=_no_phase, out=None):
     """The int8 product ``alpha * (a @ b) + beta * c`` by parts (one for a
     real product, (re, im) planes for a complex one), on contiguous A parts
     [m, k] or [B, m, k], B parts [k, n] or [B, k, n], and C's parts (None
-    where absent); returns the output's parts.
+    where absent, any strides); returns the output's parts, new, or
+    ``out`` written in place: a 2-D product's parts (rows contiguous), or
+    for a complex one a complex128 [m, n] tensor that the fold writes
+    interleaved.  ``out`` may be c itself (each element reads c before it
+    is written), and shares no storage with A or B.
 
     A's parts are split once.  Then, for each of ``n_chunks`` column panels
     of B (the last narrower; one panel for a batch): split B's parts where
@@ -419,13 +442,16 @@ def _loop(A, B, C, num_split: int, alpha, beta, n_chunks: int, phase=_no_phase):
     with phase("split_A"):
         a_planes = [split_f64(x, num_split, bb, kp) for x in A]
     if n_chunks == 1 or n == 0:
-        panels, out = ((B, C, None),), None
+        panels = ((B, C, out),)
     else:
         w = -(-n // n_chunks)
-        out = tuple(torch.empty((A[0].shape[0], n), dtype=torch.float64, device=A[0].device)
-                    for _ in A)
-        panels = (([x[:, j:j + w] for x in B], [None if x is None else x[:, j:j + w] for x in C],
-                   tuple(o[:, j:j + w] for o in out)) for j in range(0, n, w))
+        if out is None:
+            out = tuple(torch.empty((A[0].shape[0], n), dtype=torch.float64, device=A[0].device)
+                        for _ in A)
+        cols = lambda X, j: [None if x is None else x[:, j:j + w] for x in X]  # noqa: E731
+        panels = ((cols(B, j), cols(C, j),
+                   out[:, j:j + w] if isinstance(out, torch.Tensor) else tuple(cols(out, j)))
+                  for j in range(0, n, w))
     for Bp, Cp, out_p in panels:
         with phase("split_B"):
             b_planes = [split_f64_cols(x, num_split, bb, kp) for x in Bp]
@@ -503,21 +529,22 @@ def _scalar_bits(x) -> bytes:
 
 
 def replay_key(parts: int, m: int, n: int, k: int, num_split: int, alpha, beta, c_given,
-               device, stream: int) -> tuple:
+               device, stream: int, interleaved: bool = False) -> tuple:
     """The signature of a product: everything the chain that :func:`_loop`
     launches depends on.  ``parts`` 1 (real) or 2 (complex), alpha and beta
-    as values, ``c_given`` whether each part of c is read, the device and
-    the current stream's handle (static buffers are never shared across
-    streams)."""
+    as values, ``c_given`` whether each part of c is read, the device, the
+    current stream's handle (static buffers are never shared across
+    streams) and whether a complex output is one interleaved complex128
+    tensor (the fold's other instantiation) rather than two planes."""
     return (parts, m, n, k, num_split, _scalar_bits(alpha), _scalar_bits(beta), tuple(c_given),
-            torch.device(device), stream)
+            torch.device(device), stream, bool(interleaved))
 
 
 class _Replay:
     """A captured chain: the graph, the static buffers it reads (A's, B's
-    and c's parts; None for a part of c it does not read), its outputs,
-    the tape of the wrappers' launches it holds, and the device bytes it
-    holds."""
+    and c's parts; None for a part of c it does not read), its output (the
+    parts, or one interleaved complex128 tensor), the tape of the
+    wrappers' launches it holds, and the device bytes it holds."""
 
     def __init__(self, graph, inputs, out, tape, nbytes: int):
         self.graph, self.inputs, self.out = graph, inputs, out
@@ -584,10 +611,12 @@ _CAPTURE_LOCK = threading.Lock()
 _CAPTURE_STREAMS: dict = {}
 
 
-def _capture(A, B, C, num_split: int, alpha, beta, dev, cap: int) -> Optional[_Replay]:
+def _capture(A, B, C, num_split: int, alpha, beta, dev, cap: int,
+             interleaved: bool = False) -> Optional[_Replay]:
     """Capture :func:`_loop`'s chain on static buffers of A's, B's and C's
-    shapes (C's parts None where not read) on a side stream; None where
-    the capture raises or the chain's bytes pass ``cap``.  Its bytes are
+    shapes (C's parts None where not read) on a side stream, into a
+    complex128 output where ``interleaved``; None where the capture raises
+    or the chain's bytes pass ``cap``.  Its bytes are
     the static buffers and the growth of the device's reserved memory
     over the capture: the graph's private pool, as the allocator holds
     it.  The wrappers count the captured launches, which the chain's
@@ -611,7 +640,11 @@ def _capture(A, B, C, num_split: int, alpha, beta, dev, cap: int) -> Optional[_R
                 with torch.cuda.stream(side):
                     graph.capture_begin(capture_error_mode="thread_local")
                     try:
-                        out = _loop(sA, sB, sC, num_split, alpha, beta, 1)
+                        out = None
+                        if interleaved:
+                            out = torch.empty((A[0].shape[0], B[0].shape[1]),
+                                              dtype=torch.complex128, device=dev)
+                        out = _loop(sA, sB, sC, num_split, alpha, beta, 1, out=out)
                     finally:
                         graph.capture_end()
             except RuntimeError as e:
@@ -629,10 +662,12 @@ def _capture(A, B, C, num_split: int, alpha, beta, dev, cap: int) -> Optional[_R
     return _Replay(graph, inputs, out, tape, nbytes)
 
 
-def _replayed(A, B, C, num_split: int, alpha, beta):
+def _replayed(A, B, C, num_split: int, alpha, beta, out=None):
     """The output's parts by the replay of the signature's captured chain,
     the operands copied into its static buffers and the output cloned
-    (the next replay writes over it); the chain is captured at the
+    (the next replay writes over it), or copied into ``out`` (the parts,
+    or a complex128 tensor: the chain then folds into an interleaved
+    output of its own); the chain is captured at the
     signature's second call, where its estimate (:func:`replay_bytes`)
     fits the cache's cap (:func:`replay_cache_bytes`).  None where the
     call is to run eagerly: the signature's first call, or a signature
@@ -641,8 +676,9 @@ def _replayed(A, B, C, num_split: int, alpha, beta):
     dev = A[0].device
     (m, k), n = A[0].shape, B[0].shape[1]
     C = [x if beta != 0 else None for x in C]  # c is read only where beta != 0
+    interleaved = isinstance(out, torch.Tensor)
     key = replay_key(len(A), m, n, k, num_split, alpha, beta, (x is not None for x in C), dev,
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     torch.cuda.current_stream(dev).cuda_stream, interleaved)
     entry = _CACHE.state(key)
     if entry is None or entry is _EAGER:
         EAGER_SMALL += 1
@@ -651,7 +687,8 @@ def _replayed(A, B, C, num_split: int, alpha, beta):
     if entry is _SEEN:
         cap = replay_cache_bytes(dev)
         need = replay_bytes(m, n, k, num_split, len(A) == 2, sum(x is not None for x in C))
-        entry = _capture(A, B, C, num_split, alpha, beta, dev, cap) if need <= cap else None
+        entry = (_capture(A, B, C, num_split, alpha, beta, dev, cap, interleaved)
+                 if need <= cap else None)
         _CACHE.put(key, entry or _EAGER, cap)
         if entry is None:
             EAGER_SMALL += 1
@@ -663,14 +700,20 @@ def _replayed(A, B, C, num_split: int, alpha, beta):
             if s is not None:
                 s.copy_(x)
         entry.graph.replay()
-        out = tuple(o.clone() for o in entry.out)
+        if out is None:
+            out = tuple(o.clone() for o in entry.out)
+        elif interleaved:
+            out.copy_(entry.out)
+        else:
+            for o, x in zip(out, entry.out):
+                o.copy_(x)
     native.count(entry.tape, again)
     REPLAYS += 1
     return out
 
 
 def _run(A, B, C, num_split: int, alpha, beta, n_chunks: Optional[int] = None,
-         phase=_no_phase):
+         phase=_no_phase, out=None):
     """The engine on checked operands by parts (see :func:`_loop`), k > 0:
     the span ``oz.engine`` around the loop, run once, or once per
     sub-batch, or around the replay of the product's captured chain (a
@@ -680,7 +723,8 @@ def _run(A, B, C, num_split: int, alpha, beta, n_chunks: Optional[int] = None,
     from the working-set estimate against the device's memory
     (schedule.auto_n_chunks).  A batch runs in the sub-batches of
     :func:`_sub_batches`, or matrix by matrix where one matrix needs
-    column panels.  Returns the output's parts."""
+    column panels.  Returns the output's parts, or a 2-D product's ``out``
+    (see :func:`_loop`) written in place."""
     with span("oz.engine"):
         complex_, dev = len(A) == 2, A[0].device
         m, k = A[0].shape[-2:]
@@ -690,13 +734,13 @@ def _run(A, B, C, num_split: int, alpha, beta, n_chunks: Optional[int] = None,
             n_chunks = auto_n_chunks(m, n, k, num_split, complex_, device=dev)
         if (not batched and n_chunks == 1 and phase is _no_phase and _graphs(dev)
                 and replays(m, n, k, num_split, complex_)):
-            got = _replayed(A, B, C, num_split, alpha, beta)
+            got = _replayed(A, B, C, num_split, alpha, beta, out)
             if got is not None:
                 return got
         A = [x.contiguous() for x in A]
         B = [x.contiguous() for x in B]
         if not batched:
-            return _loop(A, B, C, num_split, alpha, beta, n_chunks, phase)
+            return _loop(A, B, C, num_split, alpha, beta, n_chunks, phase, out)
         bsz = A[0].shape[0]
         parts = _sub_batches(bsz, m, n, k, num_split, complex_, dev)
         if parts is not None and len(parts) == 1:
@@ -743,12 +787,47 @@ def _check(A, B, C, beta, batched: bool, dtype=torch.float64) -> None:
             raise ValueError("a, b and c must lie on one device")
 
 
-def _entry(A, B, C, num_split: int, alpha, beta, batched: bool, n_chunks=None):
-    """:func:`_check`, then :func:`_run` or the k = 0 result, by parts."""
+def _entry(A, B, C, num_split: int, alpha, beta, batched: bool, n_chunks=None, out=None):
+    """:func:`_check`, then :func:`_run` or the k = 0 result, by parts or
+    into ``out`` (see :func:`_loop`)."""
     _check(A, B, C, beta, batched)
     if A[0].shape[-1] == 0:
-        return _k0_result(beta, C, (*A[0].shape[:-1], B[0].shape[-1]), A[0].device)
-    return _run(A, B, C, num_split, alpha, beta, n_chunks)
+        got = _k0_result(beta, C, (*A[0].shape[:-1], B[0].shape[-1]), A[0].device)
+        if out is None:
+            return got
+        for o, x in zip(_part_views(out), got):
+            o.copy_(x)
+        return out
+    return _run(A, B, C, num_split, alpha, beta, n_chunks, out=out)
+
+
+def _shares_storage(x: torch.Tensor, y: torch.Tensor) -> bool:
+    return x.numel() > 0 and y.numel() > 0 and \
+        x.untyped_storage().data_ptr() == y.untyped_storage().data_ptr()
+
+
+def _check_out(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               c: Optional[torch.Tensor]) -> None:
+    """The checks of :func:`gemm_int8`'s ``out``: a 2-D product's dtype and
+    shape [m, n] on the operands' device, rows contiguous, sharing no
+    storage with a or b, and c's only as c itself (the same view)."""
+    if a.dim() != 2:
+        raise ValueError("out is taken by 2-D products only")
+    want = (a.shape[0], b.shape[-1])
+    if out.dtype != a.dtype:
+        raise ValueError(f"out must be {a.dtype}, got {out.dtype}")
+    if tuple(out.shape) != want:
+        raise ValueError(f"out has shape {tuple(out.shape)}; out must have shape {want}")
+    if out.device != a.device:
+        raise ValueError(f"out must lie on the operands' device {a.device}, got {out.device}")
+    if want[1] > 1 and out.stride(-1) != 1:
+        raise ValueError(f"the rows of out must be contiguous, got strides {out.stride()}")
+    for name, x in (("a", a), ("b", b)):
+        if _shares_storage(out, x):
+            raise ValueError(f"out shares storage with {name}")
+    if c is not None and _shares_storage(out, c) and (
+            out.data_ptr() != c.data_ptr() or out.stride() != c.stride()):
+        raise ValueError("out shares storage with c without being c itself")
 
 
 def gemm_int8(
@@ -759,19 +838,42 @@ def gemm_int8(
     beta=0.0,
     c: Optional[torch.Tensor] = None,
     n_chunks: Optional[int] = None,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Emulated ``alpha * (a @ b) + beta * c`` on float64 or complex128
     tensors a [m, k], b [k, n] (c [m, n]), or batches [B, m, k] @
     [B, k, n], all of one dtype on one device; the result is of that dtype
-    there.  Complex operands run the 4-pass engine on their planes.
-    ``n_chunks`` as in :func:`gemm_f64`."""
+    there.  Complex operands run the 4-pass engine on A's and B's planes;
+    a 2-D product's fold reads c through its (re, im) views and writes the
+    complex128 result itself, interleaved.  ``n_chunks`` as in
+    :func:`gemm_f64`.
+
+    ``out`` (2-D products only): a tensor of the product's dtype and shape
+    [m, n] on the operands' device, rows contiguous, that takes the result
+    in place and is returned; a window of a larger matrix, or c itself
+    (each element reads c before it is written), but sharing no storage
+    with a or b.  Counted in :data:`IN_PLACE`.  The bits are those of the
+    returned tensor."""
+    if out is not None:
+        _check_out(out, a, b, c)
     batched = a.dim() == 3
     if not a.is_complex():
-        return _entry((a,), (b,), (c,), num_split, float(alpha), float(beta), batched, n_chunks)[0]
-    C = _planes(c) if c is not None else (None, None)
-    re, im = _entry(_planes(a), _planes(b), C, num_split, complex(alpha), complex(beta), batched,
-                    n_chunks)
-    return _complex_result(re, im, False)
+        got = _entry((a,), (b,), (c,), num_split, float(alpha), float(beta), batched, n_chunks,
+                     None if out is None else (out,))[0]
+    elif batched:
+        C = _planes(c) if c is not None else (None, None)
+        re, im = _entry(_planes(a), _planes(b), C, num_split, complex(alpha), complex(beta), True,
+                        n_chunks)
+        return _complex_result(re, im, False)
+    else:
+        C = (c.real, c.imag) if c is not None else (None, None)
+        dest = out if out is not None else torch.empty(
+            (a.shape[0], b.shape[-1]), dtype=torch.complex128, device=a.device)
+        got = _entry(_planes(a), _planes(b), C, num_split, complex(alpha), complex(beta), False,
+                     n_chunks, dest)
+    if out is not None:
+        IN_PLACE[str(out.dtype).removeprefix("torch.")] += 1
+    return got
 
 
 def gemm_f64(

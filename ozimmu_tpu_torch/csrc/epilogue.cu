@@ -41,7 +41,14 @@
 //     (a warp still reads 128 contiguous bytes of each plane a load): four
 //     columns a thread hold 4 x 20 sources and unroll over a thousand
 //     instructions four times, and ran slower for it (128 registers with
-//     spills, some 200 KB of code; PERF.md).
+//     spills, some 200 KB of code; PERF.md);
+//   * the fold writes two float64 planes (zfold_kernel<false>) or one
+//     interleaved complex128 array (zfold_kernel<true>), each element's
+//     (re, im) one 16-byte store through the array's row stride: the
+//     caller's window of a complex matrix takes the result where it lies,
+//     with no interleave after it.  There c is read 16 bytes an element
+//     too where its parts are the (re, im) views of one complex128 array
+//     with contiguous rows (c_pair), as a solver's trailing block is.
 // A block's band of rows lies in one matrix of a batch (pa [batch * m], pb
 // [batch, n]), so finding the matrix is one division a block.
 
@@ -235,6 +242,7 @@ struct ZfoldArgs {
   int32_t init_from_c;   // the accumulators start as c (beta == 1), else empty
   int32_t present;       // bit k: slot k adds a step
   Scalar scale[kSlots];  // slot k's factor
+  int32_t c_pair;        // zfold_kernel<true>: c[1] == c[0] + 1 with c_cs 2, read 16 B an element
 };
 
 // slot k adds v * 2^ve times its factor to acc (if the plan has it)
@@ -283,6 +291,9 @@ __device__ __forceinline__ void zfold_one(const ZfoldArgs& a, const oz::Triple (
   im_out = packed(im, im_e);
 }
 
+// PAIR: out[0] is an interleaved complex128 array at row stride out_rs[0]
+// (in doubles); else out[0] and out[1] are the two float64 planes
+template <bool PAIR>
 __global__ void __launch_bounds__(THREADS, ZFOLD_BLOCKS_PER_SM)
 zfold_kernel(const __grid_constant__ ZfoldArgs a) {
   int64_t b, r0, r1;
@@ -307,13 +318,24 @@ zfold_kernel(const __grid_constant__ ZfoldArgs a) {
                 __ldcs(a.s[p][2] + off + col)};
         e[p] = ebase[p] + __ldg(a.pb[p] + pb_off + col);
       }
+      if (PAIR && a.c_pair) {
+        const double2 v = __ldcs(reinterpret_cast<const double2*>(crow[0] + 2 * col));
+        c[0] = v.x;
+        c[1] = v.y;
+      } else {
 #pragma unroll
-      for (int p = 0; p < 2; ++p)
-        if (a.c[p] != nullptr) c[p] = __ldcs(crow[p] + col * a.c_cs[p]);
+        for (int p = 0; p < 2; ++p)
+          if (a.c[p] != nullptr) c[p] = __ldcs(crow[p] + col * a.c_cs[p]);
+      }
       double re, im;
       zfold_one(a, S, e, c, re, im);
-      __stcs(a.out[0] + row * a.out_rs[0] + col, re);
-      __stcs(a.out[1] + row * a.out_rs[1] + col, im);
+      if (PAIR) {
+        __stcs(reinterpret_cast<double2*>(a.out[0] + row * a.out_rs[0] + 2 * col),
+               make_double2(re, im));
+      } else {
+        __stcs(a.out[0] + row * a.out_rs[0] + col, re);
+        __stcs(a.out[1] + row * a.out_rs[1] + col, im);
+      }
     }
   }
 }
@@ -388,8 +410,12 @@ extern "C" int oz_epilogue(const void* const* s, const void* e, const void* pa, 
 // s: 12 pointers, pass p's planes at 3p .. 3p + 2; pa, pb: 4 each, pass p's
 // exponents; c_re / c_im nullable, at (c_strides[0], [1]) and ([2], [3]);
 // the outputs at row strides re_rs and im_rs; flags: bit 0 the
-// accumulators start as c; present: bit k, slot k adds a step, with
-// the five floats t[5k .. 5k + 4] and the exponent te[k].
+// accumulators start as c, bit 1 out_re is one interleaved complex128
+// array (16-byte aligned, re_rs its row stride in doubles; out_im and
+// im_rs unread), bit 2 with bit 1: c_im == c_re + 1 and both column
+// strides 2, 16-byte aligned with even row strides, so each element of c
+// is one 16-byte load; present: bit k, slot k adds a step, with the five
+// floats t[5k .. 5k + 4] and the exponent te[k].
 extern "C" int oz_zfold(const void* const* s, const void* const* pa, const void* const* pb,
                         int shift, int64_t m, int64_t n, const int* plan,
                         const void* c_re, const void* c_im, const int64_t* c_strides,
@@ -416,7 +442,11 @@ extern "C" int oz_zfold(const void* const* s, const void* const* pa, const void*
   a.init_from_c = flags & 1;
   a.present = present & ((1 << kSlots) - 1);
   for (int k = 0; k < kSlots; ++k) a.scale[k] = scalar(t + 5 * k, te[k]);
+  a.c_pair = (flags >> 2) & 1;
   const dim3 block(plan[3], plan[4]), grid(plan[5], plan[6], plan[7]);
-  zfold_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  if (flags & 2)
+    zfold_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  else
+    zfold_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -190,8 +190,9 @@ def _lower_inverse(l: np.ndarray) -> np.ndarray:
 #            panel="device", where the matrix lies (torch.linalg);
 #   device : apply the step's row swaps across the full width, form
 #            U12 = L11inv @ A12 and A22 -= L21 @ U12 through the int8 engine
-#            (exact to one f64 rounding), then write the factored panel, U12
-#            and A22 back into the matrix.
+#            (exact to one f64 rounding; the engine writes A22 where it
+#            lies), then write the factored panel and U12 back into the
+#            matrix.
 #
 # The multiply-by-explicit-inverse TRSM is the standard GPU-HPL
 # formulation (U12 = L11^-1 A12 evaluated as a GEMM); with partial
@@ -208,12 +209,14 @@ def _lower_inverse(l: np.ndarray) -> np.ndarray:
 
 
 def _engine(a: torch.Tensor, b: torch.Tensor, num_split: int, alpha: float = 1.0,
-            beta: float = 0.0, c: Optional[torch.Tensor] = None) -> torch.Tensor:
+            beta: float = 0.0, c: Optional[torch.Tensor] = None,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``alpha * a @ b + beta * c`` through the int8 engine on resident
     float64 or complex128 tensors (windows of the matrix are fine: the
-    engine copies its operands contiguous and returns a new tensor, so the
-    result may be written back over ``c``)."""
-    return gemm_int8(a, b, num_split, alpha, beta, c)
+    engine copies A's and B's parts contiguous), into a new tensor or in
+    place into ``out``, a window of the matrix that may be ``c`` itself
+    (``core.gemm.gemm_int8``)."""
+    return gemm_int8(a, b, num_split, alpha, beta, c, out=out)
 
 
 def _panel_moves(j: int, p_loc: np.ndarray, piv: np.ndarray):
@@ -291,20 +294,21 @@ def _lu_step_device(A: torch.Tensor, j: int, jb: int, num_split: int, lu_panel: 
                     l11inv: Optional[torch.Tensor]) -> None:
     """The device half of one right-looking LU step, in place on ``A``
     (rows already swapped): engine TRSM and trailing update from the
-    factored panel, then the step's writeback into ``A`` (span
-    ``oz.lu.writeback``): the panel, U12 and the trailing block."""
+    factored panel, the engine writing the trailing block where it lies,
+    then the step's writeback into ``A`` (span ``oz.lu.writeback``): the
+    panel and U12."""
     n = A.shape[0]
     rest = j + jb
     if rest < n:
         # U12 = L11^-1 @ A12 as an engine GEMM (explicit-inverse TRSM)
         u12 = _engine(l11inv, A[j:rest, rest:], num_split)
-        # A22 -= L21 @ U12 (asymptotically all the FLOPs)
-        a22 = _engine(lu_panel[jb:], u12, num_split, -1.0, 1.0, A[rest:, rest:])
+        # A22 -= L21 @ U12 (asymptotically all the FLOPs), in place
+        a22 = A[rest:, rest:]
+        _engine(lu_panel[jb:], u12, num_split, -1.0, 1.0, a22, out=a22)
     with span("oz.lu.writeback"):
         A[j:, j:rest] = lu_panel
         if rest < n:
             A[j:rest, rest:] = u12
-            A[rest:, rest:] = a22
 
 
 class _Clock:
@@ -444,8 +448,8 @@ def _cholesky_device(a: torch.Tensor, num_split: int, block: int, profile=None) 
         if rest < n:
             l21 = gemm_int8(A[rest:, j:rest], torch.from_numpy(inv_t).to(dev), num_split)
             A[rest:, j:rest] = l21
-            A[rest:, rest:] = gemm_int8(l21, l21.T, num_split, alpha=-1.0, beta=1.0,
-                                        c=A[rest:, rest:])
+            a22 = A[rest:, rest:]
+            gemm_int8(l21, l21.T, num_split, alpha=-1.0, beta=1.0, c=a22, out=a22)
         clock.lap("device_update_s", wait=True)
     return torch.tril(A)
 

@@ -275,6 +275,28 @@ def _output(out: Optional[torch.Tensor], shape, device, what: str) -> torch.Tens
     return out
 
 
+def _complex_output(out: torch.Tensor, shape, device, what: str) -> torch.Tensor:
+    """A complex128 output of ``shape``, rows contiguous and 16-byte
+    aligned, that the fold writes interleaved through its row stride."""
+    if out.dtype != torch.complex128 or tuple(out.shape) != tuple(shape) or out.device != device:
+        raise ValueError(f"{what}: out must be complex128 {list(shape)} on {device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    if shape[-1] > 1 and out.stride(-1) != 1:
+        raise ValueError(f"{what}: the rows of out must be contiguous, got strides {out.stride()}")
+    if out.data_ptr() % 16:
+        raise ValueError(f"{what}: out must be 16-byte aligned")
+    return out
+
+
+def _pair(c_re: Optional[torch.Tensor], c_im: Optional[torch.Tensor]) -> bool:
+    """Whether c's parts are the (re, im) views of one complex128 array with
+    contiguous rows, 16-byte aligned: each element one 16-byte load."""
+    return (c_re is not None and c_im is not None
+            and c_im.data_ptr() == c_re.data_ptr() + 8 and c_re.stride() == c_im.stride()
+            and (c_re.shape[1] < 2 or c_re.stride(1) == 2)
+            and c_re.data_ptr() % 16 == 0 and _row_stride(c_re) % 2 == 0)
+
+
 def _rows_view(out: torch.Tensor, rows: int, n: int) -> torch.Tensor:
     return out if out.dim() == 2 else out.view(rows, n)
 
@@ -359,7 +381,12 @@ def zfold(SEs: Sequence, alpha: complex, beta: complex, c_re: Optional[torch.Ten
     [B, n], on a CUDA device) and c's parts (float64 of S's shape, any
     strides, read only where beta != 0; a part that is None reads as zero)
     into the (re, im) float64 planes, new or ``out`` (a pair, rows
-    contiguous)."""
+    contiguous).  Where ``out`` is a complex128 tensor of S's shape (rows
+    contiguous; a window of a larger matrix, or c's own array), the fold
+    writes it interleaved, (re, im) in one 16-byte store an element, and
+    returns it; c's parts that are the (re, im) views of one complex128
+    array are then read 16 bytes an element too.  The layout follows the
+    type of ``out``: the two give the same bits."""
     global ZFOLD_LAUNCHES
     if len(SEs) != len(ZGEMM_PASSES):
         raise ValueError(f"zfold takes {len(ZGEMM_PASSES)} pass results, got {len(SEs)}")
@@ -377,11 +404,19 @@ def zfold(SEs: Sequence, alpha: complex, beta: complex, c_re: Optional[torch.Ten
     plan = zfold_plan(alpha, beta)
     reads_c = plan.init_from_c or any(st.src >= C_RE for st in plan.steps)
     cs = [_c_part(x, rows, n, dev, "zfold") if reads_c else None for x in (c_re, c_im)]
-    out = out if out is not None else (None, None)
-    outs = [_output(o, shape, dev, "zfold") for o in out]
+    interleaved = isinstance(out, torch.Tensor)
+    if interleaved:
+        result = _complex_output(out, shape, dev, "zfold")
+        flat = _rows_view(result, rows, n)
+        o_ptrs = (flat.data_ptr(), flat.data_ptr() + 8)
+        o_rs = (2 * _row_stride(flat),) * 2
+    else:
+        result = tuple(_output(o, shape, dev, "zfold") for o in (out or (None, None)))
+        flat = [_rows_view(o, rows, n) for o in result]
+        o_ptrs = tuple(o.data_ptr() for o in flat)
+        o_rs = tuple(_row_stride(o) for o in flat)
     if rows * n == 0:
-        return tuple(outs)
-    flat = [_rows_view(o, rows, n) for o in outs]
+        return result
     launch = launch_plan(batch, rows // batch, n, _sms(dev), False)
     c_rs = [_row_stride(x) if x is not None else 0 for x in cs]
     slots = [_slot(st) for st in plan.steps]
@@ -402,12 +437,12 @@ def zfold(SEs: Sequence, alpha: complex, beta: complex, c_re: Optional[torch.Ten
             *(x.data_ptr() if x is not None else None for x in cs),
             (ctypes.c_int64 * 4)(*(v for x, rs in zip(cs, c_rs) for v in (
                 (rs, x.stride(1)) if x is not None else (0, 0)))),
-            flat[0].data_ptr(), flat[1].data_ptr(), _row_stride(flat[0]), _row_stride(flat[1]),
-            int(plan.init_from_c),
+            *o_ptrs, *o_rs,
+            int(plan.init_from_c) | int(interleaved) << 1 | int(interleaved and _pair(*cs)) << 2,
             sum(1 << k for k in slots), (ctypes.c_float * (5 * MAX_STEPS))(*t),
             (ctypes.c_int * MAX_STEPS)(*te), stream,
         )
     native.check(code, "zfold launch")
     ZFOLD_LAUNCHES += 1
     native.counted(__name__, "ZFOLD_LAUNCHES")
-    return tuple(outs)
+    return result

@@ -747,3 +747,102 @@ def test_epilogue_kernel_over_a_batch_view(dev):
     want = core._zfold_block([(tuple(map(rows, Sb)), rows(Eb.plane()))] * 4, bsz * m, n,
                              0.5 - 1.5j, 1.25 + 0.5j, rows(cb), None, dev)
     assert all(_bits_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("alpha,beta", [(1.0, 0.0), (-1.0, 1.0), (0.5 - 1.5j, 1.25 + 0.5j),
+                                        (2.5, 0.75), (1j, 2j), (0.0, -1.0)])
+def test_interleaved_fold_equals_the_plane_fold_then_torch_complex(dev, alpha, beta):
+    """The fold into a complex128 output (``zfold_kernel<true>``) == the
+    plane fold followed by ``torch.complex``, bit for bit, on crafted
+    triples' tails with crafted exponent parts: C0 read from and written
+    to the same window of a larger complex128 matrix (c read 16 bytes an
+    element), c as two separate planes, and c absent; one launch each,
+    nothing written outside the window."""
+    m, n = 83, 61
+    SEs, cs = [], []
+    for i in range(4):
+        Sd, _, c = crafted_triples(m, n, seed=50 + i, device=dev)
+        SEs.append((Sd, core.Exponents(*crafted_exponents(m, n, seed=60 + i, device=dev))))
+        cs.append(c)
+    c_re, c_im = cs[:2]
+    planes = [(S_, E.plane()) for S_, E in SEs]
+    for parts in ("window", "planes", "none"):
+        big = torch.full((m + 5, n + 9), complex(7.0, -7.0), dtype=torch.complex128, device=dev)
+        win = big[2:2 + m, 3:3 + n]
+        win.copy_(torch.complex(c_re, c_im))
+        keep = big.clone()
+        c_parts = {"window": (win.real, win.imag), "planes": (c_re, c_im),
+                   "none": (None, None)}[parts]
+        want_planes = epilogue_cuda.zfold(SEs, alpha, beta, *(
+            None if p is None else p.clone() for p in c_parts))
+        want = torch.complex(*want_planes)
+        plain = core._zfold_block(planes, m, n, complex(alpha), complex(beta), *(
+            None if p is None else p.clone() for p in c_parts), dev)
+        before = _counters()
+        got = epilogue_cuda.zfold(SEs, alpha, beta, *c_parts, out=win)
+        assert _launched(before) == (0, 0, 0, 0, 1)
+        assert got is win
+        assert _bits_equal(torch.view_as_real(win), torch.view_as_real(want)), (parts, alpha, beta)
+        assert all(_bits_equal(p, w) for p, w in zip(want_planes, plain))
+        mask = torch.ones(big.shape, dtype=torch.bool, device=dev)
+        mask[2:2 + m, 3:3 + n] = False
+        assert _bits_equal(torch.view_as_real(big[mask]), torch.view_as_real(keep[mask]))
+
+
+@pytest.mark.parametrize("alpha,beta", [(-1.0, 1.0), (2.5, -0.5), (1.0, 0.75), (0.1, 1.0 / 3.0)])
+@pytest.mark.parametrize("inputs", ["recombine", "crafted"])
+def test_epilogue_into_c_itself_equals_a_separate_out(dev, inputs, alpha, beta):
+    """The epilogue writing over its own c (``out`` is ``c``, a window of a
+    wider matrix at an aligned and at an odd column, as the solvers' in-place
+    trailing update) == the same launch into a separate output."""
+    if inputs == "recombine":
+        (Sd, E), c = _recombined(dev, seed=30)
+    else:
+        Sd, _, c = crafted_triples(203, 131, seed=31, device=dev)
+        E = core.Exponents(*crafted_exponents(203, 131, seed=32, device=dev))
+    m, n = Sd[0].shape
+    for col in (4, 3):
+        big = torch.full((m + 3, n + 8), 7.0, dtype=torch.float64, device=dev)
+        win = big[1:1 + m, col:col + n]
+        win.copy_(c)
+        keep = big.clone()
+        want = epilogue_cuda.epilogue(Sd, E, alpha, beta, win.clone())
+        before = _counters()
+        got = epilogue_cuda.epilogue(Sd, E, alpha, beta, win, win)
+        assert _launched(before) == (0, 0, 0, 1, 0) and got is win
+        assert _bits_equal(win, want), (inputs, col, alpha, beta)
+        mask = torch.ones(big.shape, dtype=torch.bool, device=dev)
+        mask[1:1 + m, col:col + n] = False
+        assert _bits_equal(big[mask], keep[mask])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("n_chunks", [1, 3])
+def test_gemm_int8_into_a_window_on_the_card_equals_the_plane_path(dev, dtype, n_chunks):
+    """``gemm_int8(..., out=c)`` on the card, c a window of a larger
+    matrix: the bits of ``gemm_f64`` / ``zgemm_f64`` (the planes, then
+    ``torch.complex``), one fold or epilogue launch a panel."""
+    m, k, n = 300, 520, 260
+    rng = np.random.default_rng(95)
+
+    def mk(*s):
+        x = rng.uniform(-1, 1, s)
+        if dtype == torch.complex128:
+            x = x + 1j * rng.uniform(-1, 1, s)
+        return torch.from_numpy(x).to(dev)
+
+    a, b, big = mk(m, k), mk(k, n), mk(m + 4, n + 6)
+    win = big[3:3 + m, 2:2 + n]
+    alpha, beta = (-1.0, 1.0) if dtype == torch.float64 else (0.5 - 1.5j, 1.25 + 0.5j)
+    if dtype == torch.float64:
+        want = core.gemm_f64(a, b, 9, alpha, beta, win.clone(), n_chunks)
+    else:
+        planes = [p for x in (a, b, win) for p in (x.real.contiguous(), x.imag.contiguous())]
+        want = torch.complex(*core.zgemm_f64(*planes[:4], 9, alpha, beta, *planes[4:],
+                                             n_chunks=n_chunks))
+    before = _counters()
+    got = core.gemm_int8(a, b, 9, alpha, beta, win, n_chunks, out=win)
+    launched = _launched(before)
+    assert got is win and launched[3] + launched[4] == n_chunks
+    as_real = torch.view_as_real if dtype == torch.complex128 else (lambda t: t)
+    assert _bits_equal(as_real(win), as_real(want))

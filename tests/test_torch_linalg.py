@@ -397,3 +397,34 @@ def test_complex_device_panel_with_a_huge_pivot_stays_finite():
         lu, piv = tl.lu_factor(torch.from_numpy(a), mode="fp64_int8_9", block=16, panel=panel)
         assert piv[0] == 5 and torch.isfinite(torch.view_as_real(lu)).all()
         assert _pa_lu_residual(a, lu.numpy(), piv) < 1e-14
+
+
+@pytest.mark.parametrize("kind", ["lu", "complex lu", "cholesky"])
+def test_resident_updates_in_place_equal_the_product_then_the_writeback(monkeypatch, kind):
+    """The resident solvers have the engine write each trailing update into
+    the matrix (``gemm_int8(..., out=A22)``, A22 also c): the factor equals,
+    bit for bit, the one whose engine products are new tensors copied into
+    the matrix after each product, at n = 2048, NB = 512."""
+    n, nb = 2048, 512
+    a = _spd(n, seed=71) if kind == "cholesky" else _matrix(n, seed=72, complex_=kind != "lu")
+    at = torch.from_numpy(a)
+
+    def factor():
+        if kind == "cholesky":
+            return tl.cholesky(at, mode="fp64_int8_9", block=nb), None
+        return tl.lu_factor(at, mode="fp64_int8_9", block=nb)
+
+    got, piv = factor()
+    engine = tl.gemm_int8
+
+    def product_then_writeback(a, b, num_split, alpha=1.0, beta=0.0, c=None, n_chunks=None,
+                               out=None):
+        r = engine(a, b, num_split, alpha, beta, c, n_chunks)
+        if out is not None:
+            out.copy_(r)
+        return r
+
+    monkeypatch.setattr(tl, "gemm_int8", product_then_writeback)
+    want, want_piv = factor()
+    np.testing.assert_array_equal(piv, want_piv)
+    np.testing.assert_array_equal(_tensor_u64(got), _tensor_u64(want))

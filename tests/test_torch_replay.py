@@ -137,7 +137,7 @@ _BASE = dict(parts=1, m=64, n=48, k=32, num_split=9, alpha=1.0, beta=0.0, c_give
 @pytest.mark.parametrize("field,value", [
     ("parts", 2), ("m", 65), ("n", 49), ("k", 33), ("num_split", 8), ("alpha", 0.5),
     ("alpha", -1.0), ("beta", 1.0), ("beta", -0.0), ("c_given", (True,)), ("device", "cuda:1"),
-    ("stream", 8), ("alpha", complex(1.0, 0.5)),
+    ("stream", 8), ("alpha", complex(1.0, 0.5)), ("interleaved", True),
 ])
 def test_each_field_of_the_signature_tells_two_products_apart(field, value):
     assert core.replay_key(**_BASE) != core.replay_key(**{**_BASE, field: value})
@@ -359,6 +359,44 @@ def test_a_complex_product_replays_bit_for_bit(dev, monkeypatch):
     got = [call() for _ in range(3)]
     assert _moved(before) == (1, 2, 1, 0)
     assert all(_bits_equal(x, want) for x in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_a_product_into_a_window_of_c_replays_bit_for_bit(dev, dtype):
+    """``gemm_int8(..., c=w, out=w)``, w a window of a larger matrix (the
+    solvers' last trailing updates), called three times beside the plane
+    path (``gemm_f64`` / ``zgemm_f64``) on the same C0: each call's window
+    equals the plane path's result, and nothing outside it moves.  A real
+    product shares the plane path's signature (eager, captured, then four
+    replays); a complex one into a complex128 output is a signature of its
+    own, captured with the fold's interleaved output (each: eager,
+    capture, replay)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    m, n, k = 512, 384, 640
+
+    def rand(shape):
+        x = _rand(shape, g, dev)
+        return torch.complex(x, _rand(shape, g, dev)) if dtype == torch.complex128 else x
+
+    a, b, big = rand((m, k)), rand((k, n)), rand((m + 3, n + 5))
+    win = big[1:1 + m, 2:2 + n]
+    alpha, beta = (-1.0, 1.0) if dtype == torch.float64 else (0.75 - 0.5j, -0.25 + 0.5j)
+    before = _counts()
+    for _ in range(3):
+        c0, keep = win.clone(), big.clone()
+        if dtype == torch.float64:
+            want = core.gemm_f64(a, b, 9, alpha, beta, c0, 1)
+        else:
+            planes = [p for x in (a, b, c0) for p in (x.real.contiguous(), x.imag.contiguous())]
+            want = torch.complex(*core.zgemm_f64(*planes[:4], 9, alpha, beta, *planes[4:],
+                                                 n_chunks=1))
+        assert core.gemm_int8(a, b, 9, alpha, beta, win, 1, out=win) is win
+        assert _bits_equal(win, want)
+        outside = torch.ones(big.shape, dtype=torch.bool, device=dev)
+        outside[1:1 + m, 2:2 + n] = False
+        assert _bits_equal(big[outside], keep[outside])
+    assert _moved(before) == ((1, 5, 1, 0) if dtype == torch.float64 else (2, 4, 2, 0))
 
 
 @pytest.mark.cuda

@@ -297,7 +297,8 @@ def built_per_element(kernels: dict) -> dict:
     out = {}
     for case, key in CASES.items():
         if isinstance(key, int):
-            k = kernels.get("zfold_kernel")
+            # the plane instantiation (one before the interleaved output)
+            k = kernels.get("zfold_kernel<0>") or kernels.get("zfold_kernel")
             extra = key
         else:
             args = ", ".join(map(str, key))
